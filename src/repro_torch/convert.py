@@ -1,0 +1,78 @@
+"""Bridge from the JAX reference's parameters and bundles to the port's.
+
+Threefry and Philox draw different numbers from the same seed, so the two
+packages are never compared on same-seed initializations: weights move
+through numpy instead.  Every function here takes host arrays (numpy, or
+anything ``np.asarray`` accepts) and duck-typed reference objects, and
+imports nothing of the reference package.
+
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+    dep = deployed_from_reference(jdep, device="cpu")
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .core.asp_quant import ASPQuantSpec
+from .core.kan_network_deploy import DeployedKAN
+from .device import resolve_device
+from .runtime import PLAN_CACHE
+
+__all__ = [
+    "spec_from_reference",
+    "params_from_numpy",
+    "qparams_from_numpy",
+    "deployed_from_reference",
+]
+
+
+def _tensor(a, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
+def spec_from_reference(spec) -> ASPQuantSpec:
+    """The port's frozen ASPQuantSpec, mapped field by field."""
+    return ASPQuantSpec(**{
+        f.name: getattr(spec, f.name) for f in dataclasses.fields(ASPQuantSpec)
+    })
+
+
+def params_from_numpy(params_list, *, device=None) -> list:
+    """Float layer params ``[{"c", "w_b"}, ...]`` as tensors on ``device``."""
+    dev = resolve_device(device)
+    return [{k: _tensor(p[k], dev) for k in ("c", "w_b")} for p in params_list]
+
+
+def qparams_from_numpy(qparams: dict, *, device=None) -> dict:
+    """One ``quantize_kan_layer`` dict, every entry a tensor of the same
+    dtype on ``device`` (``lut_scale`` becomes a 0-dim f32 tensor)."""
+    dev = resolve_device(device)
+    return {k: _tensor(v, dev) for k, v in qparams.items()}
+
+
+def deployed_from_reference(dep, *, device=None) -> DeployedKAN:
+    """A reference ``DeployedKAN`` as the port's, weights copied verbatim.
+
+    The port's plan for the same batch, dims and specs must pad exactly as
+    the reference's did; a mismatch raises instead of loading weights into
+    the wrong geometry.
+    """
+    dev = resolve_device(device)
+    specs = tuple(spec_from_reference(s) for s in dep.specs)
+    dims = tuple(int(d) for d in dep.dims)
+    plan = PLAN_CACHE.plan(int(dep.plan.b), dims, specs,
+                           residual_raw=bool(dep.residual_raw))
+    for lp, ref_lp in zip(plan.layers, dep.plan.layers):
+        if (lp.fp, lp.op) != (ref_lp.fp, ref_lp.op):
+            raise ValueError(
+                f"padded geometry differs: port {(lp.fp, lp.op)} vs "
+                f"reference {(ref_lp.fp, ref_lp.op)}"
+            )
+    layers = tuple({k: _tensor(v, dev) for k, v in lw.items()}
+                   for lw in dep.layers)
+    return DeployedKAN(plan=plan, layers=layers, specs=specs, dims=dims,
+                       residual_raw=bool(dep.residual_raw))

@@ -1,0 +1,169 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+The kernels live in ``repro_torch/csrc/*.cu`` behind a plain C interface.
+At first use they are compiled with ``nvcc`` for ``sm_90a`` into a shared
+library under ``csrc/_build/`` (keyed by a hash of the source and flags, so
+an edited source rebuilds) and bound with ``ctypes``: a build of seconds,
+where a PyTorch C++ extension takes minutes.  Nothing is compiled or loaded
+at import, so the CPU tests import every module without ``nvcc``.
+
+``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
+launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+__all__ = [
+    "LAUNCHES",
+    "launch_counts",
+    "reset_launch_counts",
+    "build",
+    "library",
+    "check",
+    "check_spec",
+    "ptr",
+    "stream_args",
+]
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = CSRC / "_build"
+SOURCE = CSRC / "kan_spline.cu"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+_LOCK = threading.Lock()
+_LIB = None
+_BUILD_INFO: dict = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # codes xraw lut lutp wc wcp wscale wb noise y codes_out
+    # B F O nb kk ld | lo code_step lut_scale hs mid nx_lo nx_scale
+    # nx_num_codes device stream
+    "kan_pipeline_layer": [_P] * 11 + [_I] * 6 + [_F] * 7 + [_I, _I, _P],
+    # codes lut wc wb y | B F O nb kk ld | lo code_step | device stream
+    "kan_spline_fwd": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_I, _P],
+}
+
+
+def launch_counts() -> dict:
+    """Snapshot of kernel launches by name since start or the last reset."""
+    return dict(LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES.clear()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> dict:
+    """Compile the kernel library if its hashed artifact is missing.
+
+    Returns ``{"path", "seconds", "ptxas", "cached"}``; ``ptxas`` is the
+    ``-Xptxas -v`` register / shared-memory report of the build.  The
+    library is written under a temporary name and renamed into place, so
+    concurrent first uses never load a half-written file.
+    """
+    with _LOCK:
+        if _BUILD_INFO:
+            return dict(_BUILD_INFO)
+        digest = hashlib.sha256(
+            SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+        lib_path = BUILD_DIR / f"kan_spline-{digest}.so"
+        log_path = lib_path.with_suffix(".log")
+        t0 = time.perf_counter()
+        cached = lib_path.exists() and log_path.exists()
+        if not cached:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                capture_output=True, text=True,
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
+                )
+            log_path.write_text(proc.stderr + proc.stdout)
+            os.replace(tmp, lib_path)
+        _BUILD_INFO.update(
+            path=str(lib_path),
+            seconds=time.perf_counter() - t0,
+            ptxas=log_path.read_text(),
+            cached=cached,
+        )
+        return dict(_BUILD_INFO)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library with every entry point's argtypes set."""
+    global _LIB
+    if _LIB is None:
+        info = build()
+        lib = ctypes.CDLL(info["path"])
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.kan_error_string.argtypes = [ctypes.c_int]
+        lib.kan_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def check_spec(spec) -> None:
+    """Raise for a quantization spec the kernel library was not built for:
+    an order outside 1..5 (the K+1 = 2..6 template instances, each held
+    against its plain version on the card) or an SH-LUT over 48 KB of
+    shared memory."""
+    if not 1 <= spec.order <= 5:
+        raise ValueError(f"kernel supports orders 1..5, got {spec.order}")
+    if spec.codes_per_interval * (spec.order + 1) * 4 > 48 * 1024:
+        raise ValueError(f"SH-LUT of LD={spec.ld} exceeds shared memory")
+
+
+def check(status: int) -> None:
+    """Raise if a launch returned a CUDA error (cudaGetLastError != 0)."""
+    if status != 0:
+        msg = library().kan_error_string(status).decode()
+        raise RuntimeError(f"CUDA kernel launch failed: {msg} ({status})")
+
+
+def ptr(t: torch.Tensor | None):
+    """Device pointer of a tensor, or NULL for an absent operand."""
+    return None if t is None else t.data_ptr()
+
+
+def stream_args(device: torch.device) -> tuple:
+    """(device index, current stream handle) for a launch on ``device``."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(index).cuda_stream

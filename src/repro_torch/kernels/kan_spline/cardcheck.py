@@ -1,0 +1,123 @@
+"""Kernels B1 and B3 held against their plain versions on the card.
+
+The one definition of the card check, shared by ``chip_smoke.py`` (phase 3)
+and ``tests/test_torch_gpu.py``.  Each check draws random operands from a
+seeded ``torch.Generator`` on the card, runs the kernel and its plain
+PyTorch version on the same tensors, and raises on disagreement:
+
+  * outputs within ``ATOL + RTOL * |plain|`` (the same f32 terms summed in
+    another order differ by a few ulps);
+  * boundary codes equal up to the excused near-ties of
+    :mod:`repro_torch.parity`;
+  * packed and unpacked B1 weights / SH-LUT bit-identical;
+  * each kernel call adds exactly one to its launch counter.
+"""
+
+from __future__ import annotations
+
+import itertools
+
+import torch
+
+from ... import parity
+from ...core.asp_quant import ASPQuantSpec, build_lut
+from .. import cuda
+from . import pipeline as pl
+from .ops import kan_spline
+from .ref import kan_spline_ref
+
+__all__ = ["ATOL", "RTOL", "ORDERS", "B1_GEOMETRIES", "B1_FLAGS", "B3_SHAPES",
+           "b1_case", "check_b1", "check_b3"]
+
+ATOL = RTOL = 1e-5
+# every spline order the kernel library has an instance for (K+1 = 2..6)
+ORDERS = (1, 2, 3, 4, 5)
+# (grid, f, o): both layers of KAN1 (G=5), KAN2 (G=68) and the FFN stack
+B1_GEOMETRIES = ((5, 17, 1), (5, 1, 14), (68, 17, 1), (68, 1, 14),
+                 (8, 64, 128), (8, 128, 64))
+# residual_raw x packed_w x packed_lut x psum_noise x emit_codes
+B1_FLAGS = tuple(itertools.product((False, True), repeat=5))
+# (b, f, o, grid): ragged shapes, then KAN1's two layers at full batch
+B3_SHAPES = ((33, 17, 14, 5), (1, 1, 1, 64), (130, 300, 200, 16),
+             (7, 5, 3, 8), (65536, 17, 1, 5), (65536, 1, 14, 68))
+
+
+def b1_case(dev, gen, grid, f, o, flags, bp, order=3):
+    """Random operands of one B1 call at init-scale weights (|w| <=
+    0.3/sqrt(f)), so outputs stay O(1) and the code gate's window holds.
+
+    Returns ``(lp, lw, unpacked, codes, xraw, noise)``: ``lw`` is in the
+    form ``flags`` ask for, ``unpacked`` the same weights as f32."""
+    raw, pw, plut, noise, emit = flags
+    spec = ASPQuantSpec(grid_size=grid, order=order, lut_bits=4 if plut else 8)
+    dims = (f, o, 3) if emit else (f, o)
+    lp = pl.make_pipeline_plan(bp, dims, (spec,) * (len(dims) - 1),
+                               residual_raw=raw).layers[0]
+    nb = spec.num_basis
+    e = build_lut(spec)
+    lut = (torch.tensor(e["lut_q"], dtype=torch.float32)
+           * torch.tensor(e["scale"], dtype=torch.float32)).to(dev)
+    c_q = torch.randint(-7, 8, (f, nb, o), generator=gen, device=dev).to(torch.int8)
+    c_scale = (torch.rand(o, generator=gen, device=dev) + 0.5) * (0.3 / f**0.5 / 7)
+    wb = torch.randn(f, o, generator=gen, device=dev) / f**0.5
+    packed = pl.pack_layer_weights(c_q, c_scale, wb, lp)
+    unpacked = {"lut": lut, "wc": pl.unpacked_wc(packed, lp).contiguous(),
+                "wb": packed["wb"]}
+    lw = {"lut": lut, **packed} if pw else dict(unpacked)
+    if plut:
+        lw["lutp"] = pl.pack_lut(torch.tensor(e["lut_q"], device=dev), spec)
+    codes = torch.randint(0, spec.num_codes, (bp, lp.fp), generator=gen,
+                          device=dev, dtype=torch.int32)
+    xraw = torch.randn(bp, lp.fp, generator=gen, device=dev) if raw else None
+    nz = torch.randn(bp, lp.op, generator=gen, device=dev) * 0.01 if noise else None
+    return lp, lw, unpacked, codes, xraw, nz
+
+
+def check_b1(dev, gen, grid, f, o, flags, bp, order=3) -> dict:
+    """One B1 case, kernel against plain; returns ``{"max_abs_err",
+    "excused"}``."""
+    lp, lw, unpacked, codes, xraw, nz = b1_case(dev, gen, grid, f, o, flags,
+                                                bp, order)
+    case = (grid, f, o, order, flags)
+    before = cuda.launch_counts().get("kan_pipeline_layer", 0)
+    y, c = pl.run_pipeline_layer(codes, xraw, lw, lp, bp, psum_noise=nz)
+    if cuda.launch_counts()["kan_pipeline_layer"] != before + 1:
+        raise AssertionError(f"B1 {case}: launch not counted once")
+    py, pc = pl.run_pipeline_layer_plain(codes, xraw, lw, lp, bp, psum_noise=nz)
+    torch.cuda.synchronize()
+    if c is None:
+        err = (y - py).abs()
+        if not bool((err <= ATOL + RTOL * py.abs()).all()):
+            raise AssertionError(f"B1 {case}: max err {err.max().item()}")
+        st = {"max_abs_err": err.max().item(), "excused": 0}
+    else:
+        st = parity.compare_runs([c], [pc],
+                                 [parity.requant_preround(py, lp.next_spec)],
+                                 y, py, atol=ATOL, rtol=RTOL)
+    if lw is not unpacked and ("wcp" in lw or "lutp" in lw):
+        uy, uc = pl.run_pipeline_layer(codes, xraw, unpacked, lp, bp,
+                                       psum_noise=nz)
+        if not (torch.equal(uy, y) and (c is None or torch.equal(uc, c))):
+            raise AssertionError(f"B1 {case}: packed != unpacked")
+    return {"max_abs_err": st["max_abs_err"], "excused": st["excused"]}
+
+
+def check_b3(dev, gen, b, f, o, grid, order=3) -> float:
+    """One B3 case, kernel against plain; returns the max abs error."""
+    spec = ASPQuantSpec(grid_size=grid, order=order)
+    e = build_lut(spec)
+    lut = torch.tensor(e["lut_q"] * e["scale"], dtype=torch.float32, device=dev)
+    codes = torch.randint(0, spec.num_codes, (b, f), generator=gen,
+                          device=dev, dtype=torch.int32)
+    wc = torch.randn(f, spec.num_basis, o, generator=gen, device=dev) * (0.3 / f**0.5)
+    wb = torch.randn(f, o, generator=gen, device=dev) / f**0.5
+    before = cuda.launch_counts().get("kan_spline", 0)
+    y = kan_spline(codes, lut, wc, wb, spec)
+    if cuda.launch_counts()["kan_spline"] != before + 1:
+        raise AssertionError(f"B3 {b, f, o, grid, order}: launch not counted once")
+    py = kan_spline_ref(codes, lut, wc, wb, spec)
+    torch.cuda.synchronize()
+    err = (y - py).abs()
+    if not bool((err <= ATOL + RTOL * py.abs()).all()):
+        raise AssertionError(f"B3 {b, f, o, grid, order}: max err {err.max().item()}")
+    return err.max().item()

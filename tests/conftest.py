@@ -142,6 +142,10 @@ def pytest_configure(config):
         "slow: long-running suite (kept in CI; deselect locally with "
         '-m "not slow")',
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (PyTorch port kernels); skips without one",
+    )
 
 
 # ----------------------------------------------------------------------------

@@ -1,0 +1,98 @@
+"""Card-only tests of the port's CUDA kernels (``gpu`` marker).
+
+Each kernel against its plain PyTorch version on the same CUDA tensors at
+every spline order the kernel library is built for, through the checks of
+``repro_torch.kernels.kan_spline.cardcheck`` (outputs within 1e-5 + 1e-5 *
+|plain|: the same f32 terms summed in another order; boundary codes equal
+up to the excused near-ties of ``repro_torch.parity``; packed and unpacked
+B1 weights bit-identical), and the slice's fused path against "ref".  This
+file imports only the port, so it also runs where JAX is not installed:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Without a card every test skips (the check is inside the fixture, so every
+worker collects the same tests).
+"""
+
+import pytest
+import torch
+
+from repro_torch import parity, runtime
+from repro_torch.core.asp_quant import ASPQuantSpec
+from repro_torch.core.kan_layer import KANSpec, init_kan_network
+from repro_torch.core.kan_network_deploy import (
+    deploy_kan_ffn_stack,
+    deploy_kan_network,
+    quantize_kan_network,
+)
+from repro_torch.kernels import cuda
+from repro_torch.kernels.kan_spline import cardcheck as cc
+from repro_torch.runtime.executor import _entry_codes
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("order", cc.ORDERS)
+@pytest.mark.parametrize("grid,f,o", cc.B1_GEOMETRIES)
+def test_b1_kernel_matches_plain(dev, grid, f, o, order):
+    gen = torch.Generator(device=dev).manual_seed(grid + f + order)
+    for flags in cc.B1_FLAGS:
+        cc.check_b1(dev, gen, grid, f, o, flags, 512, order)
+
+
+@pytest.mark.parametrize("order", cc.ORDERS)
+def test_b3_kernel_matches_plain(dev, order):
+    gen = torch.Generator(device=dev).manual_seed(3 + order)
+    for shape in cc.B3_SHAPES:
+        cc.check_b3(dev, gen, *shape, order=order)
+
+
+@pytest.mark.parametrize("dims,grid,bits,ffn", [
+    ((17, 1, 14), 5, 8, False), ((17, 1, 14), 68, 8, False),
+    ((17, 1, 14), 5, (8, 4), False), ((64, 128, 64), 8, 8, True),
+])
+def test_slice_fused_matches_ref(dev, dims, grid, bits, ffn):
+    kspec = KANSpec(dims=dims, grid_size=grid, n_bits=bits)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qparams = quantize_kan_network(init_kan_network(gen, kspec, device=dev), kspec)
+    if ffn:
+        dep = deploy_kan_ffn_stack(qparams, dims, kspec.layer_spec(), device=dev)
+    else:
+        dep = deploy_kan_network(qparams, kspec, device=dev)
+    x = torch.rand(300, dims[0], generator=gen, device=dev) * 2 - 1
+    before = cuda.launch_counts().get("kan_pipeline_layer", 0)
+    y, codes = runtime.execute(dep, x, return_intermediates=True)
+    assert cuda.launch_counts()["kan_pipeline_layer"] == before + len(dims) - 1
+    ry, rcodes = runtime.execute(dep, x, backend="ref", return_intermediates=True)
+    entry, xraw = _entry_codes(dep, x, None)
+    pre = parity.boundary_prerounds(dep, entry, xraw, rcodes)
+    parity.compare_runs(codes, rcodes, pre, y, ry)
+
+
+def test_wrapper_raises_instead_of_falling_back(dev):
+    spec = ASPQuantSpec(grid_size=5)
+    codes = torch.zeros(4, 3, dtype=torch.int64, device=dev)
+    lut = torch.zeros(32, 4, device=dev)
+    with pytest.raises(ValueError, match="codes"):
+        from repro_torch.kernels.kan_spline.kernel import kan_spline_cuda
+        kan_spline_cuda(codes, lut, torch.zeros(3 * 8, 2, device=dev),
+                        torch.zeros(3, 2, device=dev), spec)
+    with pytest.raises(ValueError, match="orders 1..5"):
+        kan_spline_cuda(codes.int(), torch.zeros(32, 7, device=dev),
+                        torch.zeros(3 * 11, 2, device=dev),
+                        torch.zeros(3, 2, device=dev),
+                        ASPQuantSpec(grid_size=5, order=6))
+    with pytest.raises(ValueError, match="SH-LUT"):
+        big = ASPQuantSpec(grid_size=1, n_bits=14)
+        kan_spline_cuda(codes.int(), torch.zeros(2**14, 4, device=dev),
+                        torch.zeros(3 * 4, 2, device=dev),
+                        torch.zeros(3, 2, device=dev), big)
