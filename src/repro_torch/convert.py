@@ -8,6 +8,7 @@ imports nothing of the reference package.
 
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     dep = deployed_from_reference(jdep, device="cpu")
+    lm = lm_params_from_numpy(jax.tree.map(np.asarray, jlm), device="cpu")
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ __all__ = [
     "params_from_numpy",
     "qparams_from_numpy",
     "deployed_from_reference",
+    "lm_params_from_numpy",
 ]
 
 
@@ -76,3 +78,33 @@ def deployed_from_reference(dep, *, device=None) -> DeployedKAN:
                    for lw in dep.layers)
     return DeployedKAN(plan=plan, layers=layers, specs=specs, dims=dims,
                        residual_raw=bool(dep.residual_raw))
+
+
+def lm_params_from_numpy(tree, *, device=None):
+    """An LM param tree (``models.model.init_params``, or that tree after
+    ``quantize_kan_ffn_params_tree``) as the port's, leaf for leaf.
+
+    ``tree``: nested dicts and lists of host arrays, with each decoder
+    group's leaves stacked over its repeats (leading dim), as the reference
+    keeps them.  bf16 leaves (``ml_dtypes.bfloat16`` in numpy) are carried
+    as their bit patterns, so the values are exact.  A quantized tree comes
+    back without the port's per-layer ``"deployed"`` bundles; add them with
+    ``core.kan_ffn_deploy.deploy_kan_ffn_params_tree`` before serving it
+    (``kan_ffn_apply_quantized`` refuses a block without them)."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            bits = torch.from_numpy(np.array(a.view(np.uint16), copy=True))
+            return bits.view(torch.bfloat16).to(dev)
+        return _tensor(a, dev)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        return leaf(t)
+
+    return walk(tree)

@@ -14,7 +14,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["extended_knots", "bspline_basis", "cardinal_bump", "num_basis"]
+__all__ = ["extended_knots", "bspline_basis", "bspline_basis_fast",
+           "cardinal_bump", "num_basis"]
 
 
 def num_basis(grid_size: int, order: int) -> int:
@@ -81,6 +82,37 @@ def _cardinal_bump_coeffs(order: int) -> np.ndarray:
                 cur[s, 1:k + 1] += (-1.0 / k) * p
         polys.append(cur)
     return polys[order]
+
+
+def bspline_basis_fast(x: torch.Tensor, lo: float, hi: float, grid_size: int,
+                       order: int) -> torch.Tensor:
+    """Uniform-knot basis via the shared cardinal-bump polynomial.
+
+    The K+1 active values of each input are degree-K polynomials in the
+    intra-interval offset, placed at their band positions by an index
+    compare; equal to :func:`bspline_basis` for uniform knots, without its
+    K intermediate (x.shape, G+2K) tensors.  Returns ``x.shape + (G+K,)``
+    in f32 (the LM float KAN-FFN path).
+    """
+    h = (hi - lo) / grid_size
+    tau = torch.clamp((x.to(torch.float32) - lo) / h, 0.0,
+                      grid_size * (1 - 1e-7))
+    g = torch.floor(tau)
+    u = tau - g
+    g = g.to(torch.int32)
+
+    coeffs = _cardinal_bump_coeffs(order)  # (K+1 segments, K+1 powers)
+    nb = grid_size + order
+    iota = torch.arange(nb, dtype=torch.int32, device=x.device)
+    basis = torch.zeros(x.shape + (nb,), dtype=torch.float32, device=x.device)
+    for d in range(order + 1):
+        seg = order - d  # active slot d lives on bump segment K-d
+        val = torch.zeros_like(u)
+        for p in reversed(range(order + 1)):  # Horner
+            val = val * u + float(coeffs[seg, p])
+        basis = basis + torch.where(iota == (g + d)[..., None], val[..., None],
+                                    0.0)
+    return basis
 
 
 def cardinal_bump(t: np.ndarray, order: int) -> np.ndarray:

@@ -134,8 +134,9 @@ def quantize_kan_layer(params: dict, spec: ASPQuantSpec,
     if weight_bits is None:
         weight_bits = min(8, spec.n_bits)
     qmax = 2 ** (int(weight_bits) - 1) - 1
-    c = params["c"].detach().cpu().numpy().astype(np.float64)
-    w_b = params["w_b"].detach().cpu().numpy().astype(np.float64)
+    # through f64 on the host, so bf16 weights (no numpy dtype) work too
+    c = params["c"].detach().to("cpu", torch.float64).numpy()
+    w_b = params["w_b"].detach().to("cpu", torch.float64).numpy()
 
     def chan_q(w, axis_out):
         red = tuple(i for i in range(w.ndim) if i != axis_out)
@@ -153,7 +154,9 @@ def quantize_kan_layer(params: dict, spec: ASPQuantSpec,
         lut_f32 = np.asarray(entry["lut_q"] * entry["scale"], np.float32)
 
     def t(a, dtype=None):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+        # np.asarray keeps a 0-dim scale 0-dim (ascontiguousarray would
+        # make it (1,)), as the reference's stacked trees expect
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
     return {
         "c_q": t(c_q),

@@ -1,0 +1,13 @@
+"""Kernel B2: flash attention (online softmax over KV tiles, GQA-aware).
+
+:mod:`.ops` is the model-facing wrapper (the hand-written CUDA kernel on
+CUDA tensors, the plain version on CPU tensors), :mod:`.ref` the plain
+PyTorch version of the same recurrence, :mod:`.cardcheck` the kernel held
+against it on the card.
+"""
+
+from .ops import KINDS, NEG_INF, SUPPORTED_HEAD_DIMS, flash_attention
+from .ref import flash_attention_plain
+
+__all__ = ["KINDS", "NEG_INF", "SUPPORTED_HEAD_DIMS", "flash_attention",
+           "flash_attention_plain"]

@@ -1,0 +1,107 @@
+"""Model-facing wrapper of kernel B2 (flash attention).
+
+Port of ``repro.kernels.attention.ops.flash_attention``: the same GQA
+layout (q (B, S, Hq, D), k and v (B, T, Hkv, D)), position operands and
+defaults.  CUDA tensors launch the hand-written kernel
+(``csrc/flash_attention.cu``, entry point ``flash_attention_fwd``), which
+masks its ragged edges itself, so nothing is padded or sliced; CPU tensors
+take the plain version :func:`.ref.flash_attention_plain`.  There is no
+fallback between the two: a CUDA call the kernel cannot take raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import cuda
+from .ref import NEG_INF, flash_attention_plain
+
+__all__ = ["KINDS", "NEG_INF", "SUPPORTED_HEAD_DIMS", "flash_attention"]
+
+KINDS = ("causal", "local", "full")
+_KIND_CODE = {"causal": 0, "local": 1, "full": 2}
+# the kernel's template instances
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _positions(p, b: int, n: int, offset: int, device) -> torch.Tensor:
+    """Normalize a position operand to (B, n) int32; None = arange+offset."""
+    if p is None:
+        p = torch.arange(n, dtype=torch.int32, device=device) + offset
+    p = torch.as_tensor(p, device=device).to(torch.int32)
+    if p.ndim == 1:
+        p = p[None]
+    return p.expand(b, n)
+
+
+def flash_attention(q, k, v, *, kind: str = "causal", qpos=None, kpos=None,
+                    window: int = 0, softcap: float = 0.0,
+                    scale: float | None = None) -> torch.Tensor:
+    """Fused attention over GQA layouts.
+
+    Args:
+      q: (B, S, Hq, D); k, v: (B, T, Hkv, D) with Hq % Hkv == 0.
+      kind: "causal" (kpos <= qpos), "local" (causal and
+        kpos > qpos - window), or "full" (no positional mask).
+      qpos / kpos: int32 absolute positions, (S,) / (B, S) and (T,) /
+        (B, T).  None means right-aligned ``arange(S) + (T - S)`` and
+        ``arange(T)``.  Negative kpos marks an invalid key under every
+        kind; a query row with no admitted key returns exactly 0.
+      window: sliding-window size for kind="local" (<= 0 disables it).
+      softcap: logit soft-cap, applied before masking (0 disables).
+      scale: logit scale; defaults to 1/sqrt(D).
+
+    Returns (B, S, Hq, D) in q's dtype.
+    """
+    if kind not in KINDS:
+        raise ValueError(f"kind {kind!r} not in {KINDS}")
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qpos = _positions(qpos, b, s, t - s, q.device)
+    kpos = _positions(kpos, b, t, 0, q.device)
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, qpos, kpos, kind=kind,
+                                     window=int(window),
+                                     softcap=float(softcap),
+                                     scale=float(scale))
+    return _flash_attention_cuda(q, k, v, qpos, kpos, kind, int(window),
+                                 float(softcap), float(scale))
+
+
+def _flash_attention_cuda(q, k, v, qpos, kpos, kind, window, softcap, scale):
+    """Launch B2 on the card; raises for anything the kernel does not take."""
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {SUPPORTED_HEAD_DIMS}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"dtype {q.dtype} not in {_DTYPES}")
+    for name, x, shape in (("k", k, (b, t, hkv, d)), ("v", v, (b, t, hkv, d)),
+                           ("qpos", qpos, (b, s)), ("kpos", kpos, (b, t))):
+        if tuple(x.shape) != shape or x.device != q.device:
+            raise ValueError(f"{name}: got {tuple(x.shape)} on {x.device}, "
+                             f"want {shape} on {q.device}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes differ: q {q.dtype}, k {k.dtype}, "
+                         f"v {v.dtype}")
+    if q.numel() == 0:  # the kernel launches nothing for an empty query
+        return torch.empty_like(q)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    qpos, kpos = qpos.contiguous(), kpos.contiguous()
+    out = torch.empty_like(q)
+    status = cuda.library().flash_attention_fwd(
+        cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(qpos),
+        cuda.ptr(kpos), cuda.ptr(out), b, s, t, hkv, hq // hkv, d,
+        int(q.dtype == torch.bfloat16), _KIND_CODE[kind], window,
+        softcap, scale, *cuda.stream_args(q.device),
+    )
+    cuda.check(status)
+    cuda.LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,11 +1,13 @@
 """Build, load and count the hand-written CUDA kernels.
 
 The kernels live in ``repro_torch/csrc/*.cu`` behind a plain C interface.
-At first use they are compiled with ``nvcc`` for ``sm_90a`` into a shared
-library under ``csrc/_build/`` (keyed by a hash of the source and flags, so
-an edited source rebuilds) and bound with ``ctypes``: a build of seconds,
-where a PyTorch C++ extension takes minutes.  Nothing is compiled or loaded
-at import, so the CPU tests import every module without ``nvcc``.
+At first use every source is compiled with ``nvcc`` for ``sm_90a``, one
+``nvcc -c`` per source, all started together, and the objects are linked
+into one shared library under ``csrc/_build/`` (keyed by a hash of all the
+sources and flags, so an edited source rebuilds) and bound with
+``ctypes``: a build of seconds, where a PyTorch C++ extension takes
+minutes.  Nothing is compiled or loaded at import, so the CPU tests import
+every module without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
 launches its kernel, and nowhere else.
@@ -30,6 +32,7 @@ __all__ = [
     "launch_counts",
     "reset_launch_counts",
     "build",
+    "sources",
     "library",
     "check",
     "check_spec",
@@ -39,10 +42,9 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "_build"
-SOURCE = CSRC / "kan_spline.cu"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -61,6 +63,9 @@ _SIGNATURES = {
     "kan_pipeline_layer": [_P] * 11 + [_I] * 6 + [_F] * 7 + [_I, _I, _P],
     # codes lut wc wb y | B F O nb kk ld | lo code_step | device stream
     "kan_spline_fwd": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_I, _P],
+    # q k v qpos kpos out | B S T Hkv G D bf16 kind window | softcap scale
+    # | device stream
+    "flash_attention_fwd": [_P] * 6 + [_I] * 9 + [_F] * 2 + [_I, _P],
 }
 
 
@@ -83,42 +88,67 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def sources() -> list:
+    """Every kernel source of the library, in a fixed order."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def build() -> dict:
     """Compile the kernel library if its hashed artifact is missing.
 
-    Returns ``{"path", "seconds", "ptxas", "cached"}``; ``ptxas`` is the
-    ``-Xptxas -v`` register / shared-memory report of the build.  The
-    library is written under a temporary name and renamed into place, so
-    concurrent first uses never load a half-written file.
+    Returns ``{"path", "seconds", "ptxas", "cached", "sources"}``;
+    ``ptxas`` is the ``-Xptxas -v`` register / shared-memory report of the
+    build.  The library is written under a temporary name and renamed into
+    place, so concurrent first uses never load a half-written file.
     """
     with _LOCK:
         if _BUILD_INFO:
             return dict(_BUILD_INFO)
-        digest = hashlib.sha256(
-            SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        lib_path = BUILD_DIR / f"kan_spline-{digest}.so"
+        srcs = sources()
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in srcs:
+            h.update(src.name.encode() + b"\0" + src.read_bytes())
+        lib_path = BUILD_DIR / f"kernels-{h.hexdigest()[:16]}.so"
         log_path = lib_path.with_suffix(".log")
         t0 = time.perf_counter()
         cached = lib_path.exists() and log_path.exists()
         if not cached:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+            tag = f"{lib_path.stem}.{os.getpid()}"
+            objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+            procs = [
+                subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                )
+                for src, obj in zip(srcs, objs)
+            ]
+            logs, failed = [], []
+            for src, proc in zip(srcs, procs):
+                out, err = proc.communicate()
+                logs.append(err + out)
+                if proc.returncode != 0:
+                    failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+            if failed:
+                raise RuntimeError("nvcc failed: " + "\n".join(failed))
+            tmp = lib_path.with_name(f"{tag}.so.tmp")
             proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
                 capture_output=True, text=True,
             )
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
-                )
-            log_path.write_text(proc.stderr + proc.stdout)
+                    f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+            for obj in objs:
+                obj.unlink()
+            log_path.write_text("".join(logs))
             os.replace(tmp, lib_path)
         _BUILD_INFO.update(
             path=str(lib_path),
             seconds=time.perf_counter() - t0,
             ptxas=log_path.read_text(),
             cached=cached,
+            sources=[str(src.relative_to(CSRC.parents[2])) for src in srcs],
         )
         return dict(_BUILD_INFO)
 

@@ -1,14 +1,25 @@
 """Backend-pluggable KAN runtime: executor registry + plan cache.
 
-Port of ``repro.runtime`` (the KAN half; attention dispatch waits for the
-LM slice).  See :mod:`.executor` for the ``ref`` / ``fused`` backends and
-``REPRO_KAN_BACKEND`` resolution, :mod:`.plancache` for batch bucketing.
+Port of ``repro.runtime``.  See :mod:`.executor` for the KAN ``ref`` /
+``fused`` backends and ``REPRO_KAN_BACKEND`` resolution, :mod:`.plancache`
+for batch bucketing, and :mod:`.attention` for the attention registry
+(``ref`` / ``flash``, ``REPRO_ATTN_BACKEND``).
 
     from repro_torch import runtime
     y = runtime.execute(dep, x)                  # resolved backend
     y = runtime.execute(dep, x, backend="ref")   # the layered oracle
 """
 
+from .attention import (
+    ENV_ATTN_BACKEND_VAR,
+    attn_dispatch_counts,
+    available_attn_backends,
+    default_attn_backend,
+    register_attn_backend,
+    reset_attn_dispatch_counts,
+    resolve_attn_backend,
+    use_attn_backend,
+)
 from .executor import (
     ENV_BACKEND_VAR,
     FusedExecutor,
@@ -25,23 +36,31 @@ from .executor import (
 from .plancache import PLAN_CACHE, PlanCache, PlanKey, bucket_batch
 
 __all__ = [
+    "ENV_ATTN_BACKEND_VAR",
     "ENV_BACKEND_VAR",
+    "attn_dispatch_counts",
     "FusedExecutor",
     "PLAN_CACHE",
     "PlanCache",
     "PlanKey",
     "RefExecutor",
+    "available_attn_backends",
     "available_backends",
     "bucket_batch",
     "cache_stats",
+    "default_attn_backend",
     "dispatch_counts",
     "execute",
     "get_executor",
     "ref_composition",
+    "register_attn_backend",
+    "reset_attn_dispatch_counts",
     "register_executor",
     "reset_cache",
     "reset_dispatch_counts",
+    "resolve_attn_backend",
     "resolve_backend",
+    "use_attn_backend",
     "use_backend",
 ]
 

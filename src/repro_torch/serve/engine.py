@@ -1,0 +1,454 @@
+"""Batched serving engine: slot-based continuous batching.
+
+Port of ``repro.serve.engine``.  A fixed pool of B decode slots; each slot
+holds one active request.  New requests are prefilled into a free slot,
+decode advances ALL active slots with one step, and finished slots are
+refilled from the queue.  The engine owns the state (params, slot pool, KV
+cache); the loop lives in :mod:`.scheduler`, and ``run()`` runs it to
+completion synchronously.
+
+Prefill pads prompts to power-of-two length buckets (pure global-attention
+decoders only): the padding sits at the END of the prompt, causal
+attention keeps real positions from seeing it, it is zeroed out of the
+cache at splice time, and the first-token logits are read at the true last
+token.  PyTorch runs eagerly, so there are no traces:
+``compile_stats()["prefill_traces"]`` counts the distinct prefill buckets
+and ``"decode_traces"`` the decode calls, under the reference's keys.
+
+``kan_deploy=True`` quantizes every KAN-FFN block once at engine build
+(``core.kan_ffn_deploy.quantize_kan_ffn_params_tree``, deployed bundles
+included) and runs it through the ``repro_torch.runtime`` executor
+(``kan_backend`` > ``REPRO_KAN_BACKEND`` > "fused": kernel B1).  Attention
+resolves the same way (``attn_backend`` > ``REPRO_ATTN_BACKEND`` >
+"flash": kernel B2), once at build, and every step runs under that scope.
+
+``kv_block_size=`` replaces the per-slot contiguous KV slab with a PAGED
+pool (:mod:`.kvpool`): fixed-size blocks from a free-list allocator, a
+block table per slot, and a hash-keyed prefix cache that splices cached
+prompt blocks in copy-free.  ``prefill_chunk=`` stages long prompts one
+chunk per scheduling round.  Greedy streams equal the contiguous path's.
+
+Not ported yet: ``mesh=`` (ROADMAP A10) and ``spec_decode`` /
+``draft_spec`` (ROADMAP A6: ``serve/spec.py``).
+"""
+
+from __future__ import annotations
+
+import bisect
+import contextlib
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from .. import runtime
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from ..models import model as M
+from .kvpool import KVBlockPool
+
+__all__ = ["Request", "ServeEngine", "prefill_bucketing_supported",
+           "paged_kv_supported"]
+
+
+def prefill_bucketing_supported(cfg: ModelConfig) -> bool:
+    """Right-padded prefill is exact only when no layer state integrates the
+    pad tokens: pure global-attention decoders."""
+    return (
+        cfg.encoder_layers == 0
+        and cfg.family not in ("audio", "vlm")
+        and all(k == "global" for k in cfg.layer_kinds)
+    )
+
+
+def paged_kv_supported(cfg: ModelConfig) -> bool:
+    """Paged KV needs every layer's decode state to be a block-structured
+    KV cache: the same pure global-attention predicate."""
+    return prefill_bucketing_supported(cfg)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: list                 # token ids
+    max_new_tokens: int = 32
+    eos_id: int = 2
+    # scheduling inputs (consumed by the scheduler; the defaults arrive
+    # immediately, never expire and decode greedily)
+    arrival_s: float = 0.0       # offset from scheduler start; 0 = now
+    deadline_s: float | None = None  # max queued seconds before expiry
+    sampling: Any = None         # SamplingParams, or None for greedy
+    # filled by the engine / scheduler
+    output: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    status: str = "pending"      # pending -> queued -> running -> done|expired
+    latency_s: float = 0.0       # admission -> last token
+    ttft_s: float = 0.0          # arrival -> first token
+
+
+def _to_device(tree, dev: torch.device):
+    """Tensors of a param tree on ``dev`` (a no-op where they are); deployed
+    KAN bundles must already be there."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    for dep in tree:  # a tuple of per-layer DeployedKAN bundles
+        if dep.device.type != dev.type:
+            raise ValueError(f"deployed KAN bundle on {dep.device}, "
+                             f"engine on {dev}")
+    return tree
+
+
+class ServeEngine:
+    def __init__(self, params, cfg: ModelConfig, slots: int = 4,
+                 max_len: int = 256, greedy: bool = True,
+                 kan_deploy: bool = False, kan_backend: str | None = None,
+                 attn_backend: str | None = None,
+                 prefill_buckets: bool | None = None, mesh=None,
+                 kv_block_size: int | None = None,
+                 kv_blocks: int | None = None, prefix_cache: bool = True,
+                 prefill_chunk: int | None = None,
+                 spec_decode: int = 0, draft_spec=None, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh serving is not ported yet (ROADMAP A10)")
+        if spec_decode or draft_spec is not None:
+            raise NotImplementedError(
+                "speculative decoding (serve/spec.py) is not ported yet "
+                "(ROADMAP A6)")
+        self.device = resolve_device(device)
+        params = _to_device(params, self.device)
+        if kan_deploy:
+            # every KAN-FFN block on the quantized datapath (kernel B1),
+            # quantized and deployed once here
+            if cfg.ffn_kind != "kan":
+                raise ValueError(
+                    "kan_deploy requires a KAN-FFN config (cfg.kan_variant())")
+            runtime.resolve_backend(kan_backend)  # a typo fails at build
+            from ..core.kan_ffn_deploy import quantize_kan_ffn_params_tree
+
+            params = quantize_kan_ffn_params_tree(params, cfg)
+        self.params = params
+        self.cfg = cfg
+        self.slots = slots
+        self.max_len = max_len
+        self.greedy = greedy
+        self.kan_backend = kan_backend if kan_deploy else None
+        self.attn_backend = runtime.resolve_attn_backend(attn_backend)
+        if prefill_buckets is None:
+            prefill_buckets = prefill_bucketing_supported(cfg)
+        self.prefill_buckets = prefill_buckets and prefill_bucketing_supported(cfg)
+
+        # -- paged KV pool (kv_block_size set) vs contiguous per-slot slab --
+        self.paged = kv_block_size is not None
+        self.kv_block_size = kv_block_size
+        self.prefill_chunk = prefill_chunk
+        if prefill_chunk is not None and not self.paged:
+            raise ValueError("prefill_chunk requires the paged KV cache "
+                             "(set kv_block_size)")
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        self.pool = None
+        if self.paged:
+            if not paged_kv_supported(cfg):
+                raise ValueError(
+                    "kv_block_size requires a pure global-attention decoder "
+                    "(rolling-window / recurrent / encoder state has no pages)"
+                )
+            if kv_block_size < 1 or kv_block_size % 8:
+                raise ValueError(f"kv_block_size must be a positive multiple "
+                                 f"of 8, got {kv_block_size}")
+            if max_len % kv_block_size:
+                raise ValueError(f"max_len={max_len} not a multiple of "
+                                 f"kv_block_size={kv_block_size}")
+            nblk = max_len // kv_block_size
+            num_blocks = (kv_blocks if kv_blocks is not None
+                          else slots * nblk + 1)  # +1: the scratch block
+            self.pool = KVBlockPool(num_blocks, kv_block_size,
+                                    prefix_cache=prefix_cache)
+            # table row entry 0 = the scratch block (unallocated / retired)
+            self.block_tables = np.zeros((slots, nblk), np.int32)
+            self._slot_blocks: list[list[int]] = [[] for _ in range(slots)]
+            self.cache = M.init_paged_cache(params, cfg, num_blocks,
+                                            kv_block_size)
+        else:
+            self.cache = M.init_cache(params, cfg, slots, max_len)
+        self.pos = np.zeros(slots, np.int32)
+        self.active: list[Request | None] = [None] * slots
+        # sorted free-slot list; a slot mid-prefill is not free
+        self._free_slots: list[int] = list(range(slots))
+        self._prefilling: dict[int, dict] = {}  # slot -> chunked-prefill state
+        self._prefill_buckets_seen: set = set()
+        self.prefill_calls = 0
+        self.decode_calls = 0
+        self.verify_calls = 0
+
+    # -- backend scope ----------------------------------------------------
+
+    def _scope(self):
+        """The engine's KAN and attention backends, for one step."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(runtime.use_backend(self.kan_backend))
+        stack.enter_context(runtime.use_attn_backend(self.attn_backend))
+        stack.enter_context(torch.no_grad())
+        return stack
+
+    def _tensor(self, a, dtype=torch.int64) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    # -- slot management ------------------------------------------------
+
+    def _free_slot(self):
+        """Lowest free slot id, or None."""
+        return self._free_slots[0] if self._free_slots else None
+
+    def _take_slot(self, slot: int) -> None:
+        i = bisect.bisect_left(self._free_slots, slot)
+        if i == len(self._free_slots) or self._free_slots[i] != slot:
+            raise RuntimeError(f"slot {slot} is not free "
+                               f"(free list: {self._free_slots})")
+        self._free_slots.pop(i)
+
+    def release_slot(self, slot: int) -> None:
+        """Retire a slot: deactivate it, return its KV blocks to the pool
+        (paged) and put it back on the free list."""
+        self.active[slot] = None
+        self._prefilling.pop(slot, None)
+        if self.paged:
+            for bid in self._slot_blocks[slot]:
+                self.pool.release(bid)
+            self._slot_blocks[slot] = []
+            # a retired slot still rides the pooled decode step: its writes
+            # go to the scratch block
+            self.block_tables[slot] = 0
+        bisect.insort(self._free_slots, slot)
+
+    def _padded_prompt(self, prompt: list) -> list:
+        """Right-pad to the power-of-two length bucket (token 0 as filler)."""
+        if not self.prefill_buckets:
+            return list(prompt)
+        lb = runtime.bucket_batch(len(prompt))
+        if lb > self.max_len - 1:
+            return list(prompt)
+        return list(prompt) + [0] * (lb - len(prompt))
+
+    def _admit(self, req: Request):
+        """Prefill ``req`` into a free slot and greedily pick its first token
+        (direct engine use; the scheduler selects tokens itself)."""
+        slot = self._free_slot()
+        if slot is None:
+            raise RuntimeError(
+                f"ServeEngine._admit: no free slot for request {req.rid} "
+                f"(all {self.slots} busy); check _free_slot() before admitting"
+            )
+        logits = self._prefill_slot(slot, req)
+        req.output.append(int(np.argmax(logits)))
+
+    def _prefill_slot(self, slot: int, req: Request) -> np.ndarray:
+        """B=1 prefill of ``req`` into ``slot``, all chunks at once; returns
+        the (V,) first-token logits."""
+        self._begin_prefill(slot, req)
+        logits = self._prefill_step(slot)
+        while logits is None:
+            logits = self._prefill_step(slot)
+        return logits
+
+    def _begin_prefill(self, slot: int, req: Request) -> None:
+        """Claim ``slot`` for ``req`` and stage its prefill.  Paged engines
+        splice the longest cached full-block prefix (capped at plen - 1
+        tokens, so at least one real token is prefilled) copy-free."""
+        self._take_slot(slot)
+        state = {"req": req, "next": 0}
+        if self.paged:
+            reused = self.pool.match_prefix(req.prompt,
+                                            max_tokens=len(req.prompt) - 1)
+            self._slot_blocks[slot] = list(reused)
+            for j, bid in enumerate(reused):
+                self.block_tables[slot, j] = bid
+            state["next"] = len(reused) * self.kv_block_size
+        self._prefilling[slot] = state
+
+    def prefilling_slots(self) -> list:
+        """Slots currently mid-prefill (claimed, not yet decoding)."""
+        return sorted(self._prefilling)
+
+    def _prefill_step(self, slot: int):
+        """Advance ``slot``'s staged prefill by one chunk; returns the (V,)
+        first-token logits when the prompt completes, else None."""
+        st = self._prefilling[slot]
+        req = st["req"]
+        if not self.paged:
+            logits = self._prefill_contiguous(slot, req)
+        else:
+            logits = self._prefill_paged_chunk(slot, st)
+            if logits is None:
+                return None
+        self.pos[slot] = len(req.prompt)
+        self.active[slot] = req
+        del self._prefilling[slot]
+        return logits
+
+    def _prefill_contiguous(self, slot: int, req: Request) -> np.ndarray:
+        plen = len(req.prompt)
+        padded = self._padded_prompt(req.prompt)
+        tokens = self._tensor([padded])
+        self._prefill_buckets_seen.add(len(padded))
+        self.prefill_calls += 1
+        with self._scope():
+            logits, cache1 = M.prefill(self.params, {"tokens": tokens},
+                                       self.cfg, max_len=self.max_len,
+                                       last_index=[plen - 1])
+            # splice into the pool IN PLACE; KV written past the real prompt
+            # (pad tokens) is zeroed so no stale state enters the pool
+            for pool_g, one_g in zip(self.cache, cache1):
+                for key, kv in pool_g.items():
+                    for name in ("k", "v"):
+                        dst = kv[name][:, slot]          # (repeats, T, H, D)
+                        dst.copy_(one_g[key][name][:, 0])
+                        if self.prefill_buckets:
+                            dst[:, plen:] = 0
+        return logits[0].cpu().numpy()
+
+    def _prefill_paged_chunk(self, slot: int, st: dict):
+        """One chunk of paged prefill; returns final logits or None."""
+        req = st["req"]
+        plen = len(req.prompt)
+        start = st["next"]
+        cap = self.prefill_chunk if self.prefill_chunk is not None else plen
+        take = min(plen - start, cap)
+        # pad the chunk to a power-of-two bucket unless that runs past
+        # max_len
+        c = take
+        if self.prefill_buckets:
+            lb = runtime.bucket_batch(take)
+            if start + lb <= self.max_len:
+                c = lb
+        bs = self.kv_block_size
+        blocks = self._slot_blocks[slot]
+        need = -(-(start + take) // bs)          # ceil: blocks covering chunk
+        try:
+            while len(blocks) < need:
+                bid = self.pool.alloc()
+                self.block_tables[slot, len(blocks)] = bid
+                blocks.append(bid)
+        except Exception:
+            self.release_slot(slot)
+            raise
+        chunk = req.prompt[start:start + take] + [0] * (c - take)
+        self._prefill_buckets_seen.add(c)
+        self.prefill_calls += 1
+        with self._scope():
+            logits, self.cache = M.prefill_chunk(
+                self.params, self._tensor([chunk]), self.cache,
+                self._tensor(self.block_tables[slot]), start, start + take,
+                self.cfg, plen - 1,
+            )
+        st["next"] = start + take
+        if st["next"] < plen:
+            return None
+        # publish the prompt's FULL blocks for future prefix hits; partial
+        # tail blocks (decode keeps writing them) are never shared
+        self.pool.publish_prefix(req.prompt, blocks[:plen // bs])
+        return logits[0].cpu().numpy()
+
+    def _ensure_decode_blocks(self, horizon: int = 1) -> None:
+        """Allocate the pool blocks covering each active slot's next
+        ``horizon`` writes (clamped at ``max_len``)."""
+        bs = self.kv_block_size
+        for i, r in enumerate(self.active):
+            if r is None:
+                continue
+            blocks = self._slot_blocks[i]
+            need = -(-min(int(self.pos[i]) + horizon, self.max_len) // bs)
+            while len(blocks) < need:
+                bid = self.pool.alloc()
+                self.block_tables[i, len(blocks)] = bid
+                blocks.append(bid)
+
+    def _step_tables(self, horizon: int):
+        """Block tables for one pooled step: mid-prefill slots ride along
+        with a stale pos, so their rows point at the scratch block."""
+        self._ensure_decode_blocks(horizon)
+        tables = self.block_tables
+        if self._prefilling:
+            tables = tables.copy()
+            for s in self._prefilling:
+                tables[s] = 0
+        return self._tensor(tables)
+
+    def decode_active(self, tokens) -> torch.Tensor:
+        """One pooled decode step over all slots; returns device logits
+        (slots, V) and updates the cache in place.  ``pos`` bookkeeping is
+        the caller's."""
+        tables = self._step_tables(1) if self.paged else None
+        self.decode_calls += 1
+        with self._scope():
+            logits, self.cache = M.decode_step(
+                self.params, self.cache, self._tensor(tokens),
+                self._tensor(self.pos), self.cfg, block_table=tables,
+            )
+        return logits
+
+    def verify_active(self, tokens) -> torch.Tensor:
+        """One batched verify pass over all slots (paged engines): tokens
+        (slots, S), row i at positions pos[i]..pos[i]+S-1.  Returns device
+        logits (slots, S, V); KV for all S positions is written and rolled
+        back by :meth:`truncate_slot`."""
+        if not self.paged:
+            raise ValueError("verify_active requires the paged KV cache")
+        tokens = np.asarray(tokens)
+        tables = self._step_tables(int(tokens.shape[1]))
+        self.verify_calls += 1
+        with self._scope():
+            logits, self.cache = M.verify_step(
+                self.params, self.cache, self._tensor(tokens),
+                self._tensor(self.pos), self.cfg, tables,
+            )
+        return logits
+
+    def truncate_slot(self, slot: int, new_len: int) -> None:
+        """Roll back a slot's KV to ``new_len`` positions: whole tail blocks
+        return to the pool and their table rows point at the scratch block."""
+        blocks = self._slot_blocks[slot]
+        self.pool.truncate(blocks, new_len)
+        self.block_tables[slot, len(blocks):] = 0
+
+    def kv_stats(self) -> dict | None:
+        """Paged-pool counters (None on contiguous engines)."""
+        if not self.paged:
+            return None
+        s = self.pool.stats()
+        s["prefill_chunk"] = self.prefill_chunk
+        s["slot_blocks"] = [len(b) for b in self._slot_blocks]
+        return s
+
+    # -- main loop --------------------------------------------------------
+
+    def run(self, requests: list, log: Callable | None = None):
+        """Serve a batch synchronously; returns requests in completion order
+        (a thin loop over :class:`.scheduler.Scheduler`)."""
+        from .scheduler import Scheduler
+
+        sched = Scheduler(self, log=log)
+        for req in requests:
+            sched.submit(req)
+        return sched.run_until_idle()
+
+    def compile_stats(self) -> dict:
+        """Engine counters under the reference's keys, plus the call counts
+        and the runtime plan-cache counters."""
+        return {
+            "prefill_traces": len(self._prefill_buckets_seen),
+            "decode_traces": self.decode_calls,
+            "verify_traces": self.verify_calls,
+            "prefill_calls": self.prefill_calls,
+            "plan_cache": runtime.cache_stats(),
+            "mesh": None,
+            "attn_backend": self.attn_backend,
+            "kv": self.kv_stats(),
+            "spec": None,
+        }

@@ -1,12 +1,16 @@
 """Card-only tests of the port's CUDA kernels (``gpu`` marker).
 
-Each kernel against its plain PyTorch version on the same CUDA tensors at
-every spline order the kernel library is built for, through the checks of
-``repro_torch.kernels.kan_spline.cardcheck`` (outputs within 1e-5 + 1e-5 *
-|plain|: the same f32 terms summed in another order; boundary codes equal
-up to the excused near-ties of ``repro_torch.parity``; packed and unpacked
-B1 weights bit-identical), and the slice's fused path against "ref".  This
-file imports only the port, so it also runs where JAX is not installed:
+Each kernel against its plain PyTorch version on the same CUDA tensors:
+B1 and B3 at every spline order the kernel library is built for, through
+the checks of ``repro_torch.kernels.kan_spline.cardcheck`` (outputs within
+1e-5 + 1e-5 * |plain|: the same f32 terms summed in another order;
+boundary codes equal up to the excused near-ties of ``repro_torch.parity``;
+packed and unpacked B1 weights bit-identical), B1 at the full-width
+KAN-FFN halves, B2 through ``repro_torch.kernels.attention.cardcheck`` (f32
+within 2e-5 + 2e-5 * |plain|, bf16 within one more bf16 ulp, fully masked
+rows exact zeros), small cases and the serving path's own shapes; the slice's fused path against "ref"; and one layer of
+the full-width qwen2.5-14b KAN-FFN model served on the card.  This file
+imports only the port, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -26,6 +30,7 @@ from repro_torch.core.kan_network_deploy import (
     quantize_kan_network,
 )
 from repro_torch.kernels import cuda
+from repro_torch.kernels.attention import cardcheck as ac
 from repro_torch.kernels.kan_spline import cardcheck as cc
 from repro_torch.runtime.executor import _entry_codes
 
@@ -47,6 +52,84 @@ def test_b1_kernel_matches_plain(dev, grid, f, o, order):
     gen = torch.Generator(device=dev).manual_seed(grid + f + order)
     for flags in cc.B1_FLAGS:
         cc.check_b1(dev, gen, grid, f, o, flags, 512, order)
+
+
+@pytest.mark.parametrize("grid,f,o,flags,rows", cc.B1_FFN_FULL)
+def test_b1_kernel_matches_plain_at_full_width_ffn(dev, grid, f, o, flags,
+                                                   rows):
+    gen = torch.Generator(device=dev).manual_seed(f + rows)
+    cc.check_b1(dev, gen, grid, f, o, flags, rows, eps=cc.FFN_FULL_TIE_EPS)
+
+
+@pytest.mark.parametrize("d", ac.HEAD_DIMS)
+@pytest.mark.parametrize("kind", ac.KINDS)
+@pytest.mark.parametrize("dtype", ac.DTYPES)
+def test_b2_kernel_matches_plain(dev, dtype, kind, d):
+    gen = torch.Generator(device=dev).manual_seed(d)
+    for hq, hkv in ac.GQA:
+        ac.check_b2(dev, gen, dtype=dtype, kind=kind, hq=hq, hkv=hkv, d=d)
+
+
+@pytest.mark.parametrize("case", range(len(ac.B2_EXTRA)))
+def test_b2_kernel_matches_plain_at_serving_geometry_and_softcap(dev, case):
+    gen = torch.Generator(device=dev).manual_seed(case)
+    ac.check_b2(dev, gen, **ac.B2_EXTRA[case])
+
+
+@pytest.mark.parametrize("name,b,s,t,kind", ac.PATH_SHAPES)
+def test_b2_kernel_matches_plain_at_serving_path_shapes(dev, name, b, s, t,
+                                                        kind):
+    ac.check_b2_path(dev, name, b, s, t, kind)
+
+
+def test_b2_wrapper_raises_instead_of_falling_back(dev):
+    from repro_torch.kernels.attention import flash_attention
+
+    q = torch.zeros(1, 4, 2, 48, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q[:, :, :1], q[:, :, :1])
+    q = torch.zeros(1, 4, 2, 64, device=dev)
+    with pytest.raises(ValueError, match="dtypes differ"):
+        flash_attention(q, q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(q.half(), q.half(), q.half())
+    before = cuda.launch_counts().get("flash_attention", 0)
+    empty = flash_attention(q[:, :0], q, q)       # no query: nothing launched
+    assert empty.shape == (1, 0, 2, 64)
+    assert cuda.launch_counts().get("flash_attention", 0) == before
+
+
+def test_one_full_width_layer_serves_through_b1_and_b2(dev):
+    """qwen2.5-14b kan_variant() at full width (d_model 5120, 48/8 heads,
+    vocab 152064, KAN-FFN hidden 1280), bf16, cut to one layer: contiguous
+    and paged engines serve through kernels B2 and B1 on every call."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import Request, ServeEngine
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("qwen2.5-14b").kan_variant(),
+                              num_layers=1)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    prompts = [list(range(3, 23)), list(range(100, 400))]
+    for kw in ({}, {"kv_block_size": 16, "prefill_chunk": 128}):
+        eng = ServeEngine(params, cfg, slots=2, max_len=512, kan_deploy=True,
+                          device=dev, **kw)
+        cuda.reset_launch_counts()
+        done = eng.run([Request(rid=i, prompt=p, max_new_tokens=4)
+                        for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        assert sorted(len(r.output) for r in done) == [4, 4], kw
+        st = eng.compile_stats()
+        calls = st["prefill_calls"] + st["decode_traces"]
+        assert cuda.launch_counts() == {"flash_attention": calls,
+                                        "kan_pipeline_layer": 2 * calls}, kw
+        del eng
+    del params
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("order", cc.ORDERS)

@@ -39,7 +39,10 @@ def _all_modules():
 
 def test_import_pulls_in_no_jax_and_no_reference():
     mods = _all_modules()
-    assert "repro_torch.kernels.kan_spline.pipeline" in mods
+    for m in ("kernels.kan_spline.pipeline", "kernels.attention.ops",
+              "models.model", "serve.engine", "serve.scheduler",
+              "launch.serve", "configs.registry", "core.kan_ffn_deploy"):
+        assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -82,3 +85,23 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
         convert.params_from_numpy([{k: v.numpy() for k, v in params[0].items()}])
     dep = deploy_kan_network(qparams, kspec, device="cpu")
     assert dep.device.type == "cpu"
+
+
+def test_lm_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve as cli
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import ServeEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = smoke_config("qwen2.5-14b").kan_variant()
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(gen, cfg)
+    params = init_params(gen, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(params, cfg, kan_deploy=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--arch", "qwen2.5-14b", "--requests", "1"])
+    eng = ServeEngine(params, cfg, slots=1, max_len=16, device="cpu")
+    assert eng.device.type == "cpu"
