@@ -17,7 +17,10 @@ Phases (any failure exits non-zero):
      spline order 1..5 the kernel library is built for, and B1 at the
      full-width qwen2.5-14b KAN-FFN halves; B2 (flash attention,
      ``repro_torch.kernels.attention.cardcheck``) in f32 and bf16 x kinds x
-     GQA groups x head dims at odd lengths with fully masked rows;
+     GQA groups x head dims at odd lengths with fully masked rows; B4 (the
+     ACIM MAC, ``repro_torch.kernels.cim_mac.cardcheck``) on the reference's
+     cases and ragged shapes under the reference's ADC contract, and its
+     zero-IR 24-bit case against the plain matmul;
   4. the slice end to end: KAN1, KAN2, mixed (8, 4) KAN1 and the (64,128,64)
      G=8 FFN stack, initialized on the card, quantized and deployed, answer
      knot-surrogate requests of 1..65536 rows through ``runtime.execute``
@@ -27,6 +30,14 @@ Phases (any failure exits non-zero):
   5. CUDA-event times of B1 and B3 at the slice's 65536-row shapes beside
      their bounds and plain versions, the 65536-row request time and the
      peak device memory of those requests;
+  5b. the acim KAN slice: KAN1, KAN2 and mixed (8, 4) KAN1 at 1..65536 rows
+     through ``runtime.execute(backend="acim")``: a quiet config is "fused"
+     bit for bit; IR-drop only (natural and KAN-SAM placement) matches the
+     same executor on CPU copies under the parity gate; the default noisy
+     config reproduces under one generator seed; the psum sigma of a
+     one-layer (17, 14) bundle is within 3% of the analytic one on every
+     channel; and the simulator MAC ``cim_mac`` (kernel B4) runs each KAN's
+     first-layer MAC at Fig. 13's macros against ``cim_matmul``;
   6. the LM serving slice: ``qwen2.5-14b`` ``kan_variant()`` at full width
      (d_model 5120, 48 physical heads over 8 KV heads, vocab 152064,
      KAN-FFN hidden 1280), bf16, depth cut to 4 layers, random weights
@@ -38,10 +49,15 @@ Phases (any failure exits non-zero):
      prefill and decode call, the paged run hits the prefix cache, and
      every emitted token passes the teacher-forced gate against the
      "ref" KAN and "ref" attention backends; timed: TTFT, prefill and
-     decode ms, tokens/s, peak memory, and the device time by kernel;
-  7. CUDA-event times of B2 at the three shapes the serving path gives it
-     and of B1 at the full-width FFN halves, beside bounds, plain versions
-     and (B2) ``scaled_dot_product_attention``;
+     decode ms, tokens/s, peak memory, and the device time by kernel.
+     Then ``kan_backend="acim"``: the quiet config serves the fused
+     streams token for token, the default config serves one stream in two
+     runs (B1 with its noise operand on every layer of every call), timed
+     beside the fused run;
+  7. CUDA-event times of B2 at the three shapes the serving path gives it,
+     of B1 at the full-width FFN halves and of B4 at the acim study's
+     shapes, beside bounds, plain versions and (B2)
+     ``scaled_dot_product_attention``;
   8. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
 
 A longer report goes to ``reports/chip_smoke_report.json`` (gitignored).
@@ -71,6 +87,7 @@ BATCHES = (1, 3, 5, 7, 8, 33, 130, 4096, 65536)
 KERNEL_ROWS = 4096  # rows of each kernel-vs-plain check in phase 3
 SOURCE = "src/repro_torch/csrc/kan_spline.cu"
 B2_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+B4_SOURCE = "src/repro_torch/csrc/cim_mac.cu"
 
 # the serving slice (phase 6)
 SERVE_LAYERS = 4           # depth cut from 48; every layer has the same shapes
@@ -125,6 +142,33 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` calls captured in
+    one CUDA graph and replayed: the launches back to back, where
+    ``cuda_ms`` also counts the card's idle gaps when the host launches
+    slower than the kernel runs."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 def bound(nbytes: int, flops: int, flop_per_s: float = F32_FLOP_PER_S) -> tuple:
     """(bound ms, "bytes" | "operations") from the card's peaks."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -139,7 +183,8 @@ def ptxas_summary(log: str) -> list:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
-            m = re.search(r"(flash_kernel|kan_layer_kernel)I(.*?)EEv", name)
+            m = re.search(r"(flash_kernel|kan_layer_kernel|cim_mac_kernel)I"
+                          r"(.*?)EEv", name)
             name = f"{m.group(1)}<{m.group(2)}>" if m else name
         elif "spill" in ln:
             spill = ln.strip()
@@ -202,15 +247,34 @@ def phase_kernels(dev, report) -> dict:
           f"geometry, softcap and D=32), fully masked rows exact 0; max |err| "
           f"{b2_err:.3e}, worst err / tol {b2_ratio:.3f} (f32 tol "
           f"{ac.F32_TOL} + rel, bf16 + one bf16 ulp)")
+
+    from repro_torch.kernels.cim_mac import cardcheck as mc
+
+    b4 = [mc.check_case(dev, gen, *case) for case in mc.CASES]
+    b4 += [mc.check_case(dev, gen, b, r, c, rows, adc=adc, ir=0.03)
+           for b, r, c, rows, adc in mc.PROPERTY_CASES]
+    b4.append(mc.check_tiled(dev, gen))
+    b4_err = max(st["max_abs_err"] for st in b4)
+    b4_over = max(st["max_err_over_allow"] for st in b4)
+    b4_tight = min(st["tight"] for st in b4)
+    zero_ir_err = mc.check_zero_ir(dev, gen)
+    print(f"B4 vs plain: {len(b4)} cases (the reference's CASES, "
+          f"{len(mc.PROPERTY_CASES)} ragged shapes at adc 6/8/12, the tiled "
+          f"identity case), ADC contract: max |err| {b4_err:.4e} = "
+          f"{b4_over:.3f} of one LSB per array, least tight share "
+          f"{b4_tight:.4f} (>= 0.95); zero IR at 24 bits vs x @ w: max |err| "
+          f"{zero_ir_err:.4e} (rtol 1e-3 + half an LSB per array)")
     report["kernel_checks"] = {"b1_runs": runs, "b1_max_abs_err": b1_err,
                                "b1_excused_codes": excused,
                                "b1_ffn_full_max_abs_err": ffn_err,
                                "b1_ffn_full_excused_codes": ffn_excused,
                                "b3_max_abs_err": b3_err,
                                "b2_cases": len(cases), "b2_max_abs_err": b2_err,
-                               "b2_max_err_over_tol": b2_ratio}
+                               "b2_max_err_over_tol": b2_ratio,
+                               "b4_cases": b4, "b4_zero_ir_max_abs_err":
+                               zero_ir_err}
     return {"kan_pipeline_layer": max(b1_err, ffn_err), "kan_spline": b3_err,
-            "flash_attention": b2_err}
+            "flash_attention": b2_err, "cim_mac_fwd": b4_err}
 
 
 # ----------------------------------------------------------------------------
@@ -502,6 +566,294 @@ def profile_requests(models, knot, bp, e2e) -> dict:
     return out
 
 # ----------------------------------------------------------------------------
+# phase 5b: the acim KAN slice and the ACIM simulator MAC (kernel B4)
+# ----------------------------------------------------------------------------
+
+ACIM_MODELS = ("kan1", "kan2", "kan1_mixed_8_4")
+NOISY_BATCHES = (130, 65536)
+# the sigma gate: per-channel std of the injected psum noise within 3% of
+# the analytic sigma (sampling error of a std over 65536 rows ~0.3%)
+SIGMA_TOL = 0.03
+# the simulator MAC of a KAN's first layer (17 features x G+3 bases -> 1),
+# IR-drop only: (label, G, array rows, adc bits, ir_gamma).  Fig. 13's two
+# accelerators (benchmarks/fig13_knot_e2e.py:90) and Fig. 12's array-size
+# sweep (benchmarks/fig12_kan_sam.py:33, :53)
+MAC_PATH = (("fig13/kan1", 5, 128, 8, 0.10), ("fig13/kan2", 68, 1024, 10, 0.10),
+            ("fig12/g7", 7, 128, 10, 0.06), ("fig12/g15", 15, 256, 10, 0.06),
+            ("fig12/g30", 30, 512, 10, 0.06), ("fig12/g60", 60, 1024, 10, 0.06))
+ACIM_ROWS = 65536  # rows of the sigma gate and the simulator MAC path
+CALIB_ROWS = 4096  # knot rows that calibrate the KAN-SAM placements
+
+
+def cpu_bundle(dep):
+    import dataclasses
+
+    return dataclasses.replace(dep, layers=tuple(
+        {k: v.cpu() for k, v in lw.items()} for lw in dep.layers))
+
+
+def sam_perms_for(dep, x, array_rows: int) -> tuple:
+    """Per-layer KAN-SAM placements from each layer's inputs: the request
+    rows for layer 0, the fused run's dequantized boundary codes after."""
+    from repro_torch import runtime
+    from repro_torch.core.asp_quant import dequantize_input
+    from repro_torch.core.sam import row_activation_weight, sam_permutation
+
+    _, codes = runtime.execute(dep, x, backend="fused",
+                               return_intermediates=True)
+    inputs = [x] + [dequantize_input(c, lp.spec)
+                    for lp, c in zip(dep.plan.layers[1:], codes)]
+    return tuple(sam_permutation(row_activation_weight(h, lp.spec, lp.f),
+                                 array_rows)
+                 for lp, h in zip(dep.plan.layers, inputs))
+
+
+def phase_acim(dev, models, report) -> dict:
+    import torch
+
+    from repro_torch import parity, runtime
+    from repro_torch.core.cim import CIMConfig
+    from repro_torch.data.knot import make_knot_dataset
+    from repro_torch.kernels import cuda
+    from repro_torch.runtime.executor import _entry_codes
+
+    t_phase = time.perf_counter()
+    knot, _, _, _ = make_knot_dataset(n_train=max(BATCHES), n_test=1, seed=0)
+    xs = {b: torch.as_tensor(knot[:b], device=dev) for b in BATCHES}
+    quiet = runtime.quiet_cim_config()
+    ir_only = CIMConfig(ir_gamma=0.06, deterministic=True)
+    noisy = runtime.get_executor("acim").cim
+    calib = torch.as_tensor(knot[:CALIB_ROWS], device=dev)
+    perms = {name: sam_perms_for(models[name][2], calib, ir_only.array_rows)
+             for name in ACIM_MODELS}
+
+    # the acim path: every run through runtime.execute(backend="acim")
+    runtime.reset_dispatch_counts()
+    cuda.reset_launch_counts()
+    runs = {}
+    for name in ACIM_MODELS:
+        dep = models[name][2]
+        for b in BATCHES:
+            runs["quiet", name, b] = runtime.execute(
+                dep, xs[b], backend="acim", cim=quiet,
+                return_intermediates=True)
+            for tag, p in (("ir", None), ("ir_sam", perms[name])):
+                runs[tag, name, b] = runtime.execute(
+                    dep, xs[b], backend="acim", cim=ir_only, sam_perms=p,
+                    return_intermediates=True)
+        for b in NOISY_BATCHES:
+            for tag, seed in (("noisy_a", 0), ("noisy_b", 0), ("noisy_c", 1)):
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                runs[tag, name, b] = runtime.execute(
+                    dep, xs[b], backend="acim", generator=gen,
+                    return_intermediates=True)
+    torch.cuda.synchronize()
+    launches = cuda.launch_counts()
+    dispatch = runtime.dispatch_counts()
+    layers = {n: len(models[n][2].plan.layers) for n in ACIM_MODELS}
+    n_noisy = 3 * len(NOISY_BATCHES) * sum(layers.values())
+    n_b1 = 3 * len(BATCHES) * sum(layers.values()) + n_noisy
+    print(f"acim path: {len(runs)} requests; dispatch {dispatch}; launches "
+          f"{launches}")
+    require(dispatch == {"acim": len(runs)}, f"acim dispatch {dispatch}")
+    require(launches == {"kan_pipeline_layer": n_b1,
+                         "kan_pipeline_layer.noise": n_noisy},
+            f"acim launches {launches} != B1 {n_b1} (noise operand on "
+            f"{n_noisy}: every layer of every noisy call)")
+
+    # 1. quiet == fused, bit for bit
+    for name in ACIM_MODELS:
+        for b in BATCHES:
+            y, codes = runs["quiet", name, b]
+            fy, fcodes = runtime.execute(models[name][2], xs[b],
+                                         backend="fused",
+                                         return_intermediates=True)
+            require(torch.equal(y, fy) and all(
+                torch.equal(c, f) for c, f in zip(codes, fcodes)),
+                f"quiet acim differs from fused: {name} b={b}")
+    print(f"  quiet acim == fused bit for bit: {len(ACIM_MODELS)} models x "
+          f"{len(BATCHES)} batches (y and boundary codes)")
+
+    # 2. IR-drop only, natural and SAM placement: card vs the same executor
+    #    on CPU copies (the plain versions), under the parity gate
+    ir_stats = {}
+    for name in ACIM_MODELS:
+        dep = models[name][2]
+        cdep = cpu_bundle(dep)
+        for tag, p in (("ir", None), ("ir_sam", perms[name])):
+            gained = parity.irdrop_bundle(cdep, ir_only, p)
+            for b in BATCHES:
+                y, codes = runs[tag, name, b]
+                x = xs[b].cpu()
+                want_y, want_codes = runtime.execute(
+                    cdep, x, backend="acim", cim=ir_only, sam_perms=p,
+                    return_intermediates=True)
+                pre = parity.boundary_prerounds(
+                    gained, _entry_codes(cdep, x, None)[0], None, want_codes)
+                ir_stats[f"{tag}/{name}/{b}"] = parity.compare_runs(
+                    codes, want_codes, pre, y, want_y)
+    err = max(st["max_abs_err"] for st in ir_stats.values())
+    excused = sum(st["excused"] for st in ir_stats.values())
+    left = sum(st["rows_left_out"] for st in ir_stats.values())
+    print(f"  IR-drop only (ir_gamma 0.06, natural and SAM placement) vs the "
+          f"CPU run: {len(ir_stats)} answers agree, max |err| {err:.3e} "
+          f"(atol {ATOL}), excused codes {excused}, rows left out {left}")
+
+    # 3. the default noisy config: one seed twice is one answer, another
+    #    seed another
+    for name in ACIM_MODELS:
+        for b in NOISY_BATCHES:
+            (ya, ca), (yb, cb), (yc, _) = (runs[t, name, b] for t in
+                                           ("noisy_a", "noisy_b", "noisy_c"))
+            require(torch.equal(ya, yb) and all(
+                torch.equal(u, v) for u, v in zip(ca, cb)),
+                f"noisy acim not reproducible: {name} b={b}")
+            require(not torch.equal(ya, yc),
+                    f"noisy acim: two seeds gave one answer ({name} b={b})")
+    print(f"  noisy acim ({noisy}): one generator seed reproduces, another "
+          f"differs, at {NOISY_BATCHES} rows")
+
+    sigma = sigma_gate(dev, knot)
+    mac = phase_mac_path(dev, models, knot)
+    report["acim"] = {"wall_s": time.perf_counter() - t_phase,
+                      "dispatch": dispatch, "launches": launches,
+                      "irdrop_vs_cpu": ir_stats, "sigma": sigma, "mac": mac}
+    return {"acim_kan_slice": launches, "acim_mac": mac["launches"]}
+
+
+def sigma_gate(dev, knot) -> dict:
+    """One (17, 14) layer with only the partial-sum noise on: the
+    per-channel std of y_acim - y_fused at 65536 rows against the analytic
+    sigma of the executor (ROADMAP A8's sigma gate)."""
+    import torch
+
+    from repro_torch import runtime
+    from repro_torch.core.cim import CIMConfig
+    from repro_torch.core.kan_layer import KANSpec, init_kan_network
+    from repro_torch.core.kan_network_deploy import (
+        deploy_kan_network,
+        quantize_kan_network,
+    )
+    from repro_torch.core.tmdv import TMDVConfig
+    from repro_torch.runtime.executor import ACIMExecutor
+
+    kspec = KANSpec(dims=(17, 14), grid_size=5)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qp = quantize_kan_network(init_kan_network(gen, kspec, device=dev), kspec)
+    dep = deploy_kan_network(qp, kspec, device=dev)
+    cfg = CIMConfig(ir_gamma=0.0, sigma_ps_ref=0.05,
+                    input_gen=TMDVConfig(sigma_v_ref=0.0, sigma_t=0.0))
+    x = torch.as_tensor(knot[:ACIM_ROWS], device=dev)
+    noise = (runtime.execute(dep, x, backend="acim", cim=cfg,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(5))
+             - runtime.execute(dep, x, backend="fused")).double()
+    lp = dep.plan.layers[0]
+    want = ACIMExecutor._layer_psum_std(cfg, lp, dep.layers[0])[: lp.o]
+    got = noise.std(dim=0)
+    rel = ((got - want.double()) / want.double()).abs()
+    require(bool((want > 0).all()), "psum sigma is zero on a live channel")
+    print(f"  sigma gate (one 17 x 14 layer, psum noise only, {ACIM_ROWS} rows): "
+          f"per-channel std / analytic sigma within {rel.max().item():.4f} "
+          f"(tol {SIGMA_TOL}) on all {lp.o} channels")
+    require(rel.max().item() <= SIGMA_TOL,
+            f"psum sigma off by {rel.max().item():.4f}")
+    return {"max_rel_err": rel.max().item(), "channels": lp.o,
+            "sigma": want.tolist(), "measured": got.tolist()}
+
+
+def mac_drives(qparams, x, spec):
+    """Layer 0's simulator MAC operands: WL drives (the dense SH-LUT basis in
+    LUT-code units) and the int8 weight codes as conductance rows."""
+    import torch
+
+    from repro_torch.core.asp_quant import dense_basis_from_codes, quantize_input
+
+    qp = qparams[0]
+    basis = dense_basis_from_codes(quantize_input(x, spec), qp["lut"], spec)
+    drives = basis.reshape(x.shape[0], -1) / qp["lut_scale"]
+    w_rows = qp["c_q"].to(torch.float32).reshape(drives.shape[1], -1)
+    return drives, w_rows
+
+
+def layer0_qparams(dev, models, grid: int):
+    """(layer-0 spec, quantized layers) of a (17, 1, 14) KAN at ``grid``:
+    the phase's KAN1 / KAN2 where they match, else one made from seed 0."""
+    import torch
+
+    from repro_torch.core.kan_layer import KANSpec, init_kan_network
+    from repro_torch.core.kan_network_deploy import quantize_kan_network
+
+    for name in ("kan1", "kan2"):
+        kspec, qparams, _ = models[name]
+        if kspec.grid_size == grid:
+            return kspec.layer_specs()[0], qparams
+    kspec = KANSpec(dims=(17, 1, 14), grid_size=grid)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_kan_network(gen, kspec, device=dev)
+    return kspec.layer_specs()[0], quantize_kan_network(params, kspec)
+
+
+def phase_mac_path(dev, models, knot) -> dict:
+    """The ACIM simulator MAC (``cim_mac``, kernel B4) on the first-layer
+    MAC of the Fig. 13 KANs and the Fig. 12 sweep, natural and KAN-SAM
+    placement, 65536 knot rows: held to the plain simulator ``cim_matmul``
+    on the card, and its error against the ideal MAC reported (the Fig. 12
+    mechanism: SAM should lower it)."""
+    import torch
+
+    from repro_torch.core.cim import CIMConfig, cim_matmul, ideal_matmul
+    from repro_torch.core.sam import row_activation_weight, sam_permutation
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.cim_mac import cim_mac
+    from repro_torch.kernels.cim_mac.cardcheck import assert_adc_close
+
+    x = torch.as_tensor(knot[:ACIM_ROWS], device=dev)
+    cases = []
+    for label, grid, rows, adc, gamma in MAC_PATH:
+        spec, qparams = layer0_qparams(dev, models, grid)
+        cfg = CIMConfig(array_rows=rows, adc_bits=adc, ir_gamma=gamma,
+                        deterministic=True)
+        drives, w_rows = mac_drives(qparams, x, spec)
+        perm = sam_permutation(
+            row_activation_weight(x[:CALIB_ROWS], spec, 17), rows)
+        for tag, p in (("natural", None), ("sam", perm)):
+            cases.append((f"{label}/{tag}", cfg, drives, w_rows, p))
+    cuda.reset_launch_counts()
+    outs = []
+    for _, cfg, drives, w_rows, p in cases:
+        xd, wd = drives, w_rows
+        if p is not None:
+            idx = torch.as_tensor(p, device=dev)
+            xd, wd = drives.index_select(1, idx), w_rows.index_select(0, idx)
+        outs.append(cim_mac(xd, wd, array_rows=cfg.array_rows,
+                            ir_scale=cfg.ir_scale(), adc_bits=cfg.adc_bits,
+                            x_max=255.0))
+    torch.cuda.synchronize()
+    launches = cuda.launch_counts()
+    require(launches == {"cim_mac_fwd": len(cases)},
+            f"simulator MAC launches {launches} != {len(cases)}")
+    stats = {}
+    for (key, cfg, drives, w_rows, p), out in zip(cases, outs):
+        want = cim_matmul(drives, w_rows, cfg, row_perm=p, x_max=255.0)
+        wp = w_rows if p is None else w_rows[torch.as_tensor(p, device=dev)]
+        require(out.shape == want.shape and bool(torch.isfinite(out).all()),
+                f"simulator MAC {key}: bad output {tuple(out.shape)}")
+        st = assert_adc_close(out, want, wp, cfg.array_rows, cfg.adc_bits)
+        ideal = ideal_matmul(drives, w_rows)
+        st["rel_err_vs_ideal"] = float((out - ideal).abs().mean()
+                                       / ideal.abs().mean())
+        stats[key] = st
+    print(f"  simulator MAC (cim_mac, B4) vs cim_matmul on the card, "
+          f"{ACIM_ROWS} rows: case | max |err| / LSB | tight | mean |MAC - "
+          "ideal| / mean |ideal|")
+    for k, st in stats.items():
+        print(f"    {k} | {st['max_err_over_allow']:.3f} | {st['tight']:.5f} "
+              f"| {st['rel_err_vs_ideal']:.5f}")
+    return {"launches": launches, "vs_cim_matmul": stats}
+
+
+# ----------------------------------------------------------------------------
 # phase 6: the LM serving slice at full width
 # ----------------------------------------------------------------------------
 
@@ -545,7 +897,8 @@ def _timed(eng, name: str, sink: list) -> None:
     setattr(eng, name, wrapper)
 
 
-def serve_once(params, cfg, prompts, dev, mode: str, profile: bool = False):
+def serve_once(params, cfg, prompts, dev, mode: str, profile: bool = False,
+               kan_backend: str | None = None):
     """One engine serves the requests through the scheduler; returns its
     streams, counters and times."""
     import torch
@@ -557,7 +910,8 @@ def serve_once(params, cfg, prompts, dev, mode: str, profile: bool = False):
     kw = ({} if mode == "contiguous" else
           {"kv_block_size": SERVE_BLOCK, "prefill_chunk": SERVE_CHUNK})
     eng = ServeEngine(params, cfg, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
-                      kan_deploy=True, device=dev, **kw)
+                      kan_deploy=True, kan_backend=kan_backend, device=dev,
+                      **kw)
     # warm-up (library load, plan builds) outside the measured run
     eng.run([Request(rid=-1, prompt=[5, 6, 7, 8, 9, 10, 11, 12],
                      max_new_tokens=2)])
@@ -604,16 +958,21 @@ def serve_once(params, cfg, prompts, dev, mode: str, profile: bool = False):
     }
 
 
-def check_counts(run: dict, mode: str, layers: int) -> None:
+def check_counts(run: dict, mode: str, layers: int, backend: str = "fused",
+                 noise: bool = False) -> None:
+    """B2 once and B1 twice per layer of every prefill / decode call (with
+    ``noise``: every B1 launch carried the psum-noise operand)."""
     calls = run["prefill_calls"] + run["decode_calls"]
     want = {"flash_attention": calls * layers,
             "kan_pipeline_layer": 2 * calls * layers}
+    if noise:
+        want["kan_pipeline_layer.noise"] = 2 * calls * layers
     require(run["launches"] == want,
             f"{mode}: launches {run['launches']} != {want} ({calls} calls x "
             f"{layers} layers; B1 twice per KAN-FFN)")
     require(run["attn"] == {"flash": calls * layers},
             f"{mode}: attention dispatch {run['attn']}")
-    require(run["kan"] == {"fused": calls * layers},
+    require(run["kan"] == {backend: calls * layers},
             f"{mode}: KAN dispatch {run['kan']}")
     require(all(v == "done" for v in run["status"].values())
             and len(run["status"]) == len(SERVE_LENS),
@@ -778,11 +1137,88 @@ def phase_serve(dev, report) -> dict:
           + "; ".join(f"{k} {v:.2f}" for k, v in bd["by_class_ms"].items()))
     for ms, name in bd["top"][:5]:
         print(f"    {ms:9.3f} ms  {name}")
-    report["serve"] = out
     launches = {f"lm_{mode}": r["launches"] for mode, r in runs.items()}
+    out["acim"] = serve_acim(qparams, cfg, prompts, dev, runs["contiguous"],
+                             bd, launches)
+    report["serve"] = out
     del runs, run, qparams
     torch.cuda.empty_cache()
     return launches
+
+
+def serve_acim(qparams, cfg, prompts, dev, fused_run, fused_bd,
+               launches) -> dict:
+    """The same model and requests through ``kan_backend="acim"``,
+    contiguous: the quiet config (registered as "acim" for its run, then
+    the default restored) serves the fused streams token for token; the
+    default config, served twice (the second run profiled), gives one
+    stream."""
+    from repro_torch import runtime
+    from repro_torch.runtime.executor import ACIMExecutor
+
+    layers = cfg.num_layers
+    fused = fused_run["streams"]
+    default = runtime.get_executor("acim")
+    runtime.register_executor("acim",
+                              ACIMExecutor(cim=runtime.quiet_cim_config()))
+    try:
+        quiet = serve_once(qparams, cfg, prompts, dev, "contiguous",
+                           kan_backend="acim")
+    finally:
+        runtime.register_executor("acim", default)
+    check_counts(quiet, "acim quiet", layers, backend="acim")
+    require(quiet["streams"] == fused,
+            "acim quiet: the streams differ from the fused streams")
+    runs = [serve_once(qparams, cfg, prompts, dev, "contiguous",
+                       kan_backend="acim", profile=i == 1) for i in range(2)]
+    for i, r in enumerate(runs):
+        check_counts(r, f"acim run {i}", layers, backend="acim", noise=True)
+    require(runs[0]["streams"] == runs[1]["streams"],
+            "acim: two runs of the default config gave different streams")
+    run = runs[0]
+    differ = sum(a != f for rid, toks in fused.items()
+                 for a, f in zip(run["streams"][rid], toks))
+    first = {rid: next((i for i, (a, f) in enumerate(zip(run["streams"][rid],
+                                                         toks)) if a != f),
+                       None) for rid, toks in fused.items()}
+    bd = device_breakdown(runs[1]["prof"], runs[1]["wall_s"] * 1e3)
+    s, fs = run["sched"], fused_run["sched"]
+    dec = sorted(run["decode_ms"])
+    fdec = sorted(fused_run["decode_ms"])
+    info = {
+        "config": str(default.cim), "quiet_equals_fused": True,
+        "noisy_reproducible": True, "tokens": s["tokens"],
+        "tokens_differing_from_fused": differ,
+        "first_divergence_by_request": first,
+        "tokens_per_s": s["tokens_per_s"], "wall_s": run["wall_s"],
+        "decode_ms_median": dec[len(dec) // 2],
+        "decode_ms_mean": sum(dec) / len(dec),
+        "prefill_ms": run["prefill_ms"], "ttft_s": s["ttft_s"],
+        "peak_bytes": run["peak_bytes"], "launches": run["launches"],
+        "quiet_tokens_per_s": quiet["sched"]["tokens_per_s"],
+        "breakdown": bd, "host_idle_share": 1.0 - bd["busy_share"],
+        "fused_host_idle_share": 1.0 - fused_bd["busy_share"],
+        "fused_tokens_per_s": fs["tokens_per_s"],
+        "fused_decode_ms_median": fdec[len(fdec) // 2],
+        "fused_peak_bytes": fused_run["peak_bytes"],
+        "streams": run["streams"],
+    }
+    print(f"  acim quiet (registered as \"acim\"): streams == fused token for "
+          f"token ({quiet['sched']['tokens_per_s']:.1f} tokens/s)")
+    print(f"  acim {default.cim}: {s['tokens']} tokens in "
+          f"{run['wall_s']:.3f} s ({s['tokens_per_s']:.1f} tokens/s, fused "
+          f"{fs['tokens_per_s']:.1f}); decode {info['decode_ms_median']:.2f} "
+          f"ms/step (fused {info['fused_decode_ms_median']:.2f}); peak "
+          f"{run['peak_bytes']} B (fused {fused_run['peak_bytes']} B); "
+          f"launches {run['launches']}")
+    print(f"    two runs, one stream; {differ} of {s['tokens']} tokens differ "
+          f"from the fused stream (first divergence by request {first}); "
+          f"profiled: device {bd['device_ms']:.2f} ms of {bd['wall_ms']:.2f} "
+          f"ms wall, host idle share {info['host_idle_share']:.3f} (fused "
+          f"{info['fused_host_idle_share']:.3f}); "
+          + "; ".join(f"{k} {v:.2f}" for k, v in bd["by_class_ms"].items()))
+    launches["lm_acim"] = run["launches"]
+    return info
 
 
 # ----------------------------------------------------------------------------
@@ -849,6 +1285,7 @@ def phase_times_lm(dev, report) -> tuple:
         print(f"  {f}x{o} rows={nrows} | {ms:.4f} | {plain:.4f} | "
               f"{b_ms:.4f} ({by})")
     report["times_lm"] = rows
+    report["times_b4"] = phase_times_b4(dev)
     sel = [r for r in rows if r["kernel"] == "flash_attention"]
     by_time = {"bytes": 0.0, "operations": 0.0}
     for r in sel:
@@ -860,6 +1297,65 @@ def phase_times_lm(dev, report) -> tuple:
           "bound_by": max(by_time, key=by_time.get), "shapes": sel}
     return b2, [r for r in rows if r["kernel"] == "kan_pipeline_layer"]
 
+
+def phase_times_b4(dev) -> dict:
+    """B4 at the acim study's shapes (``cardcheck.PATH_SHAPES``): each held
+    against plain under the ADC contract, then timed beside its bound and
+    plain version.  No library call computes the function (the ADC rounds
+    each array's partial inside the contraction), so library_ms is None."""
+    import torch
+
+    from repro_torch.core.cim import CIMConfig
+    from repro_torch.kernels.cim_mac import cardcheck as mc
+    from repro_torch.kernels.cim_mac import cim_mac_arrays, cim_mac_plain
+    from repro_torch.kernels.cim_mac.ref import tile_rows
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows = []
+    print("B4 at the acim study's shapes (held against plain, ADC contract): "
+          "shape (B, R_total, A x R, C, adc) | kernel ms | plain ms | "
+          "graph ms | bound ms (by) | "
+          "max |err| / LSB | library_ms: none")
+    for name, b, r, c, arr, adc in mc.PATH_SHAPES:
+        ops = mc.path_operands(dev, gen, b, r, c, arr)
+        ir = CIMConfig(array_rows=arr, ir_gamma=0.06).ir_scale()
+        st = mc.check_path(dev, ops, arr, ir, adc)
+        x, w, load, fs = ops
+        def run():
+            return cim_mac_arrays(*ops, array_rows=arr, ir_scale=ir,
+                                  adc_bits=adc)
+
+        ms = cuda_ms(run, reps=20)
+        g_ms = graph_ms(run, 20)
+        # the plain version on the operands as the reference tiles them
+        plain = cuda_ms(lambda: cim_mac_plain(*tile_rows(x, w, arr), load,
+                                              fs, ir, adc), reps=3, warmup=1)
+        n_arr = load.shape[0]
+        # the function's own work: the R_total real rows, not the zero rows
+        # that whole arrays would pad them with
+        nbytes = 4 * (x.numel() + w.numel() + load.numel() + fs.numel()
+                      + b * c)
+        b_ms, by = bound(nbytes, 2 * b * r * c)
+        rows.append({"kernel": "cim_mac_fwd", "shape": name, "B": b,
+                     "R_total": r, "A": n_arr, "R": arr, "C": c,
+                     "adc_bits": adc, "ms": ms, "graph_ms": g_ms,
+                     "plain_ms": plain,
+                     "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+                     **st})
+        print(f"  {name} ({b}, {r}, {n_arr} x {arr}, {c}, {adc}) | "
+              f"{ms:.4f} | {plain:.4f} | {g_ms:.4f} | {b_ms:.4f} ({by}) | "
+              f"{st['max_err_over_allow']:.3f}")
+        del ops, x, w, load, fs
+        torch.cuda.empty_cache()
+    by_time = {"bytes": 0.0, "operations": 0.0}
+    for r in rows:
+        by_time[r["bound_by"]] += r["bound_ms"]
+    return {"ms": sum(r["ms"] for r in rows),
+            "graph_ms": sum(r["graph_ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": max(by_time, key=by_time.get), "library_ms": None,
+            "shapes": rows}
 
 
 def main() -> int:
@@ -894,18 +1390,34 @@ def main() -> int:
         print(f"  ptxas: {ln}")
 
     report = {"device": name, "smi": smi, "build_s": info["seconds"],
-              "ptxas": summary}
-    errs = phase_kernels(dev, report)
+              "ptxas": summary, "phase_s": {}}
+    t_all = time.perf_counter()
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        report["phase_s"][phase] = time.perf_counter() - t0
+        print(f"[phase {phase}: {report['phase_s'][phase]:.1f} s]")
+        return out
+
+    errs = timed("3", phase_kernels, dev, report)
     models = build_models(dev)
-    by_path = {"kan_slice": phase_slice(dev, models, report)}
-    totals = phase_times(dev, models, report)
+    by_path = {"kan_slice": timed("4", phase_slice, dev, models, report)}
+    totals = timed("5", phase_times, dev, models, report)
+    by_path.update(timed("5b", phase_acim, dev, models, report))
     del models
     torch.cuda.empty_cache()
-    by_path.update(phase_serve(dev, report))
-    totals["flash_attention"], ffn_full = phase_times_lm(dev, report)
+    by_path.update(timed("6", phase_serve, dev, report))
+    totals["flash_attention"], ffn_full = timed("7", phase_times_lm, dev,
+                                                report)
+    print(f"[phases 3-7: {time.perf_counter() - t_all:.1f} s]")
+    totals["cim_mac_fwd"] = report["times_b4"]
     errs["flash_attention"] = max(
         [errs["flash_attention"]]
         + [r["max_abs_err"] for r in totals["flash_attention"]["shapes"]])
+    errs["cim_mac_fwd"] = max(
+        [errs["cim_mac_fwd"]]
+        + [r["max_abs_err"] for r in totals["cim_mac_fwd"]["shapes"]])
 
     out = ROOT / "reports"
     out.mkdir(exist_ok=True)
@@ -916,13 +1428,15 @@ def main() -> int:
         "kan_pipeline_layer": "src/repro/kernels/kan_spline/pipeline.py:471",
         "kan_spline": "src/repro/kernels/kan_spline/kernel.py:33",
         "flash_attention": "src/repro/kernels/attention/kernel.py:50",
+        "cim_mac_fwd": "src/repro/kernels/cim_mac/kernel.py:24",
     }
+    sources = {"flash_attention": B2_SOURCE, "cim_mac_fwd": B4_SOURCE}
     kernels = []
-    for k in ("kan_pipeline_layer", "kan_spline", "flash_attention"):
+    for k in ("kan_pipeline_layer", "kan_spline", "flash_attention",
+              "cim_mac_fwd"):
         t = totals[k]
         paths = {p: c.get(k, 0) for p, c in by_path.items() if c.get(k, 0)}
-        row = {"name": k, "route": "cuda",
-               "source": B2_SOURCE if k == "flash_attention" else SOURCE,
+        row = {"name": k, "route": "cuda", "source": sources.get(k, SOURCE),
                "replaces": replaces[k], "launches": sum(paths.values()),
                "max_abs_err": errs[k], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -932,6 +1446,13 @@ def main() -> int:
             row["shapes"] = [{key: r[key] for key in (
                 "shape", "B", "S", "T", "ms", "plain_ms", "library_ms",
                 "bound_ms", "bound_by", "max_abs_err")} for r in t["shapes"]]
+        if k == "cim_mac_fwd":
+            row["shapes"] = [{key: r[key] for key in (
+                "shape", "B", "R_total", "A", "R", "C", "adc_bits", "ms",
+                "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err", "max_err_over_allow", "tight")}
+                for r in t["shapes"]]
+            row["graph_ms"] = t["graph_ms"]
         if k == "kan_pipeline_layer":
             row["ffn_full_width"] = [{key: r[key] for key in (
                 "layer", "rows", "ms", "plain_ms", "bound_ms", "bound_by")}

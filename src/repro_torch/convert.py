@@ -19,12 +19,16 @@ import numpy as np
 import torch
 
 from .core.asp_quant import ASPQuantSpec
+from .core.cim import CIMConfig
 from .core.kan_network_deploy import DeployedKAN
+from .core.tmdv import TMDVConfig
 from .device import resolve_device
 from .runtime import PLAN_CACHE
 
 __all__ = [
     "spec_from_reference",
+    "tmdv_config_from_reference",
+    "cim_config_from_reference",
     "params_from_numpy",
     "qparams_from_numpy",
     "deployed_from_reference",
@@ -41,6 +45,22 @@ def spec_from_reference(spec) -> ASPQuantSpec:
     return ASPQuantSpec(**{
         f.name: getattr(spec, f.name) for f in dataclasses.fields(ASPQuantSpec)
     })
+
+
+def tmdv_config_from_reference(cfg) -> TMDVConfig:
+    """The port's frozen TMDVConfig, mapped field by field."""
+    return TMDVConfig(**{
+        f.name: getattr(cfg, f.name) for f in dataclasses.fields(TMDVConfig)
+    })
+
+
+def cim_config_from_reference(cfg) -> CIMConfig:
+    """The port's frozen CIMConfig, mapped field by field (its input
+    generator too)."""
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(CIMConfig)}
+    fields["input_gen"] = tmdv_config_from_reference(cfg.input_gen)
+    return CIMConfig(**fields)
 
 
 def params_from_numpy(params_list, *, device=None) -> list:

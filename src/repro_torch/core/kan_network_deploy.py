@@ -137,12 +137,17 @@ def _deploy(qparams_list, dims, specs, batch, *, residual_raw,
 
 
 def kan_network_deploy_apply(dep: DeployedKAN, x, *, xraw=None,
-                             backend: str | None = None,
+                             backend: str | None = None, generator=None,
+                             cim=None, sam_perms=None,
                              return_intermediates: bool = False):
     """Run float input x (B, F0) through the runtime-resolved backend
-    (explicit > scope > ``REPRO_KAN_BACKEND`` > "fused")."""
+    (explicit > scope > ``REPRO_KAN_BACKEND`` > "fused").
+
+    ``generator`` / ``cim`` / ``sam_perms`` only matter for the acim
+    backend (``sam_perms``: per-layer KAN-SAM row placements)."""
     return runtime.execute(
         dep, x, backend=backend, default="fused", xraw=xraw,
+        generator=generator, cim=cim, sam_perms=sam_perms,
         return_intermediates=return_intermediates,
     )
 

@@ -10,7 +10,9 @@ minutes.  Nothing is compiled or loaded at import, so the CPU tests import
 every module without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
-launches its kernel, and nowhere else.
+launches its kernel, and nowhere else.  ``kan_pipeline_layer.noise``
+counts the B1 launches among ``kan_pipeline_layer``'s that carried the
+partial-sum noise operand (the acim backend).
 """
 
 from __future__ import annotations
@@ -66,6 +68,9 @@ _SIGNATURES = {
     # q k v qpos kpos out | B S T Hkv G D bf16 kind window | softcap scale
     # | device stream
     "flash_attention_fwd": [_P] * 6 + [_I] * 9 + [_F] * 2 + [_I, _P],
+    # x w load fs out | B Rt R C | ir_scale comp_scale | adc_bits | device
+    # stream
+    "cim_mac_fwd": [_P] * 5 + [_I] * 4 + [_F] * 2 + [_I, _I, _P],
 }
 
 

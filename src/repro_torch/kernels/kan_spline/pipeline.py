@@ -47,6 +47,7 @@ __all__ = [
     "pack_lut",
     "unpack_lut",
     "unpacked_wc",
+    "gained_layer",
     "run_pipeline_layer",
     "run_pipeline_layer_plain",
     "kan_pipeline_impl",
@@ -342,6 +343,17 @@ def unpacked_wc(lw: dict, lp: LayerPlan) -> torch.Tensor:
     return q.to(torch.float32) * lw["wscale"].to(torch.float32)
 
 
+def gained_layer(lw: dict, lp: LayerPlan, gain) -> dict:
+    """A deployed layer with its banded rows times ``gain`` ((Fp*NB, 1) f32,
+    the acim backend's IR-drop row gains), or ``lw`` itself for None.  The
+    gains break the uniform per-channel scale, so a packed layer comes back
+    on its unpacked f32 weights: a new (Fp*NB, Op) f32 tensor."""
+    if gain is None:
+        return lw
+    return {"lut": lw["lut"], "wc": unpacked_wc(lw, lp) * gain,
+            "wb": lw["wb"]}
+
+
 # ----------------------------------------------------------------------------
 # Kernel B1: one fused layer + the boundary requantizer
 # ----------------------------------------------------------------------------
@@ -439,6 +451,8 @@ def _run_pipeline_layer_cuda(codes, xraw, lw, lp, bp, psum_noise):
     )
     cuda.check(status)
     cuda.LAUNCHES["kan_pipeline_layer"] += 1
+    if psum_noise is not None:
+        cuda.LAUNCHES["kan_pipeline_layer.noise"] += 1
     return y, codes_out
 
 
@@ -474,10 +488,17 @@ def run_pipeline_layer(codes, xraw, lw: dict, lp: LayerPlan, bp: int, *,
 
 
 def kan_pipeline_impl(codes, xraw, layers: tuple, plan: PipelinePlan, *,
+                      psum_noises: tuple | None = None,
+                      row_gains: tuple | None = None,
                       return_intermediates: bool = False):
     """Run the whole stack: pad once, one fused layer each, slice back.
 
-    codes (B, F0) int32 entry codes; xraw (B, F0) f32 (residual_raw only).
+    codes (B, F0) int32 entry codes; xraw (B, F0) f32 (residual_raw only);
+    psum_noises: per-layer (Bp, Op) f32 partial-sum noise or None (the
+    acim backend's hook; added to each layer's MAC before its requantizer);
+    row_gains: per-layer (Fp*NB, 1) f32 IR-drop row gains or None (the
+    acim backend's other hook): each gained layer is formed just before
+    its launch, so one gained copy of the weights is alive at a time.
     Returns y (B, O_last) and, with ``return_intermediates``, the int32
     boundary codes each layer handed to the next (logical shapes).
     """
@@ -493,9 +514,12 @@ def kan_pipeline_impl(codes, xraw, layers: tuple, plan: PipelinePlan, *,
                       (0, lp0.fp - lp0.f, 0, plan.bp - b))
     y = None
     boundary = []
-    for lp, lw in zip(plan.layers, layers):
+    for li, (lp, lw) in enumerate(zip(plan.layers, layers)):
+        if row_gains is not None:
+            lw = gained_layer(lw, lp, row_gains[li])
         y, nxt_codes = run_pipeline_layer(
-            h_codes, h_raw if lp.residual_raw else None, lw, lp, plan.bp)
+            h_codes, h_raw if lp.residual_raw else None, lw, lp, plan.bp,
+            psum_noise=None if psum_noises is None else psum_noises[li])
         if nxt_codes is not None:
             boundary.append(nxt_codes[: plan.b, : lp.o])
         h_codes, h_raw = nxt_codes, y

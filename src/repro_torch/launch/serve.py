@@ -7,6 +7,9 @@ Port of ``repro.launch.serve``.  Runs on the card unless ``--device cpu``:
     # on the CPU (the kernels' plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
         --kan-ffn --device cpu
+    # with the ACIM non-idealities (IR-drop, TM-DV and partial-sum noise):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
+        --kan-ffn --backend acim
     # paged KV pool with prefix caching and chunked prefill:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
         --kv-block-size 16 --prefix-cache on --prefill-chunk 32
@@ -16,8 +19,9 @@ Port of ``repro.launch.serve``.  Runs on the card unless ``--device cpu``:
 
 ``--kan-ffn`` serves the paper's datapath: the FFN blocks are
 ASP-quantized and deployed at startup, and every prefill / decode step runs
-them through kernel B1; attention runs through kernel B2 ("flash") unless
-``--attn-backend ref``.  Weights are random, drawn from a fixed seed.
+them through kernel B1 (``--backend acim``: with the paper's ACIM
+non-idealities injected); attention runs through kernel B2 ("flash")
+unless ``--attn-backend ref``.  Weights are random, drawn from a fixed seed.
 The reference's mesh, speculative-decoding, tuning-artifact and
 observability flags exit with "not ported yet" and their ROADMAP item.
 """
@@ -111,8 +115,6 @@ def main(argv=None) -> None:
         if getattr(args, flag) is not None:
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
                              f"(ROADMAP {item})")
-    if args.backend == "acim":
-        raise SystemExit("--backend acim is not ported yet (ROADMAP A8)")
     dev = resolve_device(args.device)
 
     cfg = smoke_config(args.arch)

@@ -17,18 +17,23 @@ boundary code then moves by one wherever the requantizer's pre-round value
 The reference's pre-round values are recomputed from the reference's own
 boundary codes with one layer of :func:`runtime.ref_composition` at a time,
 in float64 from there on; that is within ~1e-5 of the reference's own value,
-well inside ``eps``.
+well inside ``eps``.  A deterministic acim run (IR-drop gains, no noise)
+takes its pre-round values from :func:`irdrop_bundle`, the bundle with the
+gained weights that run uses.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from .runtime.executor import _logical_layer, ref_composition
+from .kernels.kan_spline.pipeline import gained_layer
+from .runtime.executor import _irdrop_row_gain, _logical_layer, ref_composition
 
 __all__ = ["entry_preround", "requant_preround", "boundary_prerounds",
-           "compare_runs"]
+           "irdrop_bundle", "compare_runs"]
 
 
 def _np(a) -> np.ndarray:
@@ -68,6 +73,21 @@ def boundary_prerounds(dep, entry_codes, xraw, boundary_codes) -> list:
         out.append(requant_preround(y, lp.next_spec))
         codes, xraw = boundary_codes[li], y
     return out
+
+
+def irdrop_bundle(dep, cfg, sam_perms=None):
+    """``dep`` with each layer's weights times its IR-drop row gains under
+    ``cfg`` (and the per-layer KAN-SAM placements ``sam_perms``), as the
+    acim executor forms them: the bundle whose fused run is that
+    executor's deterministic run, and whose pre-round values gate it."""
+    layers = []
+    for li, (lp, lw) in enumerate(zip(dep.plan.layers, dep.layers)):
+        gain = _irdrop_row_gain(
+            lp, cfg, None if sam_perms is None else sam_perms[li])
+        layers.append(gained_layer(
+            lw, lp, None if gain is None else torch.from_numpy(gain)
+            .to(dep.device)))
+    return dataclasses.replace(dep, layers=tuple(layers))
 
 
 def compare_runs(got_codes, want_codes, prerounds, got_y, want_y, *,

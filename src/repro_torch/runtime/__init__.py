@@ -1,13 +1,15 @@
 """Backend-pluggable KAN runtime: executor registry + plan cache.
 
 Port of ``repro.runtime``.  See :mod:`.executor` for the KAN ``ref`` /
-``fused`` backends and ``REPRO_KAN_BACKEND`` resolution, :mod:`.plancache`
+``fused`` / ``acim`` backends and ``REPRO_KAN_BACKEND`` resolution, :mod:`.plancache`
 for batch bucketing, and :mod:`.attention` for the attention registry
 (``ref`` / ``flash``, ``REPRO_ATTN_BACKEND``).
 
     from repro_torch import runtime
     y = runtime.execute(dep, x)                  # resolved backend
     y = runtime.execute(dep, x, backend="ref")   # the layered oracle
+    y = runtime.execute(dep, x, backend="acim",  # paper non-idealities
+                        generator=torch.Generator(device=dep.device).manual_seed(0))
 """
 
 from .attention import (
@@ -21,12 +23,14 @@ from .attention import (
     use_attn_backend,
 )
 from .executor import (
+    ACIMExecutor,
     ENV_BACKEND_VAR,
     FusedExecutor,
     RefExecutor,
     available_backends,
     dispatch_counts,
     get_executor,
+    quiet_cim_config,
     ref_composition,
     register_executor,
     reset_dispatch_counts,
@@ -36,6 +40,7 @@ from .executor import (
 from .plancache import PLAN_CACHE, PlanCache, PlanKey, bucket_batch
 
 __all__ = [
+    "ACIMExecutor",
     "ENV_ATTN_BACKEND_VAR",
     "ENV_BACKEND_VAR",
     "attn_dispatch_counts",
@@ -52,6 +57,7 @@ __all__ = [
     "dispatch_counts",
     "execute",
     "get_executor",
+    "quiet_cim_config",
     "ref_composition",
     "register_attn_backend",
     "reset_attn_dispatch_counts",

@@ -44,6 +44,7 @@ class PlanKey:
     residual_raw: bool
     device: str             # "cuda:0", "cpu", ...: where the entry runs
     backend: str
+    flags: tuple = ()       # backend statics (e.g. ("cim", CIMConfig(...)))
 
 
 class PlanCache:

@@ -8,8 +8,13 @@ boundary codes equal up to the excused near-ties of ``repro_torch.parity``;
 packed and unpacked B1 weights bit-identical), B1 at the full-width
 KAN-FFN halves, B2 through ``repro_torch.kernels.attention.cardcheck`` (f32
 within 2e-5 + 2e-5 * |plain|, bf16 within one more bf16 ulp, fully masked
-rows exact zeros), small cases and the serving path's own shapes; the slice's fused path against "ref"; and one layer of
-the full-width qwen2.5-14b KAN-FFN model served on the card.  This file
+rows exact zeros), small cases and the serving path's own shapes; B4
+through ``repro_torch.kernels.cim_mac.cardcheck`` (the reference's ADC
+contract: within one ADC LSB per array, >= 95% tight; the zero-IR 24-bit
+case the plain matmul within 1e-3 relative plus half an LSB per array);
+the slice's fused path against "ref"; the acim backend's quiet run
+against "fused" bit for bit and its noise under one generator seed; and
+one layer of the full-width qwen2.5-14b KAN-FFN model served on the card.  This file
 imports only the port, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -31,6 +36,7 @@ from repro_torch.core.kan_network_deploy import (
 )
 from repro_torch.kernels import cuda
 from repro_torch.kernels.attention import cardcheck as ac
+from repro_torch.kernels.cim_mac import cardcheck as mc
 from repro_torch.kernels.kan_spline import cardcheck as cc
 from repro_torch.runtime.executor import _entry_codes
 
@@ -179,3 +185,79 @@ def test_wrapper_raises_instead_of_falling_back(dev):
         kan_spline_cuda(codes.int(), torch.zeros(2**14, 4, device=dev),
                         torch.zeros(3 * 4, 2, device=dev),
                         torch.zeros(3, 2, device=dev), big)
+
+
+@pytest.mark.parametrize("case", mc.CASES)
+def test_b4_kernel_matches_plain_on_reference_cases(dev, case):
+    mc.check_case(dev, torch.Generator(device=dev).manual_seed(21), *case)
+
+
+@pytest.mark.parametrize("b,r,c,rows,adc", mc.PROPERTY_CASES)
+def test_b4_kernel_matches_plain_on_ragged_shapes(dev, b, r, c, rows, adc):
+    mc.check_case(dev, torch.Generator(device=dev).manual_seed(22), b, r, c,
+                  rows, adc=adc, ir=0.03)
+
+
+def test_b4_tiled_identity_and_zero_ir(dev):
+    gen = torch.Generator(device=dev).manual_seed(23)
+    mc.check_tiled(dev, gen)
+    mc.check_zero_ir(dev, gen)
+
+
+@pytest.mark.parametrize("name,b,r,c,rows,adc", mc.PATH_SHAPES)
+def test_b4_kernel_matches_plain_at_path_shapes(dev, name, b, r, c, rows,
+                                                adc):
+    from repro_torch.core.cim import CIMConfig
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    ops = mc.path_operands(dev, gen, b, r, c, rows)
+    mc.check_path(dev, ops, rows, CIMConfig(array_rows=rows, ir_gamma=0.06)
+                  .ir_scale(), adc)
+    del ops
+    torch.cuda.empty_cache()
+
+
+def test_b4_wrapper_raises_instead_of_falling_back(dev):
+    from repro_torch.kernels.cim_mac import cim_mac_arrays
+
+    x = torch.zeros(4, 200, device=dev)
+    w = torch.zeros(200, 3, device=dev)
+    load = torch.zeros(2, 3, device=dev)
+    kw = dict(array_rows=128, ir_scale=0.0, adc_bits=8)
+    with pytest.raises(ValueError, match="w"):
+        cim_mac_arrays(x, w.cpu(), load, load, **kw)
+    with pytest.raises(ValueError, match="x"):
+        cim_mac_arrays(x.double(), w, load, load, **kw)
+
+
+@pytest.mark.parametrize("grid,bits", [(5, 8), (68, 8), (5, (8, 4))])
+def test_acim_quiet_is_fused_and_noise_reproduces(dev, grid, bits):
+    from repro_torch.core.cim import CIMConfig
+
+    kspec = KANSpec(dims=(17, 1, 14), grid_size=grid, n_bits=bits)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qparams = quantize_kan_network(init_kan_network(gen, kspec, device=dev),
+                                   kspec)
+    dep = deploy_kan_network(qparams, kspec, device=dev)
+    x = torch.rand(300, 17, generator=gen, device=dev) * 2 - 1
+    y_f, c_f = runtime.execute(dep, x, backend="fused",
+                               return_intermediates=True)
+    y_q, c_q = runtime.execute(dep, x, backend="acim",
+                               cim=runtime.quiet_cim_config(),
+                               return_intermediates=True)
+    assert torch.equal(y_q, y_f)
+    assert all(torch.equal(a, b) for a, b in zip(c_q, c_f))
+
+    def noisy(seed):
+        g = None if seed is None else \
+            torch.Generator(device=dev).manual_seed(seed)
+        return runtime.execute(dep, x, backend="acim", generator=g)
+
+    before = cuda.launch_counts().get("kan_pipeline_layer.noise", 0)
+    assert torch.equal(noisy(0), noisy(0))
+    assert not torch.equal(noisy(0), noisy(1))
+    assert torch.equal(noisy(None), noisy(None))
+    assert cuda.launch_counts()["kan_pipeline_layer.noise"] == before + 12
+    y_ir = runtime.execute(dep, x, backend="acim",
+                           cim=CIMConfig(ir_gamma=0.06, deterministic=True))
+    assert (y_ir - y_f).abs().max() > 0

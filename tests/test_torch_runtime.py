@@ -69,7 +69,8 @@ def _x(b, f=17, seed=1):
 
 
 def test_registry_and_pallas_alias():
-    assert set(runtime.available_backends()) == {"ref", "fused", "pallas"}
+    assert set(runtime.available_backends()) == {"ref", "fused", "pallas",
+                                                 "acim"}
     assert runtime.resolve_backend("pallas") == "fused"
     assert runtime.get_executor("pallas") is runtime.get_executor("fused")
 

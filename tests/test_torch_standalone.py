@@ -41,7 +41,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
     mods = _all_modules()
     for m in ("kernels.kan_spline.pipeline", "kernels.attention.ops",
               "models.model", "serve.engine", "serve.scheduler",
-              "launch.serve", "configs.registry", "core.kan_ffn_deploy"):
+              "launch.serve", "configs.registry", "core.kan_ffn_deploy",
+              "core.tmdv", "core.cim", "core.sam", "kernels.cim_mac.ops",
+              "kernels.cim_mac.cardcheck"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
