@@ -9,15 +9,22 @@ H100) and ``nvcc``.  It imports nothing of JAX or of the reference package.
 Phases (any failure exits non-zero):
 
   1. device report: name, count, ``nvidia-smi`` name and power limit; TF32 off;
-  2. build the CUDA kernels from ``src/repro_torch/csrc`` (seconds, ptxas);
+  2. build the CUDA kernels from ``src/repro_torch/csrc`` (seconds, ptxas)
+     and, where the toolkit has ``cuobjdump``, count the tensor-core
+     instructions (HMMA/HGMMA) of each kernel in the library's SASS (B2's
+     bf16 instance must have some);
   3. each kernel against its plain PyTorch version on the card
      (``repro_torch.kernels.kan_spline.cardcheck``): B1 in every flag
      combination at the KAN1 / KAN2 / FFN layer geometries (packed and
      unpacked B1 runs bit-identical), B3 on ragged shapes, both at every
      spline order 1..5 the kernel library is built for, and B1 at the
-     full-width qwen2.5-14b KAN-FFN halves; B2 (flash attention,
-     ``repro_torch.kernels.attention.cardcheck``) in f32 and bf16 x kinds x
-     GQA groups x head dims at odd lengths with fully masked rows; B4 (the
+     full-width qwen2.5-14b KAN-FFN halves, where the feature axis is
+     split: packed == unpacked there, a row's bits equal at 8 and 1024
+     rows, and a noisy layer's padded columns y = noise; B2 (flash
+     attention, ``repro_torch.kernels.attention.cardcheck``) in f32 and bf16
+     x kinds x GQA groups x head dims at odd lengths with fully masked rows,
+     and its bf16 tensor-core instance with the KV axis split (decode,
+     verify, a masked split, rows masked in every split); B4 (the
      ACIM MAC, ``repro_torch.kernels.cim_mac.cardcheck``) on the reference's
      cases and ragged shapes under the reference's ADC contract, and its
      zero-IR 24-bit case against the plain matmul;
@@ -49,15 +56,17 @@ Phases (any failure exits non-zero):
      prefill and decode call, the paged run hits the prefix cache, and
      every emitted token passes the teacher-forced gate against the
      "ref" KAN and "ref" attention backends; timed: TTFT, prefill and
-     decode ms, tokens/s, peak memory, and the device time by kernel.
+     decode ms, tokens/s, peak memory, and (a profiled run of each mode)
+     the device time by kernel and the host idle share.
      Then ``kan_backend="acim"``: the quiet config serves the fused
      streams token for token, the default config serves one stream in two
      runs (B1 with its noise operand on every layer of every call), timed
      beside the fused run;
-  7. CUDA-event times of B2 at the three shapes the serving path gives it,
-     of B1 at the full-width FFN halves and of B4 at the acim study's
-     shapes, beside bounds, plain versions and (B2)
-     ``scaled_dot_product_attention``;
+  7. CUDA-event times of B2 at the three shapes the serving path gives it
+     and at decode over 4096 keys (with its KV split count), of B1 at the
+     full-width FFN halves (with their feature split count) and of B4 at the
+     acim study's shapes, beside bounds, plain versions and (B2)
+     ``scaled_dot_product_attention`` from the same run;
   8. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
 
 A longer report goes to ``reports/chip_smoke_report.json`` (gitignored).
@@ -101,6 +110,9 @@ SERVE_CHUNK = 256          # paged prefill chunk (tokens)
 # 257-token prompt, which shares its first 256 tokens, is admitted
 SERVE_LENS = (511, 5, 17, 64, 1000, 130, 257, 700)
 SHARED = (511, 257)
+# B2 timed beside the path shapes: decode over a 4096-key cache (a longer
+# context than the cell's max_len; the split count stays 8)
+DECODE_LONG = (("decode_t4096", 4, 1, 4096, "causal"),)
 # Teacher-forced gate on the bf16 logits: each served token's logit under
 # the "ref" KAN and "ref" attention backends must lie within LOGIT_TOL of
 # the "ref" maximum.  The logits come out of a bf16 matmul, so near their
@@ -176,16 +188,22 @@ def bound(nbytes: int, flops: int, flop_per_s: float = F32_FLOP_PER_S) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name (with template arguments) out of its mangled name."""
+    m = re.search(r"\d+((?:flash|kan_layer|cim_mac)[a-z_]*)(?:I(.*?)EEv)?",
+                  mangled)
+    if m is None:
+        return mangled
+    return f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)
+
+
 def ptxas_summary(log: str) -> list:
     """One line per compiled kernel instance: its (mangled) name, then the
     registers / shared memory and spill lines ptxas printed for it."""
     out, name, spill = [], None, ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            name = ln.split("'")[1]
-            m = re.search(r"(flash_kernel|kan_layer_kernel|cim_mac_kernel)I"
-                          r"(.*?)EEv", name)
-            name = f"{m.group(1)}<{m.group(2)}>" if m else name
+            name = kernel_name(ln.split("'")[1])
         elif "spill" in ln:
             spill = ln.strip()
         elif "Used" in ln and "registers" in ln and name:
@@ -193,6 +211,28 @@ def ptxas_summary(log: str) -> list:
             out.append(f"{name[:56]}: {used}; {spill}")
             name, spill = None, ""
     return out
+
+
+def sass_mma_counts(lib_path: str) -> dict | None:
+    """Tensor-core instructions (HMMA, HGMMA) per kernel in the built
+    library's SASS, from ``cuobjdump -sass``; None where the toolkit has no
+    cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    proc = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        return None
+    counts, fn = {}, None
+    for ln in proc.stdout.splitlines():
+        if "Function :" in ln:
+            fn = kernel_name(ln.split("Function :", 1)[1].strip())
+        elif fn and re.search(r"\bH(G)?MMA\b|\bHMMA\.|\bHGMMA\.", ln):
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
 
 
 # ----------------------------------------------------------------------------
@@ -232,6 +272,22 @@ def phase_kernels(dev, report) -> dict:
     print(f"B1 vs plain at the full-width KAN-FFN halves (5120 -> 1280 -> "
           f"5120, G=8, 8 and 1024 rows): max |err| {ffn_err:.3e}, excused "
           f"codes {ffn_excused} (tie window {cc.FFN_FULL_TIE_EPS:.2e})")
+    from repro_torch.kernels.kan_spline.pipeline import feature_split_plan
+
+    for grid, f, o, flags, rows in cc.B1_FFN_PACKED:
+        require(feature_split_plan(f, o)[0] > 1, f"B1 {f}x{o}: no split")
+        st = cc.check_b1(dev, gen, grid, f, o, flags, rows,
+                         eps=cc.FFN_FULL_TIE_EPS)
+        ffn_err = max(ffn_err, st["max_abs_err"])
+    rows_eq = cc.check_b1_rows_independent(dev, gen)
+    pad_cols = cc.check_b1_padded_columns(dev, gen)
+    print(f"B1 with feature splits: packed == unpacked bit for bit at "
+          f"{[c[1:3] for c in cc.B1_FFN_PACKED]} "
+          f"({[feature_split_plan(c[1], c[2])[0] for c in cc.B1_FFN_PACKED]}"
+          f" splits); 5120 -> 1280 rows bit-identical at 8 and 1024 rows "
+          f"({rows_eq['feature_splits']} splits): {rows_eq['equal']}; a noisy "
+          f"layer's {pad_cols['columns']} padded columns y = noise exactly, "
+          f"codes requantized ({pad_cols['excused']} excused near-ties)")
 
     from repro_torch.kernels.attention import cardcheck as ac
 
@@ -242,9 +298,19 @@ def phase_kernels(dev, report) -> dict:
         st = ac.check_b2(dev, gen, **case)
         b2_err = max(b2_err, st["max_abs_err"])
         b2_ratio = max(b2_ratio, st["max_err_over_tol"])
+    split_cases = []
+    for case in ac.B2_SPLIT:
+        st = ac.check_b2(dev, gen, **case)
+        require(st["kv_splits"] > 1, f"B2 {case}: the KV axis was not split")
+        b2_err = max(b2_err, st["max_abs_err"])
+        b2_ratio = max(b2_ratio, st["max_err_over_tol"])
+        split_cases.append({**{k: str(v) for k, v in case.items()}, **st})
     print(f"B2 vs plain: {len(cases)} cases (f32/bf16 x kinds {ac.KINDS} x "
           f"GQA {ac.GQA} x D {ac.HEAD_DIMS} at S=33, T=47, plus the serving "
-          f"geometry, softcap and D=32), fully masked rows exact 0; max |err| "
+          f"geometry, softcap and D=32) and {len(split_cases)} with the KV "
+          f"axis split ({[c['kv_splits'] for c in split_cases]} splits: "
+          f"decode T=1023/4096, verify S=3, a masked split, local, full "
+          f"D=64), fully masked rows exact 0; max |err| "
           f"{b2_err:.3e}, worst err / tol {b2_ratio:.3f} (f32 tol "
           f"{ac.F32_TOL} + rel, bf16 + one bf16 ulp)")
 
@@ -269,7 +335,12 @@ def phase_kernels(dev, report) -> dict:
                                "b1_ffn_full_max_abs_err": ffn_err,
                                "b1_ffn_full_excused_codes": ffn_excused,
                                "b3_max_abs_err": b3_err,
-                               "b2_cases": len(cases), "b2_max_abs_err": b2_err,
+                               "b1_packed_split_cases": len(cc.B1_FFN_PACKED),
+                               "b1_rows_independent": rows_eq,
+                               "b1_padded_columns": pad_cols,
+                               "b2_cases": len(cases) + len(split_cases),
+                               "b2_split_cases": split_cases,
+                               "b2_max_abs_err": b2_err,
                                "b2_max_err_over_tol": b2_ratio,
                                "b4_cases": b4, "b4_zero_ir_max_abs_err":
                                zero_ir_err}
@@ -455,12 +526,13 @@ def phase_times(dev, models, report) -> dict:
             rows.append({"kernel": "kan_pipeline_layer", "layer": f"{name}/{li}",
                          "f": lp.f, "o": lp.o, "fp": lp.fp, "op": lp.op,
                          "nb": lp.spec.num_basis,
+                         "feature_splits": pl.feature_split_plan(lp.f, lp.o)[0],
                          "packed_w": "wcp" in lw, "packed_lut": "lutp" in lw,
                          "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
                          "bound_by": by})
             print(f"  {name}/{li} f={lp.f} o={lp.o} fp={lp.fp} op={lp.op} "
-                  f"nb={lp.spec.num_basis} | {ms:.4f} | {plain:.4f} | "
-                  f"{b_ms:.4f} ({by})")
+                  f"nb={lp.spec.num_basis} splits={rows[-1]['feature_splits']}"
+                  f" | {ms:.4f} | {plain:.4f} | {b_ms:.4f} ({by})")
             y, nxt = pl.run_pipeline_layer(*args)
             codes, xraw = nxt, y
 
@@ -1030,9 +1102,9 @@ def device_breakdown(prof, wall_ms: float) -> dict:
         if us is None:
             us = ev.self_cuda_time_total
         ms, key = us / 1e3, ev.key
-        if "flash_kernel" in key:
+        if "flash_kernel" in key:          # the split kernel and the merge
             cls = "B2 flash_attention"
-        elif "kan_layer_kernel" in key:
+        elif "kan_layer_" in key:          # the split kernel and the merge
             cls = "B1 kan_pipeline_layer"
         elif any(w in key.lower() for w in ("gemm", "nvjet", "xmma", "cutlass")):
             cls = "matmul (cuBLAS)"
@@ -1127,16 +1199,19 @@ def phase_serve(dev, report) -> dict:
     out["contiguous_equals_paged"] = same
     print(f"  contiguous and paged streams equal: {same}")
 
-    # where the time goes: the contiguous run again, under the profiler
-    run = serve_once(qparams, cfg, prompts, dev, "contiguous", profile=True)
-    check_counts(run, "contiguous (profiled)", cfg.num_layers)
-    bd = device_breakdown(run["prof"], run["wall_s"] * 1e3)
-    out["breakdown_contiguous"] = bd
-    print(f"  profiled contiguous run: device {bd['device_ms']:.2f} ms of "
-          f"{bd['wall_ms']:.2f} ms wall (busy {bd['busy_share']:.2f}); "
-          + "; ".join(f"{k} {v:.2f}" for k, v in bd["by_class_ms"].items()))
-    for ms, name in bd["top"][:5]:
-        print(f"    {ms:9.3f} ms  {name}")
+    # where the time goes: each mode again, under the profiler
+    for mode in ("paged", "contiguous"):
+        run = serve_once(qparams, cfg, prompts, dev, mode, profile=True)
+        check_counts(run, f"{mode} (profiled)", cfg.num_layers)
+        bd = device_breakdown(run["prof"], run["wall_s"] * 1e3)
+        out[f"breakdown_{mode}"] = bd
+        out["modes"][mode]["host_idle_share"] = 1.0 - bd["busy_share"]
+        print(f"  profiled {mode} run: device {bd['device_ms']:.2f} ms of "
+              f"{bd['wall_ms']:.2f} ms wall (busy {bd['busy_share']:.3f}, "
+              f"host idle share {1.0 - bd['busy_share']:.3f}); "
+              + "; ".join(f"{k} {v:.2f}" for k, v in bd["by_class_ms"].items()))
+        for ms, name in bd["top"][:6]:
+            print(f"    {ms:9.3f} ms  {name}")
     launches = {f"lm_{mode}": r["launches"] for mode, r in runs.items()}
     out["acim"] = serve_acim(qparams, cfg, prompts, dev, runs["contiguous"],
                              bd, launches)
@@ -1239,18 +1314,19 @@ def phase_times_lm(dev, report) -> tuple:
     from repro_torch.kernels.kan_spline import pipeline as pl
 
     rows = []
-    print("B2 at the serving path's shapes (bf16, 48 q heads / 8 kv heads, "
-          "D=128), held against plain (bf16 tol: one bf16 ulp + "
-          f"{ac.F32_TOL} + rel): shape | kernel ms | plain ms | sdpa ms | "
-          "bound ms (by) | max |err| | err / tol")
-    for name, b, s, t, kind in ac.PATH_SHAPES:
+    print("B2 at the serving path's shapes, and decode over a 4096-key "
+          "cache (bf16, 48 q heads / 8 kv heads, D=128), held against plain "
+          f"(bf16 tol: one bf16 ulp + {ac.F32_TOL} + rel): shape | KV splits"
+          " | kernel ms | plain ms | sdpa ms | bound ms (by) | max |err| | "
+          "err / tol")
+    for name, b, s, t, kind in ac.PATH_SHAPES + DECODE_LONG:
         # raises if the kernel disagrees with plain beyond the gate
         st, (q, k, v, qpos, kpos) = ac.check_b2_path(dev, name, b, s, t, kind)
         args = dict(kind=kind, qpos=qpos, kpos=kpos)
         ms = cuda_ms(lambda: flash_attention(q, k, v, **args), reps=20)
         plain = cuda_ms(lambda: flash_attention_plain(
             q, k, v, qpos, kpos, kind=kind, window=0, softcap=0.0,
-            scale=128 ** -0.5), reps=3, warmup=1)
+            scale=128 ** -0.5, kv_splits=st["kv_splits"]), reps=3, warmup=1)
         mask = (kpos[:, None, None, :] <= qpos[:, None, :, None]) \
             & (kpos[:, None, None, :] >= 0)                  # (B, 1, S, T)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1263,30 +1339,34 @@ def phase_times_lm(dev, report) -> tuple:
         rows.append({"kernel": "flash_attention", "shape": name, "B": b,
                      "S": s, "T": t, "admitted_pairs": pairs, "ms": ms,
                      "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-                     "bound_by": by, **st})
-        print(f"  {name} B={b} S={s} T={t} | {ms:.4f} | {plain:.4f} | "
-              f"{lib:.4f} | {b_ms:.4f} ({by}) | {st['max_abs_err']:.3e} | "
-              f"{st['max_err_over_tol']:.3f}")
+                     "bound_by": by, "on_path": (name, b, s, t, kind)
+                     in ac.PATH_SHAPES, **st})
+        print(f"  {name} B={b} S={s} T={t} | {st['kv_splits']} | {ms:.4f} | "
+              f"{plain:.4f} | {lib:.4f} | {b_ms:.4f} ({by}) | "
+              f"{st['max_abs_err']:.3e} | {st['max_err_over_tol']:.3f}")
 
     print("B1 at the full-width KAN-FFN halves (G=8, K=3, raw residual): "
-          "half rows | kernel ms | plain ms | bound ms (by)")
+          "half rows | feature splits | kernel ms | plain ms | bound ms (by)")
     gen = torch.Generator(device=dev).manual_seed(13)
     for grid, f, o, flags, nrows in cc.B1_FFN_FULL:
         lp, lw, _, codes, xraw, _ = cc.b1_case(dev, gen, grid, f, o, flags,
                                                nrows)
         a = (codes, xraw, lw, lp, nrows)
+        splits = pl.feature_split_plan(lp.f, lp.o)[0]
         ms = cuda_ms(lambda: pl.run_pipeline_layer(*a), reps=10)
-        plain = cuda_ms(lambda: pl.run_pipeline_layer_plain(*a), reps=2,
-                        warmup=1)
+        plain = cuda_ms(lambda: pl.run_pipeline_layer_plain(
+            *a, feature_splits=splits), reps=2, warmup=1)
         b_ms, by = bound(*b1_work(lp, lw, nrows))
         rows.append({"kernel": "kan_pipeline_layer", "layer": f"ffn {f}x{o}",
-                     "rows": nrows, "ms": ms, "plain_ms": plain,
-                     "bound_ms": b_ms, "bound_by": by})
-        print(f"  {f}x{o} rows={nrows} | {ms:.4f} | {plain:.4f} | "
+                     "rows": nrows, "feature_splits": splits, "ms": ms,
+                     "plain_ms": plain, "bound_ms": b_ms, "bound_by": by})
+        print(f"  {f}x{o} rows={nrows} | {splits} | {ms:.4f} | {plain:.4f} | "
               f"{b_ms:.4f} ({by})")
     report["times_lm"] = rows
     report["times_b4"] = phase_times_b4(dev)
-    sel = [r for r in rows if r["kernel"] == "flash_attention"]
+    # the kernel line sums the three path shapes (as in earlier runs); the
+    # 4096-key decode is reported beside them
+    sel = [r for r in rows if r["kernel"] == "flash_attention" and r["on_path"]]
     by_time = {"bytes": 0.0, "operations": 0.0}
     for r in sel:
         by_time[r["bound_by"]] += r["bound_ms"]
@@ -1294,7 +1374,8 @@ def phase_times_lm(dev, report) -> tuple:
           "plain_ms": sum(r["plain_ms"] for r in sel),
           "library_ms": sum(r["library_ms"] for r in sel),
           "bound_ms": sum(r["bound_ms"] for r in sel),
-          "bound_by": max(by_time, key=by_time.get), "shapes": sel}
+          "bound_by": max(by_time, key=by_time.get),
+          "shapes": [r for r in rows if r["kernel"] == "flash_attention"]}
     return b2, [r for r in rows if r["kernel"] == "kan_pipeline_layer"]
 
 
@@ -1388,9 +1469,17 @@ def main() -> int:
           f" {len(summary)} kernel instances from {info['sources']}")
     for ln in summary:
         print(f"  ptxas: {ln}")
+    mma = sass_mma_counts(info["path"])
+    if mma is None:
+        print("SASS: no cuobjdump in this toolkit; tensor-core count not read")
+    else:
+        print(f"SASS tensor-core instructions (HMMA/HGMMA) by kernel: {mma}")
+        require(any(k.startswith("flash_kernel_mma") and n > 0
+                    for k, n in mma.items()),
+                "B2: no HMMA/HGMMA in the tensor-core instance's SASS")
 
     report = {"device": name, "smi": smi, "build_s": info["seconds"],
-              "ptxas": summary, "phase_s": {}}
+              "ptxas": summary, "sass_mma": mma, "phase_s": {}}
     t_all = time.perf_counter()
 
     def timed(phase, fn, *args):
@@ -1444,8 +1533,9 @@ def main() -> int:
                "launches_by_path": paths}
         if k == "flash_attention":
             row["shapes"] = [{key: r[key] for key in (
-                "shape", "B", "S", "T", "ms", "plain_ms", "library_ms",
-                "bound_ms", "bound_by", "max_abs_err")} for r in t["shapes"]]
+                "shape", "B", "S", "T", "kv_splits", "ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+                for r in t["shapes"]]
         if k == "cim_mac_fwd":
             row["shapes"] = [{key: r[key] for key in (
                 "shape", "B", "R_total", "A", "R", "C", "adc_bits", "ms",
@@ -1455,8 +1545,8 @@ def main() -> int:
             row["graph_ms"] = t["graph_ms"]
         if k == "kan_pipeline_layer":
             row["ffn_full_width"] = [{key: r[key] for key in (
-                "layer", "rows", "ms", "plain_ms", "bound_ms", "bound_by")}
-                for r in ffn_full]
+                "layer", "rows", "feature_splits", "ms", "plain_ms",
+                "bound_ms", "bound_by")} for r in ffn_full]
         require(row["launches"] > 0, f"{k}: no launch on any main path")
         kernels.append(row)
     print(smi)

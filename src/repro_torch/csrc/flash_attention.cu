@@ -17,32 +17,65 @@
 //
 // Design.  The TPU kernel walks the KV tiles along a sequential grid axis
 // and carries the running max m, denominator l and accumulator in VMEM
-// scratch (m and l replicated over 128 lanes).  Here one block owns 16
-// query rows of one (batch, KV head): the GQA group rides next to the
-// query rows (row = s * G + g), so one K/V tile in shared memory serves
-// every query head of its KV head.  The KV axis is a loop inside the block;
-// m, l and the output accumulator live in registers.  A warp owns four
-// rows; in a 32-key tile each lane scores one key against those rows
-// (float4 reads of the staged q rows and of its padded K row), the warp
-// reduces max and sum by shuffles, and the probabilities go through shared
-// memory to the P.V product, where each lane owns D/32 output dimensions.
-// A tile that is masked for every row of the block (keys past the causal
-// frontier, unwritten paged slots) is skipped before it is loaded; that is
-// exact, because a fully masked tile leaves m, l and the accumulator as
-// they were.  The ragged edge (T not a multiple of 32, S*G not a multiple
-// of 16) is masked in the kernel, so nothing is padded.
+// scratch.  Here a block owns a run of (query, group) rows of one (batch,
+// KV head): the GQA group rides next to the query rows (row = s * G + g),
+// so one K/V tile in shared memory serves every query head of its KV head,
+// and the causal mask is taken per row from that row's query position.
+// Two instances:
+//
+//  * bf16 operands at D = 64 or 128 (the serving path) run on the tensor
+//    cores (flash_kernel_mma).  A block owns 64 rows: 4 warps of 16.  K/V
+//    tiles of 64 keys are staged with cp.async, double-buffered, rows
+//    padded by 16 bytes so ldmatrix reads hit distinct banks.  S = Q.K^T is
+//    mma.sync.m16n8k16 bf16 -> f32 (ldmatrix fragments; V through
+//    ldmatrix.trans); scale, softcap, mask and the online softmax run in
+//    f32 on the accumulator fragments (in the log2 domain, exp2f), with
+//    quad shuffles for the row max and a per-thread partial of the row
+//    sum.  A tile whose every key is admitted for every row of the block
+//    (the interior of a causal prefill) skips the mask.  P.V keeps P at f32
+//    precision: each probability is split into hi = bf16(p) and
+//    lo = bf16(p - hi), and P.V = hi.V + lo.V is two bf16 MMAs into f32.
+//    Rounding P to bf16 alone (as FlashAttention and SDPA do) puts about
+//    2^-9 * sum(p |v|) into every output, several bf16 ulps of an output
+//    near zero at T ~ 1000; the hi/lo split leaves about 2^-17, so the
+//    kernel holds the card check's one-ulp bf16 gate.  The denominator is
+//    summed from the f32 p.
+//  * f32 operands (and bf16 at other head dims) keep the CUDA-core kernel
+//    (flash_kernel): TF32 is off by rule, so f32 has no exact tensor-core
+//    path.  One block owns 16 rows; a warp owns four; in a 32-key tile each
+//    lane scores one key (float4 reads of the staged rows), the warp reduces
+//    max and sum by shuffles, and P goes through shared memory to P.V.
+//
+// Split KV axis.  When B * Hkv * ceil(S*G/64) blocks leave the card
+// under-filled (decode: 4 * 8 * 1 = 32 blocks on 132 SMs; verify, S = k+1)
+// the wrapper picks a split count from the call's shapes alone (never from
+// the data) and the tensor-core kernel splits the KV tiles over blocks.
+// Each split writes its unnormalised (m, l, acc) to a workspace the wrapper
+// allocates; flash_kernel_combine then merges the splits of each row in
+// split order (deterministic): M = max m_s, w_s = exp(m_s - M) where
+// l_s > 0 and 0 where it is not, out = sum w_s acc_s / sum w_s l_s, or
+// exact zeros when no split admitted a key.  A split whose tiles are all
+// masked writes m = -1e30, l = 0 and contributes nothing.
+//
+// Both kernels skip a tile that is masked for every row of the block (keys
+// past the causal frontier, unwritten paged slots) before loading it; that
+// is exact, because a fully masked tile leaves m, l and the accumulator as
+// they were.  The ragged edges (T not a multiple of the tile, S*G not a
+// multiple of the block's rows) are masked in the kernel; staged K/V rows
+// past T are zero-filled, so nothing is padded.
 //
 // What bounds it.  Per admitted (query, key) pair the work is 4*D FLOPs per
 // query head (score and P.V); the bytes are q, k, v and out once.  At the
-// serving path's shapes decode (S=1) and paged chunks over a mostly empty
-// view are bound by bytes, causal prefill by operations.  This first
-// kernel runs those FLOPs on the CUDA cores in f32 (67 TFLOP/s peak), not
-// on the tensor cores (989 TFLOP/s in bf16), and gives decode only
-// B * Hkv blocks; wgmma, TMA and a split over the KV axis are for later.
+// serving path's shapes (PERF.md) decode (4 x 1 x 1024) is bound by bytes,
+// 0.0050 ms; causal prefill (1000 x 1000) by operations, 0.0124 ms at the
+// bf16 tensor-core peak; the paged chunk (256 over a 1024-key view) by
+// operations, 0.0041 ms.  The hi/lo split adds a third to the MMAs.  Not
+// yet used: wgmma, TMA and a persistent schedule.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -62,8 +95,10 @@ struct Args {
   const int32_t* qpos;   // (B, S)
   const int32_t* kpos;   // (B, T)
   void* out;             // (B, S, Hkv*G, D), q's dtype
+  float* ws_o;           // (splits, B, Hkv, S*G, D) partial accumulators
+  float* ws_ml;          // (splits, B, Hkv, S*G, 2) partial (m, l)
   int B, S, T, Hkv, G;
-  int kind, window;
+  int kind, window, splits;
   float softcap, scale;
 };
 
@@ -265,6 +300,402 @@ __global__ void __launch_bounds__(kWarps * 32) flash_kernel(Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: mma.sync.m16n8k16, cp.async double buffering
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcWarps = 4;
+constexpr int kTcRows = 16 * kTcWarps;  // (query, group) rows per block
+constexpr int kTcKeys = 64;             // keys per KV tile
+
+template <int D>
+struct TcShape {
+  static constexpr int kLd = D + 8;  // bf16 per staged row: 16 B of padding
+  static constexpr int kQ = kTcRows * kLd;
+  static constexpr int kKV = kTcKeys * kLd;
+  static constexpr size_t kBytes =
+      sizeof(bf16) * (size_t)(kQ + 4 * kKV) +
+      sizeof(int) * (size_t)(2 * kTcKeys + kTcRows);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared; zero-filled (nothing read) when !full
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  uint32_t u;
+  memcpy(&u, &v, sizeof(u));
+  return u;
+}
+
+// p = hi + lo to about 2^-17 relative: hi = bf16(p), lo = bf16(p - hi)
+// (p - hi is exact in f32); x is the lower-k element of the pair
+__device__ __forceinline__ void split_hi_lo(float x, float y, uint32_t& hi,
+                                            uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcWarps * 32)
+    flash_kernel_mma(Args a) {
+  using Sh = TcShape<D>;
+  constexpr int kLd = Sh::kLd;
+  constexpr int kChunks = D / 8;     // 16-byte chunks of one staged row
+  constexpr int kNT = kTcKeys / 8;   // 8-key score tiles of a warp's rows
+  constexpr int kDT = D / 8;         // 8-dim output tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // (kTcRows, kLd)
+  bf16* k_s = q_s + Sh::kQ;                        // 2 x (kTcKeys, kLd)
+  bf16* v_s = k_s + 2 * Sh::kKV;                   // 2 x (kTcKeys, kLd)
+  int* kp_s = reinterpret_cast<int*>(v_s + 2 * Sh::kKV);  // 2 x kTcKeys
+  int* qp_s = kp_s + 2 * kTcKeys;                          // kTcRows
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int split = blockIdx.z % a.splits, b = blockIdx.z / a.splits;
+  const int h = blockIdx.y;
+  const int row0 = blockIdx.x * kTcRows;
+  const int n_rows = a.S * a.G;
+  const int hq = a.Hkv * a.G;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+
+  for (int i = tid; i < kTcRows * kChunks; i += blockDim.x) {
+    const int r = i / kChunks, c = i % kChunks, row = row0 + r;
+    const bf16* src = q;
+    if (row < n_rows) {
+      const int s = row / a.G, g = row % a.G;
+      src = q + (((long long)b * a.S + s) * hq + h * a.G + g) * D + c * 8;
+    }
+    cp_async16(q_s + r * kLd + c * 8, src, row < n_rows);
+  }
+  if (tid < kTcRows) {
+    const int row = row0 + tid;
+    qp_s[tid] = row < n_rows ? a.qpos[(long long)b * a.S + row / a.G] : 0;
+  }
+  __syncthreads();
+  int qmin = 0x7fffffff, qmax = -0x7fffffff - 1;
+  for (int r = 0; r < kTcRows && row0 + r < n_rows; ++r) {
+    qmin = min(qmin, qp_s[r]);
+    qmax = max(qmax, qp_s[r]);
+  }
+
+  // this split's KV tiles
+  const int n_tiles = (a.T + kTcKeys - 1) / kTcKeys;
+  const int per = (n_tiles + a.splits - 1) / a.splits;
+  const int t_begin = min(n_tiles, split * per);
+  const int t_end = min(n_tiles, t_begin + per);
+
+  // the next tile at or after `tile` admitted for some row of the block
+  // (a superset test, as in flash_kernel); threads < kTcKeys keep its key
+  // positions in `kp`, and `full` says whether every key of it is admitted
+  // for every row of the block (then the tile needs no mask).  Every thread
+  // takes part (block-wide votes).
+  auto next_live = [&](int tile, int& kp, bool& full) {
+    for (; tile < t_end; ++tile) {
+      int any = 0, all = 1;
+      kp = -1;
+      if (tid < kTcKeys) {
+        const int t = tile * kTcKeys + tid;
+        kp = t < a.T ? a.kpos[(long long)b * a.T + t] : -1;
+        any = kp >= 0 && (a.kind == kFullMask ||
+                          (kp <= qmax && (a.kind != kLocal || a.window <= 0 ||
+                                          kp > qmin - a.window)));
+        all = kp >= 0 && (a.kind == kFullMask ||
+                          (kp <= qmin && (a.kind != kLocal || a.window <= 0 ||
+                                          kp > qmax - a.window)));
+      }
+      if (__syncthreads_or(any)) {
+        full = __syncthreads_and(all) != 0;
+        return tile;
+      }
+    }
+    return t_end;
+  };
+  auto load_tile = [&](int tile, int st, int kp) {
+    bf16* ks = k_s + st * Sh::kKV;
+    bf16* vs = v_s + st * Sh::kKV;
+    for (int i = tid; i < kTcKeys * kChunks; i += blockDim.x) {
+      const int j = i / kChunks, c = i % kChunks, t = tile * kTcKeys + j;
+      const long long off =
+          t < a.T ? (((long long)b * a.T + t) * a.Hkv + h) * D + c * 8 : 0;
+      cp_async16(ks + j * kLd + c * 8, k + off, t < a.T);
+      cp_async16(vs + j * kLd + c * 8, v + off, t < a.T);
+    }
+    if (tid < kTcKeys) kp_s[st * kTcKeys + tid] = kp;
+  };
+
+  // this thread's fragment rows: local rows lr and lr + 8 of its warp
+  const int lr = warp * 16 + (lane >> 2);
+  const bool live[2] = {row0 + lr < n_rows, row0 + lr + 8 < n_rows};
+  const int qp[2] = {qp_s[lr], qp_s[lr + 8]};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[kDT][4];
+#pragma unroll
+  for (int dt = 0; dt < kDT; ++dt)
+    o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+
+  int kp;
+  bool full = false, full_nxt = false;
+  int cur = next_live(t_begin, kp, full);
+  if (cur < t_end) load_tile(cur, 0, kp);
+  cp_commit();  // Q and the first tile
+  int st = 0;
+  // scores go to the log2 domain (exp2f): scale * log2(e) folded in
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float scale2 = a.scale * kLog2e;
+  while (cur < t_end) {
+    const int nxt = next_live(cur + 1, kp, full_nxt);
+    if (nxt < t_end) load_tile(nxt, st ^ 1, kp);
+    cp_commit();
+    cp_wait<1>();  // everything but the tile just issued has landed
+    __syncthreads();
+    const bf16* ks = k_s + st * Sh::kKV;
+    const bf16* vs = v_s + st * Sh::kKV;
+    const int* kps = kp_s + st * kTcKeys;
+
+    // S = Q K^T for this warp's 16 rows x 64 keys
+    float s[kNT][4];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t af[4];
+      ldsm_x4(af, q_s + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd
+                      + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < kNT; j += 2) {
+        uint32_t bf[4];
+        ldsm_x4(bf, ks + (j * 8 + (lane & 7) + (lane >> 4) * 8) * kLd
+                        + kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[j], af, bf[0], bf[1]);
+        mma_bf16(s[j + 1], af, bf[2], bf[3]);
+      }
+    }
+
+    // scale, softcap, mask (element e: row half e >> 1, key j*8 + 2*(lane&3)
+    // + (e&1)), then the online softmax per row half, in the log2 domain.
+    // A tile admitted for every row of the block skips the mask; rows past
+    // S*G then score zero-filled queries and are never stored.
+    uint32_t ok_bits = 0xffffffffu;
+    if (!full) {
+      ok_bits = 0;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int2 kp2 =
+            *reinterpret_cast<const int2*>(kps + j * 8 + (lane & 3) * 2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rh = e >> 1;
+          const bool ok = live[rh] && admitted(a.kind, a.window,
+                                               (e & 1) ? kp2.y : kp2.x, qp[rh]);
+          ok_bits |= (uint32_t)ok << (j * 4 + e);
+        }
+      }
+    }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x;
+        if (a.softcap > 0.f)
+          x = tanhf(s[j][e] * a.scale / a.softcap) * a.softcap * kLog2e;
+        else
+          x = s[j][e] * scale2;
+        x = (ok_bits >> (j * 4 + e)) & 1u ? x : kNegInf;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const float m_new = fmaxf(m[rh], quad_max(mx[rh]));
+      alpha[rh] = exp2f(m[rh] - m_new);
+      m[rh] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rh = e >> 1;
+        // masked lanes exactly 0, never exp(-1e30 - m)
+        const float p = (ok_bits >> (j * 4 + e)) & 1u
+                            ? exp2f(s[j][e] - m[rh]) : 0.f;
+        s[j][e] = p;
+        sum[rh] += p;
+      }
+    }
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) l[rh] = l[rh] * alpha[rh] + sum[rh];
+#pragma unroll
+    for (int dt = 0; dt < kDT; ++dt) {
+      o[dt][0] *= alpha[0];
+      o[dt][1] *= alpha[0];
+      o[dt][2] *= alpha[1];
+      o[dt][3] *= alpha[1];
+    }
+
+    // O += P V with P = hi + lo, two bf16 MMAs per fragment
+#pragma unroll
+    for (int j2 = 0; j2 < kTcKeys / 16; ++j2) {
+      uint32_t hi[4], lo[4];
+      split_hi_lo(s[2 * j2][0], s[2 * j2][1], hi[0], lo[0]);
+      split_hi_lo(s[2 * j2][2], s[2 * j2][3], hi[1], lo[1]);
+      split_hi_lo(s[2 * j2 + 1][0], s[2 * j2 + 1][1], hi[2], lo[2]);
+      split_hi_lo(s[2 * j2 + 1][2], s[2 * j2 + 1][3], hi[3], lo[3]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bf[4];
+        ldsm_x4_t(bf, vs + (j2 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd
+                          + dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], hi, bf[0], bf[1]);
+        mma_bf16(o[2 * dp], lo, bf[0], bf[1]);
+        mma_bf16(o[2 * dp + 1], hi, bf[2], bf[3]);
+        mma_bf16(o[2 * dp + 1], lo, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // this stage's reads are done before it is refilled
+    st ^= 1;
+    cur = nxt;
+    full = full_nxt;
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const float lsum = quad_sum(l[rh]);
+    if (!live[rh]) continue;
+    const int row = row0 + lr + 8 * rh;
+    if (a.splits == 1) {
+      const int s_ = row / a.G, g_ = row % a.G;
+      bf16* out = static_cast<bf16*>(a.out) +
+                  (((long long)b * a.S + s_) * hq + h * a.G + g_) * D;
+#pragma unroll
+      for (int dt = 0; dt < kDT; ++dt) {
+        const int d = dt * 8 + (lane & 3) * 2;
+        const float x0 = lsum > 0.f ? o[dt][2 * rh] / fmaxf(lsum, 1e-30f) : 0.f;
+        const float x1 =
+            lsum > 0.f ? o[dt][2 * rh + 1] / fmaxf(lsum, 1e-30f) : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(out + d) =
+            __floats2bfloat162_rn(x0, x1);
+      }
+    } else {
+      const long long at =
+          (((long long)split * a.B + b) * a.Hkv + h) * n_rows + row;
+#pragma unroll
+      for (int dt = 0; dt < kDT; ++dt) {
+        const int d = dt * 8 + (lane & 3) * 2;
+        *reinterpret_cast<float2*>(a.ws_o + at * D + d) =
+            make_float2(o[dt][2 * rh], o[dt][2 * rh + 1]);
+      }
+      if ((lane & 3) == 0) {
+        a.ws_ml[at * 2] = m[rh];
+        a.ws_ml[at * 2 + 1] = lsum;
+      }
+    }
+  }
+}
+
+// Merge the KV splits of each (b, h, row) in split order; one thread per
+// output dim.  m is in the log2 domain, as flash_kernel_mma keeps it.  A split with l = 0 (every key masked) gets weight 0 even
+// when its m equals the maximum (both -1e30).
+template <int D>
+__global__ void __launch_bounds__(D) flash_kernel_combine(Args a) {
+  const int row = blockIdx.x, h = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
+  const int n_rows = a.S * a.G;
+  const long long slice = (long long)a.B * a.Hkv * n_rows;
+  const long long at = ((long long)b * a.Hkv + h) * n_rows + row;
+  float mmax = kNegInf;
+  for (int sp = 0; sp < a.splits; ++sp)
+    mmax = fmaxf(mmax, a.ws_ml[(sp * slice + at) * 2]);
+  float lsum = 0.f, acc = 0.f;
+  for (int sp = 0; sp < a.splits; ++sp) {
+    const long long i = sp * slice + at;
+    const float ls = a.ws_ml[i * 2 + 1];
+    const float w = ls > 0.f ? exp2f(a.ws_ml[i * 2] - mmax) : 0.f;
+    lsum = __fadd_rn(lsum, __fmul_rn(ls, w));
+    acc = __fadd_rn(acc, __fmul_rn(a.ws_o[i * D + d], w));
+  }
+  const int s_ = row / a.G, g_ = row % a.G;
+  bf16* out = static_cast<bf16*>(a.out) +
+              (((long long)b * a.S + s_) * a.Hkv * a.G + h * a.G + g_) * D;
+  out[d] = __float2bfloat16(lsum > 0.f ? acc / fmaxf(lsum, 1e-30f) : 0.f);
+}
+
+template <int D>
+int launch_mma(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = TcShape<D>::kBytes;
+  static bool attr_set = false;  // per instance; setting twice is harmless
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const int n_rows = a.S * a.G;
+  const dim3 grid((n_rows + kTcRows - 1) / kTcRows, a.Hkv, a.B * a.splits);
+  flash_kernel_mma<D><<<grid, kTcWarps * 32, smem, stream>>>(a);
+  if (a.splits > 1) {
+    flash_kernel_combine<D><<<dim3(n_rows, a.Hkv, a.B), D, 0, stream>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
@@ -283,6 +714,7 @@ int launch(const Args& a, cudaStream_t stream) {
 
 template <typename T>
 int dispatch(const Args& a, int d, cudaStream_t stream) {
+  if (a.splits != 1) return (int)cudaErrorInvalidValue;  // mma instance only
   switch (d) {
     case 16: return launch<T, 16>(a, stream);
     case 32: return launch<T, 32>(a, stream);
@@ -298,19 +730,26 @@ int dispatch(const Args& a, int d, cudaStream_t stream) {
 extern "C" {
 
 // B2: flash attention.  bf16 != 0 means q, k, v and out are bf16, else
-// f32.  kind: 0 causal, 1 local, 2 full.  Returns a cudaError_t value.
+// f32.  kind: 0 causal, 1 local, 2 full.  splits: KV splits (bf16 at D = 64
+// or 128 only; ws_o and ws_ml sized as in Args when splits > 1, else
+// null).  Returns a cudaError_t value, checked after every launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const int32_t* qpos, const int32_t* kpos, void* out,
-                        int B, int S, int T, int Hkv, int G, int D, int bf16,
-                        int kind, int window, float softcap, float scale,
-                        int device, void* stream) {
+                        float* ws_o, float* ws_ml, int B, int S, int T,
+                        int Hkv, int G, int D, int bf16, int kind, int window,
+                        int splits, float softcap, float scale, int device,
+                        void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || G <= 0) return 0;
-  if (kind < kCausal || kind > kFullMask) return (int)cudaErrorInvalidValue;
+  if (kind < kCausal || kind > kFullMask || splits < 1 ||
+      (splits > 1 && (ws_o == nullptr || ws_ml == nullptr)))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  Args a{q, k, v, qpos, kpos, out, B, S, T, Hkv, G, kind, window, softcap,
-         scale};
+  Args a{q, k, v, qpos, kpos, out, ws_o, ws_ml, B, S, T, Hkv, G, kind,
+         window, splits, softcap, scale};
   cudaStream_t s = (cudaStream_t)stream;
+  if (bf16 && D == 128) return launch_mma<128>(a, s);
+  if (bf16 && D == 64) return launch_mma<64>(a, s);
   return bf16 ? dispatch<__nv_bfloat16>(a, D, s) : dispatch<float>(a, D, s);
 }
 

@@ -12,49 +12,85 @@
 // which optional operands they pass.
 //
 // What it computes, per output element (b, o):
-//   y = noise[b,o]
-//     + sum_f sum_{d<=K} lut[local(b,f)][d] * W[f*NB + g(b,f) + d, o]
-//     + sum_f relu(resid[b,f]) * wb[f,o]
+//   y = sum_f ( sum_{d<=K} lut[local(b,f)][d] * W[f*NB + g(b,f) + d, o]
+//              + relu(resid[b,f]) * wb[f,o] )  [+ noise[b,o]]
 //   g = code >> LD (logical), local = code & (2^LD - 1),
 //   resid = lo + code*step (or the raw f32 input),
 //   W = wc, or the int4 nibbles of wcp (row 2r low, 2r+1 high, sign-
 //   extended) times wscale[o];
 //   optional codes_out = clip(floor((tanh(y)*hs + mid - lo')*(1/step') + .5)).
+// The band and the residual run over the logical features f < f_log and
+// columns o < o_log only (padded ones carry zero weights); padded columns
+// get y = noise (or 0) and the requantized code of that y.
 //
 // Design.  The TPU kernel builds a dense (rows, F*NB) basis with a one-hot
 // LUT matmul and runs the whole band through the MXU.  Only K+1 of the NB
-// basis entries of a (b, f) pair are non-zero, so here the band is computed
-// directly: a block stages the decoded (g, K+1 LUT values, relu residual) of
-// a (kRows x kFChunk) tile of codes in shared memory, and each thread owns
-// one output column and kRows accumulators, gathering the K+1 weight rows
-// g..g+K of each feature.  Weight rows are read along o, so a warp's loads
-// are coalesced; the SH-LUT (at most 2^LD x (K+1) f32) lives in shared
-// memory, decoded from nibbles there when packed.  For G=68 (NB=71) this is
-// 4/71 of the TPU's dense MAC.
+// basis entries of a (b, f) pair are non-zero, so here the band is gathered
+// directly.  The grid is (row tiles of 64, column tiles of 128, feature
+// splits).  A block streams its split's features in chunks of kf (sized
+// from NB so that a chunk's weight rows fit a ~24 KB stage: 4 for the FFN's
+// NB = 11, 1 for KAN2's 71): for each chunk it copies the band's whole
+// weight rows W[f*NB .. (f+1)*NB) and wb[f] of its column tile, with the
+// chunk's codes (and raw inputs), into shared memory with cp.async, double
+// buffered, so the copy (which does not depend on the data) streams while
+// the previous chunk is computed.  int4-packed rows are decoded while they
+// are staged, nibble times wscale with __fmul_rn as the unpacked bundle
+// stores them, so packed and unpacked layers reach the MAC as the same f32
+// values in the same order (bit-identical).  A decode pass turns each
+// (row, feature) code of the chunk into its band start g, K+1 SH-LUT values
+// and relu residual (g = NB, out of band, contributes nothing).  Then a
+// warp owns rows (8 of the block's 64) and its 32 lanes own 4 columns each:
+// per (row, feature) a lane reads the K+1 band rows g..g+K of its 4 columns
+// as float4 from shared memory (all lanes of a warp read one row: no bank
+// conflict) and does 4 FMAs per read; wb's float4 is read once per feature
+// for all its rows.  A warp whose 8 rows are all in the batch runs them
+// without a branch, so their loads and FMAs interleave.  (Holding a
+// feature's NB band rows in registers and running the dense basis row
+// against them, exact because off-band entries are 0, did 2.6x the FMAs
+// and measured slower at 1024 rows.)
+//
+// Feature splits.  The split count is a function of the layer's logical
+// (f, o) alone (pipeline.feature_split_plan): one split per 256 features,
+// at most enough to fill the card at a single row tile (5120 -> 1280: 20
+// splits x 10 column tiles; 1280 -> 5120: 5 x 40; the KAN slice's f <= 128
+// layers: 1).  It never depends on the batch, so a row's y and codes depend
+// only on that row's inputs: the same row at 8 and at 1024 rows gives the
+// same bits.  Each split sums its features in order into a workspace
+// (splits, B, O) f32 that the wrapper allocates; kan_layer_combine then
+// adds the splits in split order, adds the noise operand, writes y and runs
+// the requantizer.  With one split the first kernel runs that epilogue
+// itself and there is no workspace.
 //
 // What bounds it.  The work a layer needs is K+2 f32 FMAs per logical
-// (b, f, o).  The padded contract hands it (B, Fp) codes and writes (B, Op)
-// y and codes, with Fp and Op padded to 128 at the layer boundaries.  For
-// the paper's KAN layers (17->1, 1->14) the band work is tiny and those
-// padded bytes at 3.35 TB/s are the bound; for the FFN stack's 64x128 and
-// 128x64 layers the f32 FMA rate (67 TFLOP/s) is.  As written the kernel
-// runs the band over all of Fp x Op (padded features and columns carry zero
-// weights), so its time tracks the padded FMA count, not either bound.
+// (b, f, o); the bytes are the padded contract's: (B, Fp) codes (and raw
+// inputs) in, (B, Op) y and codes out, and the weights once.  At the FFN
+// halves (NB = 11, 288 MB of f32 weights) decode (8 rows) is bound by the
+// weight bytes, 0.094 ms at 3.35 TB/s, and a 1024-row prefill bucket by
+// the FMAs, 1.0 ms at 67 TFLOP/s; the KAN slice's layers at 65536 rows by
+// the padded bytes or the FFN stack's FMAs, 0.290 ms for all 8.  The band
+// gather costs one 16-byte shared-memory read per 4 FMAs, so at large
+// batch the shared-memory bandwidth (128 B per clock per SM) caps the MAC
+// near a quarter of the FMA peak.  Not yet used: int8 weight codes (a
+// quarter of the weight bytes) and tensor cores at prefill.
 //
 // Numerics.  The requantizer and lo + code*step are written with explicit
 // __fmul_rn/__fadd_rn so nvcc does not contract them into FMAs: the
-// reference rounds each product and sum.  Packed and unpacked weights decode
-// to the same f32 value and take the same accumulation order, so the two
-// forms give bit-identical outputs.
+// reference rounds each product and sum.  The split merge adds with
+// __fadd_rn in split order, then the noise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kCols = 128;   // threads per block = output columns per block
-constexpr int kRows = 16;    // batch rows per block (one accumulator each)
-constexpr int kFChunk = 16;  // input features staged per step
+constexpr int kCols = 128;     // output columns per block (4 per lane)
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowsB = 64;     // batch rows per block
+constexpr int kRpw = kRowsB / kWarps;  // rows per warp
+constexpr int kMaxF = 8;       // features per chunk, at most
+constexpr int kStageBytes = 24 * 1024;  // weight rows of one chunk, about
+constexpr int kRec = 8;        // floats of one (row, feature) record
 
 struct LayerArgs {
   const int32_t* codes;   // (B, F)
@@ -68,37 +104,83 @@ struct LayerArgs {
   const float* noise;     // (B, O) or null
   float* y;               // (B, O)
   int32_t* codes_out;     // (B, O) or null: no requantizer
-  int B, F, O, nb, ld;
+  float* ws;              // (splits, B, O) split partials, splits > 1 only
+  int B, F, O, f_log, o_log, nb, ld;
+  int splits, fps, kf, vec;
   float lo, code_step, lut_scale;
   float nx_half_span, nx_mid, nx_lo, nx_scale;
   int nx_num_codes;
 };
 
-template <bool kPackedW>
-__device__ __forceinline__ float load_w(const LayerArgs& a, long long row,
-                                        int o, float wscale) {
-  if (!kPackedW) return __ldg(a.wc + row * a.O + o);
-  const int p = (int)__ldg(a.wcp + (row >> 1) * a.O + o);
-  // sign-extend one nibble without left-shifting a negative int
-  const int q = (row & 1) ? ((int)((unsigned)p << 24)) >> 28
-                          : ((int)((unsigned)p << 28)) >> 28;
-  return __fmul_rn((float)q, wscale);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
+
+// floats of one chunk's stage: kf*NB weight rows and kf wb rows of kCols,
+// then (kRowsB, kf) codes and raw inputs
+__host__ __device__ __forceinline__ int stage_floats(int kf, int nb) {
+  return kf * (nb + 1) * kCols + 2 * kRowsB * kf;
+}
+
+// y and (optionally) the next layer's code of one output element
+__device__ __forceinline__ void finish(const LayerArgs& a, long long at,
+                                       float yv) {
+  if (a.noise != nullptr) yv = __fadd_rn(yv, a.noise[at]);
+  a.y[at] = yv;
+  if (a.codes_out != nullptr) {
+    const float h = __fadd_rn(__fmul_rn(tanhf(yv), a.nx_half_span), a.nx_mid);
+    const float pre = __fadd_rn(__fmul_rn(__fsub_rn(h, a.nx_lo), a.nx_scale), 0.5f);
+    int q = (int)floorf(pre);
+    q = q < 0 ? 0 : (q > a.nx_num_codes - 1 ? a.nx_num_codes - 1 : q);
+    a.codes_out[at] = q;
+  }
+}
+
+__device__ __forceinline__ void fma4(float v, const float4 w, float4& s) {
+  s.x = fmaf(v, w.x, s.x);
+  s.y = fmaf(v, w.y, s.y);
+  s.z = fmaf(v, w.z, s.z);
+  s.w = fmaf(v, w.w, s.w);
 }
 
 template <bool kPackedW, int KK>
-__global__ void __launch_bounds__(kCols) kan_layer_kernel(LayerArgs a) {
-  extern __shared__ float s_lut[];  // (2^LD, KK)
-  __shared__ int s_g[kRows][kFChunk];
-  __shared__ float s_v[kRows][kFChunk][KK];
-  __shared__ float s_r[kRows][kFChunk];
+__global__ void __launch_bounds__(kThreads, 2) kan_layer_kernel(LayerArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  // one record per (row, feature) of the chunk, read as two broadcast
+  // float4s: band start g (int bits), relu residual, K+1 <= 6 LUT values
+  __shared__ __align__(16) float s_rec[kRowsB][kMaxF][kRec];
 
-  const int tid = threadIdx.x;
-  const int o = blockIdx.y * kCols + tid;
-  const int b0 = blockIdx.x * kRows;
-  const int n_local = 1 << a.ld;
-  const bool col_ok = o < a.O;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b0 = blockIdx.x * kRowsB, col0 = blockIdx.y * kCols;
+  const int split = blockIdx.z;
+  const int n_local = 1 << a.ld, nb = a.nb, kf = a.kf;
+  const int rows = min(kRowsB, a.B - b0);
+  const int ncols = min(kCols, a.o_log - col0);  // <= 0: padded tile
+  const int ncols4 = round4(ncols);
+  const int f_begin = split * a.fps;
+  const int f_end = min(a.f_log, f_begin + a.fps);
+  float* s_lut = smem;                                   // (2^LD, KK)
+  float* s_stage = smem + round4(n_local * KK);          // 2 stages
+  const int st_floats = stage_floats(kf, nb);
 
-  for (int i = tid; i < n_local * KK; i += kCols) {
+  for (int i = tid; i < n_local * KK; i += kThreads) {
     float v;
     if (a.lutp != nullptr) {
       const int kh = (KK + 1) / 2;
@@ -112,102 +194,228 @@ __global__ void __launch_bounds__(kCols) kan_layer_kernel(LayerArgs a) {
     s_lut[i] = v;
   }
 
-  const float wscale = (kPackedW && col_ok) ? a.wscale[o] : 0.f;
-  float acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int b = b0 + r;
-    acc[r] = (a.noise != nullptr && col_ok && b < a.B)
-                 ? a.noise[(long long)b * a.O + o] : 0.f;
-  }
-
-  for (int f0 = 0; f0 < a.F; f0 += kFChunk) {
-    __syncthreads();  // LUT written / previous chunk consumed
-    for (int i = tid; i < kRows * kFChunk; i += kCols) {
-      const int r = i / kFChunk, fi = i % kFChunk;
-      const int b = b0 + r, f = f0 + fi;
-      int g = a.nb;  // out of band: contributes nothing
-      float res = 0.f;
-      if (b < a.B && f < a.F) {
-        const long long at = (long long)b * a.F + f;
-        const int c = a.codes[at];
-        const unsigned gu = (unsigned)c >> a.ld;  // logical shift
-        const int local = c & (n_local - 1);
-        g = gu < (unsigned)a.nb ? (int)gu : a.nb;
-#pragma unroll
-        for (int d = 0; d < KK; ++d) s_v[r][fi][d] = s_lut[local * KK + d];
-        const float x = a.xraw != nullptr
-                            ? a.xraw[at]
-                            : __fadd_rn(a.lo, __fmul_rn((float)c, a.code_step));
-        res = fmaxf(x, 0.f);
-      }
-      s_g[r][fi] = g;
-      s_r[r][fi] = res;
-    }
-    __syncthreads();
-    if (!col_ok) continue;
-    const int nf = min(kFChunk, a.F - f0);
-    for (int fi = 0; fi < nf; ++fi) {
-      const int f = f0 + fi;
-      const float wbv = __ldg(a.wb + (long long)f * a.O + o);
-      const long long row0 = (long long)f * a.nb;
-#pragma unroll  // acc[] stays in registers only when r is unrolled
-      for (int r = 0; r < kRows; ++r) {
-        const int g = s_g[r][fi];
-        float s = acc[r];
-#pragma unroll
-        for (int d = 0; d < KK; ++d) {
-          if (g + d < a.nb)
-            s = fmaf(s_v[r][fi][d], load_w<kPackedW>(a, row0 + g + d, o, wscale), s);
+  // stage chunk c (features f0 .. f0+nf) into stage st
+  auto stage = [&](int c, int st) {
+    float* sw = s_stage + st * st_floats;       // (kf*NB, kCols)
+    float* swb = sw + kf * nb * kCols;          // (kf, kCols)
+    int* scode = (int*)(swb + kf * kCols);      // (kRowsB, kf)
+    float* sx = (float*)(scode + kRowsB * kf);  // (kRowsB, kf)
+    const int f0 = f_begin + c * kf, nf = min(kf, f_end - f0);
+    const int nrow = nf * nb;
+    const long long wrow0 = (long long)f0 * nb;
+    if (kPackedW) {
+      for (int i = tid; i < nrow * ncols4; i += kThreads) {
+        const int rr = i / ncols4, cc = i % ncols4, o = col0 + cc;
+        float w = 0.f;
+        if (cc < ncols) {
+          const long long row = wrow0 + rr;
+          const int p = (int)a.wcp[(row >> 1) * a.O + o];
+          // sign-extend one nibble without left-shifting a negative int
+          const int q = (row & 1) ? ((int)((unsigned)p << 24)) >> 28
+                                  : ((int)((unsigned)p << 28)) >> 28;
+          w = __fmul_rn((float)q, a.wscale[o]);
         }
-        acc[r] = fmaf(s_r[r][fi], wbv, s);
+        sw[rr * kCols + cc] = w;
+      }
+      for (int i = tid; i < nf * ncols4; i += kThreads) {
+        const int ff = i / ncols4, cc = i % ncols4;
+        swb[ff * kCols + cc] =
+            cc < ncols ? a.wb[(long long)(f0 + ff) * a.O + col0 + cc] : 0.f;
+      }
+    } else if (a.vec) {  // 16-byte copies: O % 4 == 0, rows 16-byte aligned
+      // a warp per weight row, a lane per 4 columns
+      const int cc = lane * 4;
+      if (cc < ncols4) {
+        for (int rr = warp; rr < nrow; rr += kWarps)
+          cp_async16(sw + rr * kCols + cc,
+                     a.wc + (wrow0 + rr) * a.O + col0 + cc);
+        for (int ff = warp; ff < nf; ff += kWarps)
+          cp_async16(swb + ff * kCols + cc,
+                     a.wb + (long long)(f0 + ff) * a.O + col0 + cc);
+      }
+    } else {
+      for (int i = tid; i < nrow * ncols4; i += kThreads) {
+        const int rr = i / ncols4, cc = i % ncols4;
+        if (cc < ncols)
+          cp_async4(sw + rr * kCols + cc, a.wc + (wrow0 + rr) * a.O + col0 + cc);
+        else
+          sw[rr * kCols + cc] = 0.f;
+      }
+      for (int i = tid; i < nf * ncols4; i += kThreads) {
+        const int ff = i / ncols4, cc = i % ncols4;
+        if (cc < ncols)
+          cp_async4(swb + ff * kCols + cc,
+                    a.wb + (long long)(f0 + ff) * a.O + col0 + cc);
+        else
+          swb[ff * kCols + cc] = 0.f;
       }
     }
+    for (int i = tid; i < rows * nf; i += kThreads) {
+      const int r = i / nf, fi = i % nf;
+      const long long at = (long long)(b0 + r) * a.F + f0 + fi;
+      cp_async4(scode + r * kf + fi, a.codes + at);
+      if (a.xraw != nullptr) cp_async4(sx + r * kf + fi, a.xraw + at);
+    }
+  };
+
+  float4 acc[kRpw];
+#pragma unroll
+  for (int ri = 0; ri < kRpw; ++ri) acc[ri] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int c4 = lane * 4;
+
+  if (ncols > 0 && f_begin < f_end && rows > 0) {  // uniform over the block
+    const int n_chunks = (f_end - f_begin + kf - 1) / kf;
+    stage(0, 0);
+    cp_commit();
+    for (int c = 0; c < n_chunks; ++c) {
+      if (c + 1 < n_chunks) stage(c + 1, (c + 1) & 1);
+      cp_commit();
+      cp_wait<1>();
+      __syncthreads();  // chunk c (and the LUT) visible to every thread
+      const float* sw = s_stage + (c & 1) * st_floats;
+      const float* swb = sw + kf * nb * kCols;
+      const int* scode = (const int*)(swb + kf * kCols);
+      const float* sx = (const float*)(scode + kRowsB * kf);
+      const int nf = min(kf, f_end - (f_begin + c * kf));
+      for (int i = tid; i < rows * nf; i += kThreads) {
+        const int r = i / nf, fi = i % nf;
+        const int code = scode[r * kf + fi];
+        const unsigned gu = (unsigned)code >> a.ld;  // logical shift
+        const int local = code & (n_local - 1);
+        float* rec = s_rec[r][fi];
+        const int g = gu < (unsigned)nb ? (int)gu : nb;
+        const float x = a.xraw != nullptr
+                            ? sx[r * kf + fi]
+                            : __fadd_rn(a.lo, __fmul_rn((float)code, a.code_step));
+        rec[0] = __int_as_float(g);
+        rec[1] = fmaxf(x, 0.f);
+#pragma unroll
+        for (int d = 0; d < KK; ++d) rec[2 + d] = s_lut[local * KK + d];
+      }
+      __syncthreads();
+      if (c4 < ncols) {
+        for (int fi = 0; fi < nf; ++fi) {
+          const float4 wbv =
+              *reinterpret_cast<const float4*>(swb + fi * kCols + c4);
+          const float* wf = sw + fi * nb * kCols + c4;
+          auto row_mac = [&](int ri) {
+            const int r = warp + kWarps * ri;
+            const float4 h0 = *reinterpret_cast<const float4*>(s_rec[r][fi]);
+            const float4 h1 =
+                *reinterpret_cast<const float4*>(s_rec[r][fi] + 4);
+            const float v[6] = {h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+            const int g = __float_as_int(h0.x);
+            float4 s = acc[ri];
+#pragma unroll
+            for (int d = 0; d < KK; ++d) {
+              if (g + d < nb)
+                fma4(v[d], *reinterpret_cast<const float4*>(wf + (g + d) * kCols),
+                     s);
+            }
+            fma4(h0.y, wbv, s);
+            acc[ri] = s;
+          };
+          // a warp with all kRpw rows runs them without a branch, so their
+          // loads and FMAs interleave (acc[] stays in registers only when
+          // ri is unrolled)
+          if (warp + kWarps * (kRpw - 1) < rows) {
+#pragma unroll
+            for (int ri = 0; ri < kRpw; ++ri) row_mac(ri);
+          } else {
+#pragma unroll
+            for (int ri = 0; ri < kRpw; ++ri)
+              if (warp + kWarps * ri < rows) row_mac(ri);
+          }
+        }
+      }
+      __syncthreads();  // this stage and the decode buffers are consumed
+    }
+    cp_wait<0>();
   }
 
-  if (!col_ok) return;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int b = b0 + r;
-    if (b >= a.B) break;
-    const long long at = (long long)b * a.O + o;
-    a.y[at] = acc[r];
-    if (a.codes_out != nullptr) {
-      const float h = __fadd_rn(__fmul_rn(tanhf(acc[r]), a.nx_half_span), a.nx_mid);
-      const float pre = __fadd_rn(__fmul_rn(__fsub_rn(h, a.nx_lo), a.nx_scale), 0.5f);
-      int q = (int)floorf(pre);
-      q = q < 0 ? 0 : (q > a.nx_num_codes - 1 ? a.nx_num_codes - 1 : q);
-      a.codes_out[at] = q;
+  for (int ri = 0; ri < kRpw; ++ri) {
+    const int r = warp + kWarps * ri;
+    if (r >= rows) continue;
+    const float vals[4] = {acc[ri].x, acc[ri].y, acc[ri].z, acc[ri].w};
+    const long long base = (long long)(b0 + r) * a.O;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int o = col0 + c4 + j;
+      if (o >= a.O) break;
+      if (a.splits == 1) {
+        finish(a, base + o, o < a.o_log ? vals[j] : 0.f);
+      } else if (o < a.o_log) {
+        a.ws[(long long)split * a.B * a.O + base + o] = vals[j];
+      }
     }
   }
 }
 
+// y = sum of the splits' partials in split order (+ noise), then the
+// requantizer; one thread per (b, o), padded columns included
+__global__ void __launch_bounds__(kThreads) kan_layer_combine(LayerArgs a) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long n = (long long)a.B * a.O;
+  if (i >= n) return;
+  float yv = 0.f;
+  if ((int)(i % a.O) < a.o_log) {
+    yv = a.ws[i];
+    for (int sp = 1; sp < a.splits; ++sp) yv = __fadd_rn(yv, a.ws[sp * n + i]);
+  }
+  finish(a, i, yv);
+}
+
 template <bool kPackedW, int KK>
-void launch_kk(const LayerArgs& a, cudaStream_t stream) {
-  const dim3 grid((a.B + kRows - 1) / kRows, (a.O + kCols - 1) / kCols);
-  const size_t smem = sizeof(float) * (size_t)(1 << a.ld) * KK;
-  kan_layer_kernel<kPackedW, KK><<<grid, kCols, smem, stream>>>(a);
+int launch_kk(const LayerArgs& a, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * ((size_t)round4((1 << a.ld) * KK) +
+                       2 * (size_t)stage_floats(a.kf, a.nb));
+  static size_t attr = 0;  // per instance: the largest size set so far
+  if (smem > attr) {       // static + dynamic over 48 KB needs the opt-in
+    cudaError_t err = cudaFuncSetAttribute(
+        kan_layer_kernel<kPackedW, KK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    attr = smem;
+  }
+  const dim3 grid((a.B + kRowsB - 1) / kRowsB, (a.O + kCols - 1) / kCols,
+                  a.splits);
+  kan_layer_kernel<kPackedW, KK><<<grid, kThreads, smem, stream>>>(a);
+  if (a.splits > 1) {
+    const long long n = (long long)a.B * a.O;
+    kan_layer_combine<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
+                        stream>>>(a);
+  }
+  return (int)cudaGetLastError();
 }
 
 template <bool kPackedW>
 int launch(const LayerArgs& a, int kk, cudaStream_t stream) {
   switch (kk) {
-    case 2: launch_kk<kPackedW, 2>(a, stream); break;
-    case 3: launch_kk<kPackedW, 3>(a, stream); break;
-    case 4: launch_kk<kPackedW, 4>(a, stream); break;
-    case 5: launch_kk<kPackedW, 5>(a, stream); break;
-    case 6: launch_kk<kPackedW, 6>(a, stream); break;
+    case 2: return launch_kk<kPackedW, 2>(a, stream);
+    case 3: return launch_kk<kPackedW, 3>(a, stream);
+    case 4: return launch_kk<kPackedW, 4>(a, stream);
+    case 5: return launch_kk<kPackedW, 5>(a, stream);
+    case 6: return launch_kk<kPackedW, 6>(a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
-int run(const LayerArgs& a, int kk, int device, void* stream) {
+int run(LayerArgs& a, int kk, int device, void* stream) {
   if (a.B <= 0 || a.O <= 0 || a.F <= 0) return 0;
+  if (a.f_log < 0 || a.f_log > a.F || a.o_log < 0 || a.o_log > a.O ||
+      a.splits < 1 || a.fps < 1 || (a.splits > 1 && a.ws == nullptr) ||
+      (long long)a.splits * a.fps < a.f_log)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if ((size_t)(1 << a.ld) * kk * sizeof(float) > 48 * 1024)
     return (int)cudaErrorInvalidValue;
+  int kf = kStageBytes / ((a.nb + 1) * kCols * (int)sizeof(float));
+  a.kf = kf < 1 ? 1 : (kf > kMaxF ? kMaxF : kf);
+  a.vec = a.wc != nullptr && a.O % 4 == 0 &&
+          (uintptr_t)a.wc % 16 == 0 && (uintptr_t)a.wb % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
   return a.wcp != nullptr ? launch<true>(a, kk, s) : launch<false>(a, kk, s);
 }
@@ -218,29 +426,35 @@ extern "C" {
 
 // B1: one fused pipeline layer.  Null pointers switch the optional operands
 // off: xraw (residual from codes), lut or lutp, wc or wcp+wscale, noise,
-// codes_out (last layer: no requantizer).  Returns a cudaError_t value.
+// codes_out (last layer: no requantizer).  The band runs over f < f_log and
+// o < o_log; `splits` feature splits of `fps` features each (ws: (splits,
+// B, O) f32 when splits > 1, else null).  Returns a cudaError_t value,
+// checked after both launches.
 int kan_pipeline_layer(const int32_t* codes, const float* xraw,
                        const float* lut, const int8_t* lutp, const float* wc,
                        const int8_t* wcp, const float* wscale, const float* wb,
                        const float* noise, float* y, int32_t* codes_out,
-                       int B, int F, int O, int nb, int kk, int ld, float lo,
+                       float* ws, int B, int F, int O, int f_log, int o_log,
+                       int nb, int kk, int ld, int splits, int fps, float lo,
                        float code_step, float lut_scale, float nx_half_span,
                        float nx_mid, float nx_lo, float nx_scale,
                        int nx_num_codes, int device, void* stream) {
   LayerArgs a{codes, xraw, lut, lutp, wc, wcp, wscale, wb, noise, y,
-              codes_out, B, F, O, nb, ld, lo, code_step, lut_scale,
-              nx_half_span, nx_mid, nx_lo, nx_scale, nx_num_codes};
+              codes_out, ws, B, F, O, f_log, o_log, nb, ld, splits, fps, 0, 0,
+              lo, code_step, lut_scale, nx_half_span, nx_mid, nx_lo, nx_scale,
+              nx_num_codes};
   return run(a, kk, device, stream);
 }
 
-// B3: the single-layer kan_spline (unpacked weights, deq(codes) residual).
+// B3: the single-layer kan_spline (unpacked weights, deq(codes) residual,
+// unpadded: the band runs over all F and O).
 int kan_spline_fwd(const int32_t* codes, const float* lut, const float* wc,
-                   const float* wb, float* y, int B, int F, int O, int nb,
-                   int kk, int ld, float lo, float code_step, int device,
-                   void* stream) {
+                   const float* wb, float* y, float* ws, int B, int F, int O,
+                   int nb, int kk, int ld, int splits, int fps, float lo,
+                   float code_step, int device, void* stream) {
   LayerArgs a{codes, nullptr, lut, nullptr, wc, nullptr, nullptr, wb,
-              nullptr, y, nullptr, B, F, O, nb, ld, lo, code_step, 0.f,
-              0.f, 0.f, 0.f, 0.f, 0};
+              nullptr, y, nullptr, ws, B, F, O, F, O, nb, ld, splits, fps, 0,
+              0, lo, code_step, 0.f, 0.f, 0.f, 0.f, 0.f, 0};
   return run(a, kk, device, stream);
 }
 

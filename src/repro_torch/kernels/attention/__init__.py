@@ -6,8 +6,16 @@ PyTorch version of the same recurrence, :mod:`.cardcheck` the kernel held
 against it on the card.
 """
 
-from .ops import KINDS, NEG_INF, SUPPORTED_HEAD_DIMS, flash_attention
-from .ref import flash_attention_plain
+from .ops import (
+    KINDS,
+    MMA_HEAD_DIMS,
+    NEG_INF,
+    SUPPORTED_HEAD_DIMS,
+    call_kv_splits,
+    flash_attention,
+)
+from .ref import flash_attention_plain, kv_split_count
 
-__all__ = ["KINDS", "NEG_INF", "SUPPORTED_HEAD_DIMS", "flash_attention",
-           "flash_attention_plain"]
+__all__ = ["KINDS", "MMA_HEAD_DIMS", "NEG_INF", "SUPPORTED_HEAD_DIMS",
+           "call_kv_splits", "flash_attention", "flash_attention_plain",
+           "kv_split_count"]

@@ -14,7 +14,15 @@ on disagreement:
   * bf16 operands: within one bf16 ulp of the plain f32 result, plus the
     f32 term above (the kernel computes in f32 and rounds once to bf16);
   * rows with no admitted key are exact zeros in both;
-  * each kernel call adds exactly one to ``cuda.LAUNCHES["flash_attention"]``.
+  * each kernel call adds exactly one to ``cuda.LAUNCHES["flash_attention"]``
+    (also when it splits the KV axis and runs the merge kernel too).
+
+The plain version runs with the kernel's KV split count
+(:func:`.ops.call_kv_splits`), so both merge the same key runs.
+``B2_SPLIT`` holds the bf16 tensor-core instance at the serving geometry
+where it splits the KV axis (decode at T = 1023 and 4096, verify at S = 3),
+with one split's keys all invalid for one batch row and rows masked in
+every split.
 
 :func:`check_b2` draws small cases with masked rows and keys;
 :func:`check_b2_path` holds the kernel to the same gate at the serving
@@ -28,12 +36,12 @@ import itertools
 import torch
 
 from .. import cuda
-from .ops import flash_attention
+from .ops import call_kv_splits, flash_attention
 from .ref import flash_attention_plain
 
 __all__ = ["F32_TOL", "DTYPES", "KINDS", "GQA", "HEAD_DIMS", "B2_CASES",
-           "B2_EXTRA", "PATH_SHAPES", "bf16_ulp", "b2_inputs", "path_inputs",
-           "check_b2", "check_b2_path"]
+           "B2_EXTRA", "B2_SPLIT", "PATH_SHAPES", "bf16_ulp", "b2_inputs",
+           "path_inputs", "check_b2", "check_b2_path"]
 
 F32_TOL = 2e-5
 DTYPES = (torch.float32, torch.bfloat16)
@@ -53,6 +61,23 @@ B2_EXTRA = (
     dict(dtype=torch.float32, kind="local", hq=4, hkv=2, d=64, softcap=2.0),
     dict(dtype=torch.bfloat16, kind="full", hq=4, hkv=1, d=32, softcap=2.0),
 )
+# the tensor-core instance with its KV axis split (keyword arguments of
+# check_b2; ``dead`` = keys (lo, hi) made invalid in the last batch row,
+# one whole split of it in the first three cases): decode at T = 1023 and
+# 4096, verify at S = 3, a local window (most splits masked by position)
+# and D = 64 under "full" (the last batch row has no valid key at all)
+B2_SPLIT = (
+    dict(dtype=torch.bfloat16, kind="causal", hq=48, hkv=8, d=128, b=4, s=1,
+         t=1023, dead=(128, 256)),
+    dict(dtype=torch.bfloat16, kind="causal", hq=48, hkv=8, d=128, b=4, s=1,
+         t=4096, dead=(512, 1024)),
+    dict(dtype=torch.bfloat16, kind="causal", hq=48, hkv=8, d=128, b=4, s=3,
+         t=1023, dead=(0, 128)),
+    dict(dtype=torch.bfloat16, kind="local", hq=48, hkv=8, d=128, b=2, s=1,
+         t=1023, window=100),
+    dict(dtype=torch.bfloat16, kind="full", hq=8, hkv=2, d=64, b=2, s=1,
+         t=700),
+)
 # the serving path's shapes at the full-width qwen2.5-14b config (48 query
 # heads, 8 KV heads, D=128, bf16): (name, B, S, T, kind)
 PATH_SHAPES = (
@@ -69,11 +94,13 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(e - 7)
 
 
-def b2_inputs(dev, gen, *, dtype, hq, hkv, d, b, s, t, kind, masked=True):
+def b2_inputs(dev, gen, *, dtype, hq, hkv, d, b, s, t, kind, masked=True,
+              dead=None):
     """Random operands of one B2 call.  With ``masked``: three query rows
     of batch 0 have qpos = -1 (no admitted key under causal / local), every
     fifth key of batch 0 is invalid (kpos = -1), and under "full" the last
     batch row has every key invalid (all its rows are then exact zeros).
+    ``dead = (lo, hi)``: keys lo..hi-1 of the last batch row are invalid.
     Returns ``(q, k, v, qpos, kpos, zero_rows)``; ``zero_rows`` is a (B, S)
     bool mask of the rows that must be exact zeros."""
     q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
@@ -91,12 +118,15 @@ def b2_inputs(dev, gen, *, dtype, hq, hkv, d, b, s, t, kind, masked=True):
         else:
             qpos[0, -3:] = -1
             zero[0, -3:] = True
+    if dead is not None:
+        kpos[-1, dead[0]:dead[1]] = -1
     return q, k, v, qpos, kpos, zero
 
 
 def path_inputs(dev, name: str, b: int, s: int, t: int):
     """bf16 operands of one ``PATH_SHAPES`` entry at the serving geometry,
-    with the positions the path sets (decode: every slot at the last
+    with the positions the path sets (decode, also as ``decode_t<T>``:
+    every slot at the last
     position of a full cache; prefill: right-aligned; paged chunk: the
     third 256-token chunk of a prompt over the gathered view).  Returns
     ``(q, k, v, qpos, kpos)``."""
@@ -105,7 +135,8 @@ def path_inputs(dev, name: str, b: int, s: int, t: int):
     q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn(b, t, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn(b, t, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
-    start = {"decode": t - 1, "prefill": 0, "paged_chunk": 512}[name]
+    start = {"decode": t - 1, "prefill": 0,
+             "paged_chunk": 512}[name.split("_t")[0]]
     qpos = (start + torch.arange(s, device=dev, dtype=torch.int32)).expand(b, s)
     kpos = torch.arange(t, device=dev, dtype=torch.int32).expand(b, t)
     return q, k, v, qpos.contiguous(), kpos.contiguous()
@@ -113,8 +144,10 @@ def path_inputs(dev, name: str, b: int, s: int, t: int):
 
 def _compare(case, q, k, v, qpos, kpos, zero, *, kind, window, softcap):
     """Kernel against plain on one set of operands (see the module
-    docstring); returns ``{"max_abs_err", "max_err_over_tol"}``."""
+    docstring); returns ``{"max_abs_err", "max_err_over_tol",
+    "kv_splits"}``."""
     dtype, d = q.dtype, q.shape[-1]
+    splits = call_kv_splits(q.shape, k.shape, dtype)
     before = cuda.launch_counts().get("flash_attention", 0)
     out = flash_attention(q, k, v, kind=kind, qpos=qpos, kpos=kpos,
                           window=window, softcap=softcap)
@@ -122,7 +155,8 @@ def _compare(case, q, k, v, qpos, kpos, zero, *, kind, window, softcap):
         raise AssertionError(f"B2 {case}: launch not counted once")
     plain = flash_attention_plain(q, k, v, qpos, kpos, kind=kind,
                                   window=window, softcap=softcap,
-                                  scale=d ** -0.5, out_dtype=torch.float32)
+                                  scale=d ** -0.5, out_dtype=torch.float32,
+                                  kv_splits=splits)
     torch.cuda.synchronize()
     if out.dtype != dtype or out.shape != q.shape:
         raise AssertionError(f"B2 {case}: out {out.dtype} {tuple(out.shape)}")
@@ -139,16 +173,16 @@ def _compare(case, q, k, v, qpos, kpos, zero, *, kind, window, softcap):
             or plain[zero].abs().max().item() != 0.0):
         raise AssertionError(f"B2 {case}: fully masked rows are not exact 0")
     return {"max_abs_err": err.max().item(),
-            "max_err_over_tol": (err / tol).max().item()}
+            "max_err_over_tol": (err / tol).max().item(), "kv_splits": splits}
 
 
 def check_b2(dev, gen, *, dtype, kind, hq, hkv, d, b=2, s=33, t=47,
-             window=7, softcap=0.0, masked=True) -> dict:
+             window=7, softcap=0.0, masked=True, dead=None) -> dict:
     """One B2 case, kernel against plain; returns ``{"max_abs_err",
-    "max_err_over_tol"}``."""
+    "max_err_over_tol", "kv_splits"}``."""
     q, k, v, qpos, kpos, zero = b2_inputs(dev, gen, dtype=dtype, hq=hq,
                                           hkv=hkv, d=d, b=b, s=s, t=t,
-                                          kind=kind, masked=masked)
+                                          kind=kind, masked=masked, dead=dead)
     return _compare((str(dtype), kind, hq, hkv, d, b, s, t), q, k, v, qpos,
                     kpos, zero, kind=kind,
                     window=window if kind == "local" else 0, softcap=softcap)

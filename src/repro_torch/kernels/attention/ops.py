@@ -7,6 +7,13 @@ defaults.  CUDA tensors launch the hand-written kernel
 masks its ragged edges itself, so nothing is padded or sliced; CPU tensors
 take the plain version :func:`.ref.flash_attention_plain`.  There is no
 fallback between the two: a CUDA call the kernel cannot take raises.
+
+bf16 operands at a head dim in :data:`MMA_HEAD_DIMS` run the tensor-core
+instance, which splits the KV axis over blocks when the call's shapes
+leave the card under-filled (:func:`call_kv_splits`); the wrapper then
+allocates the splits' workspace and the one C call launches the split
+kernel and the merge.  The plain version on CPU tensors takes the same
+split count, so both sides run one recurrence.
 """
 
 from __future__ import annotations
@@ -16,15 +23,29 @@ import math
 import torch
 
 from .. import cuda
-from .ref import NEG_INF, flash_attention_plain
+from .ref import NEG_INF, flash_attention_plain, kv_split_count
 
-__all__ = ["KINDS", "NEG_INF", "SUPPORTED_HEAD_DIMS", "flash_attention"]
+__all__ = ["KINDS", "MMA_HEAD_DIMS", "NEG_INF", "SUPPORTED_HEAD_DIMS",
+           "call_kv_splits", "flash_attention"]
 
 KINDS = ("causal", "local", "full")
 _KIND_CODE = {"causal": 0, "local": 1, "full": 2}
 # the kernel's template instances
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
+# bf16 head dims of the tensor-core instance (the others, and f32, run the
+# CUDA-core instance, which never splits the KV axis)
+MMA_HEAD_DIMS = (64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def call_kv_splits(q_shape, k_shape, dtype) -> int:
+    """KV splits of one call: :func:`.ref.kv_split_count` of its shapes on
+    the tensor-core instance, else 1."""
+    b, s, hq, d = q_shape
+    t, hkv = k_shape[1], k_shape[2]
+    if dtype != torch.bfloat16 or d not in MMA_HEAD_DIMS:
+        return 1
+    return kv_split_count(b, s, t, hkv, hq // hkv, d)
 
 
 def _positions(p, b: int, n: int, offset: int, device) -> torch.Tensor:
@@ -67,12 +88,19 @@ def flash_attention(q, k, v, *, kind: str = "causal", qpos=None, kpos=None,
     qpos = _positions(qpos, b, s, t - s, q.device)
     kpos = _positions(kpos, b, t, 0, q.device)
     if not q.is_cuda:
-        return flash_attention_plain(q, k, v, qpos, kpos, kind=kind,
-                                     window=int(window),
-                                     softcap=float(softcap),
-                                     scale=float(scale))
+        return flash_attention_plain(
+            q, k, v, qpos, kpos, kind=kind, window=int(window),
+            softcap=float(softcap), scale=float(scale),
+            kv_splits=call_kv_splits(q.shape, k.shape, q.dtype))
     return _flash_attention_cuda(q, k, v, qpos, kpos, kind, int(window),
                                  float(softcap), float(scale))
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and 16-byte aligned, as cp.async reads it (a view
+    may start mid-row; a copy of it does not)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _flash_attention_cuda(q, k, v, qpos, kpos, kind, window, softcap, scale):
@@ -93,14 +121,22 @@ def _flash_attention_cuda(q, k, v, qpos, kpos, kind, window, softcap, scale):
                          f"v {v.dtype}")
     if q.numel() == 0:  # the kernel launches nothing for an empty query
         return torch.empty_like(q)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     qpos, kpos = qpos.contiguous(), kpos.contiguous()
     out = torch.empty_like(q)
+    g = hq // hkv
+    splits = call_kv_splits(q.shape, k.shape, q.dtype)
+    ws_o = ws_ml = None
+    if splits > 1:
+        ws_o = torch.empty((splits, b, hkv, s * g, d), dtype=torch.float32,
+                           device=q.device)
+        ws_ml = torch.empty((splits, b, hkv, s * g, 2), dtype=torch.float32,
+                            device=q.device)
     status = cuda.library().flash_attention_fwd(
         cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(qpos),
-        cuda.ptr(kpos), cuda.ptr(out), b, s, t, hkv, hq // hkv, d,
-        int(q.dtype == torch.bfloat16), _KIND_CODE[kind], window,
-        softcap, scale, *cuda.stream_args(q.device),
+        cuda.ptr(kpos), cuda.ptr(out), cuda.ptr(ws_o), cuda.ptr(ws_ml),
+        b, s, t, hkv, g, d, int(q.dtype == torch.bfloat16), _KIND_CODE[kind],
+        window, splits, softcap, scale, *cuda.stream_args(q.device),
     )
     cuda.check(status)
     cuda.LAUNCHES["flash_attention"] += 1

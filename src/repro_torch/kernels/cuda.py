@@ -30,6 +30,7 @@ from pathlib import Path
 import torch
 
 __all__ = [
+    "FILL_BLOCKS",
     "LAUNCHES",
     "launch_counts",
     "reset_launch_counts",
@@ -51,6 +52,11 @@ NVCC_FLAGS = (
 
 LAUNCHES: collections.Counter = collections.Counter()
 
+# blocks that fill the card: two resident blocks on each of the H100's 132
+# SMs.  The kernels that split a reduction axis over blocks (B1's features,
+# B2's keys) split until a call has about this many.
+FILL_BLOCKS = 2 * 132
+
 _LOCK = threading.Lock()
 _LIB = None
 _BUILD_INFO: dict = {}
@@ -59,15 +65,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # codes xraw lut lutp wc wcp wscale wb noise y codes_out
-    # B F O nb kk ld | lo code_step lut_scale hs mid nx_lo nx_scale
-    # nx_num_codes device stream
-    "kan_pipeline_layer": [_P] * 11 + [_I] * 6 + [_F] * 7 + [_I, _I, _P],
-    # codes lut wc wb y | B F O nb kk ld | lo code_step | device stream
-    "kan_spline_fwd": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_I, _P],
-    # q k v qpos kpos out | B S T Hkv G D bf16 kind window | softcap scale
-    # | device stream
-    "flash_attention_fwd": [_P] * 6 + [_I] * 9 + [_F] * 2 + [_I, _P],
+    # codes xraw lut lutp wc wcp wscale wb noise y codes_out ws
+    # B F O f_log o_log nb kk ld splits fps | lo code_step lut_scale hs mid
+    # nx_lo nx_scale | nx_num_codes device stream
+    "kan_pipeline_layer": [_P] * 12 + [_I] * 10 + [_F] * 7 + [_I, _I, _P],
+    # codes lut wc wb y ws | B F O nb kk ld splits fps | lo code_step |
+    # device stream
+    "kan_spline_fwd": [_P] * 6 + [_I] * 8 + [_F] * 2 + [_I, _P],
+    # q k v qpos kpos out ws_o ws_ml | B S T Hkv G D bf16 kind window
+    # splits | softcap scale | device stream
+    "flash_attention_fwd": [_P] * 8 + [_I] * 10 + [_F] * 2 + [_I, _P],
     # x w load fs out | B Rt R C | ir_scale comp_scale | adc_bits | device
     # stream
     "cim_mac_fwd": [_P] * 5 + [_I] * 4 + [_F] * 2 + [_I, _I, _P],

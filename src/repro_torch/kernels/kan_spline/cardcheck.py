@@ -10,7 +10,16 @@ PyTorch version on the same tensors, and raises on disagreement:
   * boundary codes equal up to the excused near-ties of
     :mod:`repro_torch.parity`;
   * packed and unpacked B1 weights / SH-LUT bit-identical;
-  * each kernel call adds exactly one to its launch counter.
+  * each kernel call adds exactly one to its launch counter (also when the
+    call splits the feature axis and runs the merge kernel too).
+
+The plain version runs with the kernel's feature split count
+(``pipeline.feature_split_plan``).  Three checks hold what the split design
+promises: :func:`check_b1_rows_independent` (a row's y and codes are the
+same bits at 8 rows as at 1024), ``B1_FFN_PACKED`` (packed == unpacked at a
+full-width half with feature splits > 1) and
+:func:`check_b1_padded_columns` (a noisy layer's padded columns are
+y = noise exactly and the requantized code of it).
 """
 
 from __future__ import annotations
@@ -27,8 +36,9 @@ from .ops import kan_spline
 from .ref import kan_spline_ref
 
 __all__ = ["ATOL", "RTOL", "ORDERS", "B1_GEOMETRIES", "B1_FLAGS",
-           "B1_FFN_FULL", "FFN_FULL_TIE_EPS", "B3_SHAPES",
-           "b1_case", "check_b1", "check_b3"]
+           "B1_FFN_FULL", "B1_FFN_PACKED", "FFN_FULL_TIE_EPS", "B3_SHAPES",
+           "b1_case", "check_b1", "check_b1_rows_independent",
+           "check_b1_padded_columns", "check_b3"]
 
 ATOL = RTOL = 1e-5
 # every spline order the kernel library has an instance for (K+1 = 2..6)
@@ -46,6 +56,10 @@ B1_FFN_FULL = tuple(
     (8, f, o, (True, False, False, False, emit), rows)
     for f, o, emit in ((5120, 1280, True), (1280, 5120, False))
     for rows in (8, 1024))
+# int4-packed weights (and a packed SH-LUT, with noise) at a full-width
+# half, where the kernel splits the feature axis: (grid, f, o, flags, rows)
+B1_FFN_PACKED = ((8, 5120, 1280, (True, True, True, True, True), 8),
+                 (8, 1280, 5120, (True, True, False, False, False), 64))
 # The excuse window of those halves' boundary codes.  Their outputs sum
 # K+2 f32 terms over 5120 (or 1280) inputs, so the summation-order error of
 # y is several times that of the f <= 128 layers above, and the
@@ -103,7 +117,9 @@ def check_b1(dev, gen, grid, f, o, flags, bp, order=3,
     y, c = pl.run_pipeline_layer(codes, xraw, lw, lp, bp, psum_noise=nz)
     if cuda.launch_counts()["kan_pipeline_layer"] != before + 1:
         raise AssertionError(f"B1 {case}: launch not counted once")
-    py, pc = pl.run_pipeline_layer_plain(codes, xraw, lw, lp, bp, psum_noise=nz)
+    py, pc = pl.run_pipeline_layer_plain(
+        codes, xraw, lw, lp, bp, psum_noise=nz,
+        feature_splits=pl.feature_split_plan(lp.f, lp.o)[0])
     torch.cuda.synchronize()
     if c is None:
         err = (y - py).abs()
@@ -122,6 +138,51 @@ def check_b1(dev, gen, grid, f, o, flags, bp, order=3,
     return {"max_abs_err": st["max_abs_err"], "excused": st["excused"]}
 
 
+def check_b1_rows_independent(dev, gen, grid: int = 8, f: int = 5120,
+                              o: int = 1280, rows=(8, 1024)) -> dict:
+    """The same rows at two batch sizes give the same bits: the first
+    ``rows[0]`` rows of a ``rows[1]``-row call (raw residual, codes out)
+    equal a call on those rows alone, y and codes.  Returns
+    ``{"rows", "feature_splits", "equal"}``; raises if they differ."""
+    small, big = rows
+    lp, lw, _, codes, xraw, _ = b1_case(dev, gen, grid, f, o,
+                                        (True, False, False, False, True), big)
+    yb, cb = pl.run_pipeline_layer(codes, xraw, lw, lp, big)
+    ys, cs = pl.run_pipeline_layer(codes[:small].contiguous(),
+                                   xraw[:small].contiguous(), lw, lp, small)
+    torch.cuda.synchronize()
+    if not (torch.equal(yb[:small], ys) and torch.equal(cb[:small], cs)):
+        diff = (yb[:small] - ys).abs().max().item()
+        raise AssertionError(f"B1 {f}x{o}: rows differ between {small} and "
+                             f"{big} rows (max |dy| {diff:.3e})")
+    return {"rows": list(rows),
+            "feature_splits": pl.feature_split_plan(lp.f, lp.o)[0],
+            "equal": True}
+
+
+def check_b1_padded_columns(dev, gen, grid: int = 5, bp: int = 512) -> dict:
+    """A noisy 1 -> 14 layer with codes out: its padded columns 14..127
+    are y = noise bit for bit, and their codes the requantizer's code of
+    that y (exact except at an excused near-tie of the pre-round value).
+    Returns ``{"columns", "excused"}``."""
+    lp, lw, _, codes, xraw, nz = b1_case(dev, gen, grid, 1, 14,
+                                         (False, False, False, True, True), bp)
+    y, c = pl.run_pipeline_layer(codes, xraw, lw, lp, bp, psum_noise=nz)
+    torch.cuda.synchronize()
+    pad = slice(lp.o, lp.op)
+    if not torch.equal(y[:, pad], nz[:, pad]):
+        raise AssertionError("B1: padded columns are not y = noise")
+    pre = torch.as_tensor(parity.requant_preround(nz[:, pad], lp.next_spec))
+    want = torch.clamp(torch.floor(pre), 0, lp.next_spec.num_codes - 1)
+    got = c[:, pad].cpu().to(torch.float64)
+    off = got != want
+    near = (pre - torch.round(pre)).abs() < 1e-4
+    if bool((off & ~near).any()):
+        raise AssertionError("B1: padded columns' codes are not the "
+                             "requantized noise")
+    return {"columns": lp.op - lp.o, "excused": int(off.sum())}
+
+
 def check_b3(dev, gen, b, f, o, grid, order=3) -> float:
     """One B3 case, kernel against plain; returns the max abs error."""
     spec = ASPQuantSpec(grid_size=grid, order=order)
@@ -135,7 +196,8 @@ def check_b3(dev, gen, b, f, o, grid, order=3) -> float:
     y = kan_spline(codes, lut, wc, wb, spec)
     if cuda.launch_counts()["kan_spline"] != before + 1:
         raise AssertionError(f"B3 {b, f, o, grid, order}: launch not counted once")
-    py = kan_spline_ref(codes, lut, wc, wb, spec)
+    py = kan_spline_ref(codes, lut, wc, wb, spec,
+                        feature_splits=pl.feature_split_plan(f, o)[0])
     torch.cuda.synchronize()
     err = (y - py).abs()
     if not bool((err <= ATOL + RTOL * py.abs()).all()):

@@ -6,8 +6,10 @@ kernel in ``csrc/kan_spline.cu`` (entry point ``kan_spline_fwd``): no
 packing, no noise, no requantizer, residual ``relu(deq(codes))``.  Its
 operands are unpadded, so its bound is the larger of its bytes (codes in,
 outputs out, weights once) at the card's memory rate and its K+2 band FMAs
-per (b, f, o) at the f32 rate: at KAN1's widths, the bytes.  Its plain
-version is ``ref.kan_spline_ref``.
+per (b, f, o) at the f32 rate: at KAN1's widths, the bytes.  It splits the
+feature axis as B1 does (``pipeline.feature_split_plan``; the wrapper
+allocates the splits' workspace).  Its plain version is
+``ref.kan_spline_ref``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from ...core.asp_quant import ASPQuantSpec, f32
 from .. import cuda
+from .pipeline import feature_split_plan
 
 __all__ = ["kan_spline_cuda"]
 
@@ -46,9 +49,12 @@ def kan_spline_cuda(
             )
     cuda.check_spec(spec)
     y = torch.empty((bsz, o), dtype=torch.float32, device=dev)
+    splits, fps = feature_split_plan(f, o)
+    ws = (torch.empty((splits, bsz, o), dtype=torch.float32, device=dev)
+          if splits > 1 else None)
     status = cuda.library().kan_spline_fwd(
         cuda.ptr(codes), cuda.ptr(lut), cuda.ptr(wc), cuda.ptr(wb),
-        cuda.ptr(y), bsz, f, o, nb, kk, spec.ld,
+        cuda.ptr(y), cuda.ptr(ws), bsz, f, o, nb, kk, spec.ld, splits, fps,
         f32(spec.lo), f32(spec.code_step), *cuda.stream_args(dev),
     )
     cuda.check(status)

@@ -12,6 +12,7 @@ import torch
 
 from ...core.asp_quant import ASPQuantSpec
 from .kernel import kan_spline_cuda
+from .pipeline import feature_split_plan
 from .ref import kan_spline_ref
 
 __all__ = ["kan_spline", "kan_spline_from_qparams"]
@@ -24,9 +25,10 @@ def kan_spline(
     wb: torch.Tensor,      # (F, O)
     spec: ASPQuantSpec,
 ) -> torch.Tensor:
-    if not codes.is_cuda:
-        return kan_spline_ref(codes, lut, wc, wb, spec)
     f, nb, o = wc.shape
+    if not codes.is_cuda:
+        return kan_spline_ref(codes, lut, wc, wb, spec,
+                              feature_splits=feature_split_plan(f, o)[0])
     return kan_spline_cuda(
         codes.to(torch.int32).contiguous(),
         lut.to(torch.float32).contiguous(),

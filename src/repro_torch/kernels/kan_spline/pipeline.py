@@ -15,6 +15,9 @@ Kernel B1 (``csrc/kan_spline.cu::kan_pipeline_layer``) replaces
 ``repro/kernels/kan_spline/pipeline.py::_pipeline_layer_kernel``.
 :func:`run_pipeline_layer` launches it for CUDA tensors and takes the plain
 PyTorch version :func:`run_pipeline_layer_plain` only for CPU tensors.
+Both split the feature axis as :func:`feature_split_plan` says, a function
+of the layer's widths alone: each split sums its features, and the splits
+are added in order before the noise operand.
 """
 
 from __future__ import annotations
@@ -48,6 +51,9 @@ __all__ = [
     "unpack_lut",
     "unpacked_wc",
     "gained_layer",
+    "FEATURES_PER_SPLIT",
+    "feature_split_plan",
+    "feature_split_bounds",
     "run_pipeline_layer",
     "run_pipeline_layer_plain",
     "kan_pipeline_impl",
@@ -359,6 +365,36 @@ def gained_layer(lw: dict, lp: LayerPlan, gain) -> dict:
 # ----------------------------------------------------------------------------
 
 
+# Feature splits of kernels B1 and B3: one per FEATURES_PER_SPLIT logical
+# input features, and at most as many as fill the card
+# (``cuda.FILL_BLOCKS``) at a single 64-row tile of 128-column blocks.
+FEATURES_PER_SPLIT = 256
+_BLOCK_COLS = 128
+
+
+def feature_split_plan(f: int, o: int) -> tuple:
+    """(splits, features per split) of a layer of logical widths f -> o.
+
+    A function of the widths alone, never of the batch, so a row's output
+    bits do not depend on how many rows share its call: 5120 -> 1280 gives
+    (20, 256), 1280 -> 5120 (5, 256), every f <= 256 layer (1, f)."""
+    col_tiles = -(-o // _BLOCK_COLS)
+    splits = max(1, min(-(-f // FEATURES_PER_SPLIT),
+                        -(-cuda.FILL_BLOCKS // col_tiles)))
+    fps = -(-f // splits)
+    return -(-f // fps), fps
+
+
+def feature_split_bounds(f: int, fp: int, splits: int) -> list:
+    """The [lo, hi) feature slices of ``splits`` splits of the logical
+    features f (``ceil(f / splits)`` each, as the kernel cuts them); the
+    last one runs on to the padded width fp (zero weights)."""
+    fps = -(-f // max(int(splits), 1))
+    bounds = [(lo, min(lo + fps, f)) for lo in range(0, f, fps)] or [(0, 0)]
+    bounds[-1] = (bounds[-1][0], fp)
+    return bounds
+
+
 def _requant_consts(lp: LayerPlan) -> tuple:
     """(half_span, mid, lo, 1/code_step, num_codes) of the next layer's
     input grid, each rounded to f32 as the reference's weak typing does."""
@@ -400,22 +436,30 @@ def _check_layer_inputs(codes, xraw, lw, lp, bp, psum_noise) -> None:
 
 
 def run_pipeline_layer_plain(codes, xraw, lw: dict, lp: LayerPlan, bp: int,
-                             *, psum_noise=None):
+                             *, psum_noise=None, feature_splits: int = 1):
     """Plain PyTorch version of kernel B1, in the reference kernel's op order.
 
-    Dense SH-LUT basis -> banded matmul -> + relu(resid) @ wb -> + noise ->
-    (not last layer) tanh rescale and ASP re-coding.  Returns (y, codes or
-    None), both (bp, op).
+    Dense SH-LUT basis -> banded matmul -> + relu(resid) @ wb, each of the
+    ``feature_splits`` feature slices (:func:`feature_split_bounds`) on its
+    own and the slices added in order -> + noise -> (not last layer) tanh
+    rescale and ASP re-coding.  Returns (y, codes or None), both (bp, op).
     """
     spec = lp.spec
+    nb = spec.num_basis
     lut = unpack_lut(lw["lutp"], spec) if "lutp" in lw else lw["lut"]
     basis = dense_basis_from_codes(codes, lut.to(torch.float32), spec)
-    acc = basis.reshape(bp, lp.fp * spec.num_basis) @ unpacked_wc(lw, lp)
+    wc = unpacked_wc(lw, lp)
     if lp.residual_raw:
         resid = xraw.to(torch.float32)
     else:
         resid = f32(spec.lo) + codes.to(torch.float32) * f32(spec.code_step)
-    acc = acc + torch.clamp_min(resid, 0.0) @ lw["wb"].to(torch.float32)
+    relu = torch.clamp_min(resid, 0.0)
+    wb = lw["wb"].to(torch.float32)
+    acc = None
+    for lo, hi in feature_split_bounds(lp.f, lp.fp, feature_splits):
+        part = (basis[:, lo:hi].reshape(bp, (hi - lo) * nb) @ wc[lo * nb:hi * nb]
+                + relu[:, lo:hi] @ wb[lo:hi])
+        acc = part if acc is None else acc + part
     y = acc + psum_noise if psum_noise is not None else acc
     if not lp.emit_codes:
         return y, None
@@ -436,6 +480,9 @@ def _run_pipeline_layer_cuda(codes, xraw, lw, lp, bp, psum_noise):
     nx = _requant_consts(lp) if lp.emit_codes else (0.0, 0.0, 0.0, 0.0, 0)
     packed_lut = "lutp" in lw
     packed_w = "wcp" in lw
+    splits, fps = feature_split_plan(lp.f, lp.o)
+    ws = (torch.empty((splits, bp, lp.op), dtype=torch.float32, device=dev)
+          if splits > 1 else None)
     status = lib.kan_pipeline_layer(
         cuda.ptr(codes), cuda.ptr(xraw if lp.residual_raw else None),
         cuda.ptr(None if packed_lut else lw["lut"]),
@@ -444,9 +491,9 @@ def _run_pipeline_layer_cuda(codes, xraw, lw, lp, bp, psum_noise):
         cuda.ptr(lw["wcp"] if packed_w else None),
         cuda.ptr(lw["wscale"] if packed_w else None),
         cuda.ptr(lw["wb"]), cuda.ptr(psum_noise), cuda.ptr(y),
-        cuda.ptr(codes_out),
-        bp, lp.fp, lp.op, spec.num_basis, spec.order + 1, spec.ld,
-        f32(spec.lo), f32(spec.code_step), f32(lut_scale(spec)),
+        cuda.ptr(codes_out), cuda.ptr(ws),
+        bp, lp.fp, lp.op, lp.f, lp.o, spec.num_basis, spec.order + 1,
+        spec.ld, splits, fps, f32(spec.lo), f32(spec.code_step), f32(lut_scale(spec)),
         *nx, *cuda.stream_args(dev),
     )
     cuda.check(status)
@@ -478,8 +525,9 @@ def run_pipeline_layer(codes, xraw, lw: dict, lp: LayerPlan, bp: int, *,
             {k: v.contiguous() for k, v in lw.items()}, lp, bp,
             None if psum_noise is None else psum_noise.contiguous(),
         )
-    return run_pipeline_layer_plain(codes, xraw, lw, lp, bp,
-                                    psum_noise=psum_noise)
+    return run_pipeline_layer_plain(
+        codes, xraw, lw, lp, bp, psum_noise=psum_noise,
+        feature_splits=feature_split_plan(lp.f, lp.o)[0])
 
 
 # ----------------------------------------------------------------------------

@@ -24,7 +24,12 @@ from repro.models import layers as JL
 from repro_torch import runtime
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import cuda
-from repro_torch.kernels.attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.attention import (
+    call_kv_splits,
+    flash_attention,
+    flash_attention_plain,
+    kv_split_count,
+)
 from repro_torch.models import layers as L
 
 torch.set_num_threads(1)
@@ -203,3 +208,83 @@ def test_dispatch_counts_follow_the_backend():
     with runtime.use_attn_backend("flash"):
         L._sdpa(q, k, v, cfg, "global")
     assert runtime.attn_dispatch_counts() == {"ref": 1, "flash": 1}
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("kind,window", [("causal", 0), ("local", 50),
+                                         ("full", 0)])
+def test_plain_kv_splits_match_reference(splits, kind, window):
+    """The plain version with the tensor-core kernel's split KV axis (runs
+    of whole 64-key tiles, merged in split order) against the reference
+    kernel.  Batch row 1 has keys 0..191 invalid, which covers a whole
+    split at every count here; batch row 2 has no admitted key in any
+    split (qpos -1, or every kpos -1 under "full"): exact zeros."""
+    b, s, t = 3, 2, 300
+    q, k, v = _qkv(b, s, 4, 2, 16, t=t, seed=splits)
+    qpos = (np.arange(s) + t - s).astype(np.int32)[None].repeat(b, 0)
+    kpos = np.arange(t, dtype=np.int32)[None].repeat(b, 0)
+    kpos[1, :192] = -1
+    if kind == "full":
+        kpos[2] = -1
+    else:
+        qpos[2] = -1
+    want = j_flash(q, k, v, kind=kind, qpos=qpos, kpos=kpos, window=window,
+                   interpret=True)
+    got = flash_attention_plain(*_t(q, k, v), torch.from_numpy(qpos),
+                                torch.from_numpy(kpos), kind=kind,
+                                window=window, softcap=0.0, scale=0.25,
+                                kv_splits=splits)
+    _close(got, want)
+    assert got[2].abs().max().item() == 0.0
+
+
+def test_plain_kv_splits_with_softcap_and_an_empty_split():
+    """More splits than the keys fill (the last run is empty) and softcap
+    before the mask: the same answer as one run."""
+    q, k, v = _t(*_qkv(2, 3, 6, 2, 16, t=130, seed=4))
+    qpos = torch.tensor([[127, 128, 129]] * 2, dtype=torch.int32)
+    kpos = torch.arange(130, dtype=torch.int32)[None].repeat(2, 1)
+    args = dict(kind="causal", window=0, softcap=2.0, scale=0.25)
+    one = flash_attention_plain(q, k, v, qpos, kpos, **args)
+    for splits in (2, 3, 8):
+        got = flash_attention_plain(q, k, v, qpos, kpos, kv_splits=splits,
+                                    **args)
+        _close(got, one)
+
+
+def test_kv_split_count_is_a_function_of_the_call_shapes():
+    """Decode and verify at the serving geometry split; prefill does not;
+    a call with one KV tile never splits; no split is ever empty of tiles
+    and there are never more splits than tiles.  The count ignores the
+    data and, at equal shapes, the batch contents."""
+    assert kv_split_count(4, 1, 1024, 8, 6, 128) == 8
+    assert kv_split_count(4, 3, 1023, 8, 6, 128) == 8
+    assert kv_split_count(4, 1, 4096, 8, 6, 128) == 8
+    assert kv_split_count(1, 1000, 1000, 8, 6, 128) == 1
+    assert kv_split_count(1, 256, 1024, 8, 6, 128) == 2
+    assert kv_split_count(4, 1, 60, 8, 6, 128) == 1
+    for t in range(1, 2000, 37):
+        n = kv_split_count(1, 1, t, 2, 1, 64)
+        tiles = -(-t // 64)
+        per = -(-tiles // n)
+        assert 1 <= n <= tiles and (n - 1) * per < tiles
+    q, k = (4, 1, 48, 128), (4, 1024, 8, 128)
+    assert call_kv_splits(q, k, torch.bfloat16) == 8
+    assert call_kv_splits(q, k, torch.float32) == 1          # CUDA-core
+    assert call_kv_splits((4, 1, 48, 256), (4, 1024, 8, 256),
+                          torch.bfloat16) == 1                # CUDA-core
+
+
+def test_cpu_path_takes_the_kernels_split_count():
+    """bf16 operands on the CPU run the plain version with the split count
+    the card's tensor-core instance would use."""
+    q, k, v = (x.to(torch.bfloat16) for x in _t(*_qkv(1, 1, 12, 2, 64,
+                                                       t=300, seed=9)))
+    assert call_kv_splits(q.shape, k.shape, q.dtype) == 5
+    qpos = torch.tensor([[299]], dtype=torch.int32)
+    kpos = torch.arange(300, dtype=torch.int32)[None]
+    out = flash_attention(q, k, v, qpos=qpos, kpos=kpos)
+    plain = flash_attention_plain(q, k, v, qpos, kpos, kind="causal",
+                                  window=0, softcap=0.0, scale=64 ** -0.5,
+                                  kv_splits=5)
+    assert torch.equal(out, plain)

@@ -8,7 +8,10 @@ boundary codes equal up to the excused near-ties of ``repro_torch.parity``;
 packed and unpacked B1 weights bit-identical), B1 at the full-width
 KAN-FFN halves, B2 through ``repro_torch.kernels.attention.cardcheck`` (f32
 within 2e-5 + 2e-5 * |plain|, bf16 within one more bf16 ulp, fully masked
-rows exact zeros), small cases and the serving path's own shapes; B4
+rows exact zeros), small cases, the tensor-core instance with its KV axis
+split, and the serving path's own shapes; B1's rows bit-identical at 8
+and 1024 rows, packed == unpacked with feature splits, padded columns of
+a noisy layer; the launch counters once per call of two kernels; B4
 through ``repro_torch.kernels.cim_mac.cardcheck`` (the reference's ADC
 contract: within one ADC LSB per array, >= 95% tight; the zero-IR 24-bit
 case the plain matmul within 1e-3 relative plus half an LSB per array);
@@ -82,6 +85,16 @@ def test_b2_kernel_matches_plain_at_serving_geometry_and_softcap(dev, case):
     ac.check_b2(dev, gen, **ac.B2_EXTRA[case])
 
 
+@pytest.mark.parametrize("case", range(len(ac.B2_SPLIT)))
+def test_b2_kernel_matches_plain_with_kv_splits(dev, case):
+    """The bf16 tensor-core instance with its KV axis split (decode at
+    T = 1023 and 4096, verify S = 3, a whole split masked, rows masked in
+    every split: exact zeros)."""
+    gen = torch.Generator(device=dev).manual_seed(40 + case)
+    st = ac.check_b2(dev, gen, **ac.B2_SPLIT[case])
+    assert st["kv_splits"] > 1
+
+
 @pytest.mark.parametrize("name,b,s,t,kind", ac.PATH_SHAPES)
 def test_b2_kernel_matches_plain_at_serving_path_shapes(dev, name, b, s, t,
                                                         kind):
@@ -136,6 +149,53 @@ def test_one_full_width_layer_serves_through_b1_and_b2(dev):
         del eng
     del params
     torch.cuda.empty_cache()
+
+
+def test_b1_rows_bit_identical_at_8_and_1024_rows(dev):
+    """The feature split count ignores the batch, so the 5120 -> 1280
+    half gives a row the same y and codes at 8 rows as at 1024."""
+    st = cc.check_b1_rows_independent(dev, torch.Generator(device=dev)
+                                      .manual_seed(31))
+    assert st["equal"] and st["feature_splits"] > 1
+
+
+@pytest.mark.parametrize("grid,f,o,flags,rows", cc.B1_FFN_PACKED)
+def test_b1_packed_equals_unpacked_with_feature_splits(dev, grid, f, o, flags,
+                                                       rows):
+    from repro_torch.kernels.kan_spline.pipeline import feature_split_plan
+
+    assert feature_split_plan(f, o)[0] > 1
+    gen = torch.Generator(device=dev).manual_seed(32 + rows)
+    cc.check_b1(dev, gen, grid, f, o, flags, rows, eps=cc.FFN_FULL_TIE_EPS)
+
+
+def test_b1_padded_columns_of_a_noisy_layer(dev):
+    st = cc.check_b1_padded_columns(dev, torch.Generator(device=dev)
+                                    .manual_seed(33))
+    assert st["columns"] == 114
+
+
+def test_launch_counters_move_once_per_call_of_two_kernels(dev):
+    """A B2 decode call with split KV (split kernel + merge) and a B1
+    5120 -> 1280 call with split features (split kernel + merge) each add
+    one launch."""
+    from repro_torch.kernels.attention import call_kv_splits, flash_attention
+    from repro_torch.kernels.kan_spline import pipeline as pl
+
+    q, k, v, qpos, kpos = ac.path_inputs(dev, "decode", 4, 1, 1024)
+    assert call_kv_splits(q.shape, k.shape, q.dtype) > 1
+    gen = torch.Generator(device=dev).manual_seed(34)
+    lp, lw, _, codes, xraw, _ = cc.b1_case(
+        dev, gen, 8, 5120, 1280, (True, False, False, False, True), 8)
+    assert pl.feature_split_plan(lp.f, lp.o)[0] > 1
+    before = cuda.launch_counts()
+    flash_attention(q, k, v, qpos=qpos, kpos=kpos)
+    pl.run_pipeline_layer(codes, xraw, lw, lp, 8)
+    torch.cuda.synchronize()
+    after = cuda.launch_counts()
+    assert after.get("flash_attention", 0) == before.get("flash_attention", 0) + 1
+    assert (after.get("kan_pipeline_layer", 0)
+            == before.get("kan_pipeline_layer", 0) + 1)
 
 
 @pytest.mark.parametrize("order", cc.ORDERS)

@@ -253,3 +253,73 @@ def test_layer_operands_are_validated():
         tpl.run_pipeline_layer(_t(codes)[:, :5], None, lw, lp, 16)
     with pytest.raises(ValueError, match="wc"):
         tpl.run_pipeline_layer(_t(codes), None, {**lw, "wc": lw["wc"][:-2]}, lp, 16)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5])
+@pytest.mark.parametrize("grid,f,o,flags", [
+    (5, 17, 14, (1, 1, 1, 1, 1)), (8, 64, 128, (1, 0, 0, 1, 1)),
+    (68, 17, 1, (0, 0, 0, 0, 1)), (16, 40, 77, (0, 1, 0, 1, 0)),
+], ids=str)
+def test_b1_plain_feature_splits_match_reference_kernel(splits, grid, f, o,
+                                                        flags):
+    """The plain version in the kernel's split order (each feature slice
+    summed on its own, the slices added in order, then the noise) against
+    the reference kernel, under the same gate as one split."""
+    jlp, lw, codes, xraw, nz = _layer_case(grid, f, o, tuple(map(bool, flags)),
+                                           seed=splits)
+    jy, jc = jpl.run_pipeline_layer(
+        jnp.asarray(codes), None if xraw is None else jnp.asarray(xraw),
+        {k: jnp.asarray(v) for k, v in lw.items()}, jlp, 16, interpret=True,
+        psum_noise=None if nz is None else jnp.asarray(nz))
+    lp = _port_layer(jlp)
+    ty, tc = tpl.run_pipeline_layer_plain(
+        _t(codes), _t(xraw), {k: _t(v) for k, v in lw.items()}, lp, 16,
+        psum_noise=_t(nz), feature_splits=splits)
+    _gate((ty.numpy(), None if tc is None else tc.numpy()),
+          (np.asarray(jy), None if jc is None else np.asarray(jc)), lp)
+
+
+def test_feature_split_plan_is_a_function_of_the_widths_alone():
+    """The split count and bounds come from the layer's widths, never from
+    the batch: the full-width FFN halves split the same at 8 and 1024 rows,
+    the KAN slice's layers do not split, and the bounds tile the features
+    in order with the padded tail on the last split."""
+    assert tpl.feature_split_plan(5120, 1280) == (20, 256)
+    assert tpl.feature_split_plan(1280, 5120) == (5, 256)
+    js = jq.ASPQuantSpec(grid_size=8)
+    ts = convert.spec_from_reference(js)
+    by_bp = {}
+    for bp in (8, 1024):
+        plan = tpl.make_pipeline_plan(bp, (5120, 1280, 5120), (ts, ts),
+                                      residual_raw=True)
+        by_bp[bp] = [tpl.feature_split_plan(lp.f, lp.o) for lp in plan.layers]
+    assert by_bp[8] == by_bp[1024] == [(20, 256), (5, 256)]
+    for dims in ((17, 1, 14), (64, 128, 64), (128, 64)):
+        for f, o in zip(dims[:-1], dims[1:]):
+            assert tpl.feature_split_plan(f, o) == (1, f)
+    assert tpl.feature_split_bounds(5120, 5120, 20) == [
+        (lo, lo + 256) for lo in range(0, 5120, 256)]
+    assert tpl.feature_split_bounds(17, 32, 5) == [(0, 4), (4, 8), (8, 12),
+                                                   (12, 16), (16, 32)]
+    assert tpl.feature_split_bounds(17, 32, 1) == [(0, 32)]
+
+
+@pytest.mark.parametrize("splits", [2, 5])
+def test_b3_plain_feature_splits_match_reference(splits):
+    """kan_spline_ref summed in split order against the reference's."""
+    from repro.kernels.kan_spline.ref import kan_spline_ref as j_ref
+    from repro_torch.kernels.kan_spline.ref import kan_spline_ref
+
+    js = jq.ASPQuantSpec(grid_size=8)
+    ts = convert.spec_from_reference(js)
+    rng = np.random.default_rng(splits)
+    e = jq.build_lut(js)
+    lut = (np.float32(e["lut_q"]) * np.float32(e["scale"]))
+    codes = rng.integers(0, js.num_codes, (9, 30)).astype(np.int32)
+    wc = (rng.normal(size=(30, js.num_basis, 7)) * 0.05).astype(np.float32)
+    wb = (rng.normal(size=(30, 7)) * 0.2).astype(np.float32)
+    want = np.asarray(j_ref(jnp.asarray(codes), jnp.asarray(lut),
+                            jnp.asarray(wc), jnp.asarray(wb), js))
+    got = kan_spline_ref(_t(codes), _t(lut), _t(wc), _t(wb), ts,
+                         feature_splits=splits)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
