@@ -26,8 +26,10 @@ Phases (any failure exits non-zero):
      and its bf16 tensor-core instance with the KV axis split (decode,
      verify, a masked split, rows masked in every split); B4 (the
      ACIM MAC, ``repro_torch.kernels.cim_mac.cardcheck``) on the reference's
-     cases and ragged shapes under the reference's ADC contract, and its
-     zero-IR 24-bit case against the plain matmul;
+     cases and ragged shapes under the reference's ADC contract, its
+     zero-IR 24-bit case against the plain matmul, the wide path's
+     R-chunks, ragged stream tiles, and 32-row slices whose bits equal
+     the full call's;
   4. the slice end to end: KAN1, KAN2, mixed (8, 4) KAN1 and the (64,128,64)
      G=8 FFN stack, initialized on the card, quantized and deployed, answer
      knot-surrogate requests of 1..65536 rows through ``runtime.execute``
@@ -43,8 +45,9 @@ Phases (any failure exits non-zero):
      same executor on CPU copies under the parity gate; the default noisy
      config reproduces under one generator seed; the psum sigma of a
      one-layer (17, 14) bundle is within 3% of the analytic one on every
-     channel; and the simulator MAC ``cim_mac`` (kernel B4) runs each KAN's
-     first-layer MAC at Fig. 13's macros against ``cim_matmul``;
+     channel; and the simulator MAC ``cim_mac`` (kernel B4) runs the
+     first-layer MAC of Fig. 13's KANs and Fig. 12's sweep against
+     ``cim_matmul``, with B4's device time there from the profiler;
   6. the LM serving slice: ``qwen2.5-14b`` ``kan_variant()`` at full width
      (d_model 5120, 48 physical heads over 8 KV heads, vocab 152064,
      KAN-FFN hidden 1280), bf16, depth cut to 4 layers, random weights
@@ -64,9 +67,11 @@ Phases (any failure exits non-zero):
      beside the fused run;
   7. CUDA-event times of B2 at the three shapes the serving path gives it
      and at decode over 4096 keys (with its KV split count), of B1 at the
-     full-width FFN halves (with their feature split count) and of B4 at the
-     acim study's shapes, beside bounds, plain versions and (B2)
-     ``scaled_dot_product_attention`` from the same run;
+     full-width FFN halves (with their feature split count), beside bounds,
+     plain versions and ``scaled_dot_product_attention`` from the same run;
+     and of B4 at the simulator path's six shapes and the reference's
+     largest case, L2-cold (``cold_ms``) and warm (events, graph replay),
+     beside its bound, its plain version and a cold read of x;
   8. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
 
 A longer report goes to ``reports/chip_smoke_report.json`` (gitignored).
@@ -82,7 +87,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
 
 # the card's published peaks (H100 SXM, NVIDIA data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -179,6 +183,41 @@ def graph_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / reps
+
+
+# device clock cycles (about 1 ms on an H100) that the card spins between
+# cold_ms's flush and its timed launch
+COLD_SPIN_CYCLES = 2_000_000
+
+
+def cold_ms(fn, reps: int = 20, flush_bytes: int = 256 << 20) -> float:
+    """Mean device milliseconds of ``fn`` with a cold L2: before each
+    launch, outside its timed interval, a 256 MiB scratch buffer is written
+    and then read, so the card's 50 MB L2 holds none of ``fn``'s operands
+    and no dirty lines to write back while it runs.  Each launch is timed
+    by its own pair of events, queued behind the flush and a ~1 ms spin of
+    the card (``torch.cuda._sleep``): the host queues the start event and
+    ``fn`` while the card spins, so the host's launch time stays out of the
+    timed interval."""
+    import torch
+
+    scratch = torch.zeros(flush_bytes // 4, dtype=torch.float32,
+                          device="cuda")
+    fn()
+    pairs = []
+    for i in range(reps):
+        scratch.fill_(float(i))
+        scratch.sum()
+        torch.cuda._sleep(COLD_SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    del scratch
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def bound(nbytes: int, flops: int, flop_per_s: float = F32_FLOP_PER_S) -> tuple:
@@ -314,19 +353,36 @@ def phase_kernels(dev, report) -> dict:
           f"{b2_err:.3e}, worst err / tol {b2_ratio:.3f} (f32 tol "
           f"{ac.F32_TOL} + rel, bf16 + one bf16 ulp)")
 
+    from repro_torch.core.cim import CIMConfig
     from repro_torch.kernels.cim_mac import cardcheck as mc
 
     b4 = [mc.check_case(dev, gen, *case) for case in mc.CASES]
     b4 += [mc.check_case(dev, gen, b, r, c, rows, adc=adc, ir=0.03)
            for b, r, c, rows, adc in mc.PROPERTY_CASES]
     b4.append(mc.check_tiled(dev, gen))
+    # the wide path's R-chunks, ragged stream tiles, a row's bits at 32 rows
+    # and at the full batch
+    b4 += [mc.check_case(dev, gen, b, r, c, rows, adc=adc)
+           for b, r, c, rows, adc in mc.SPLIT_CASES]
+    ir_of = {rows: CIMConfig(array_rows=rows, ir_gamma=0.06).ir_scale()
+             for rows in (128, 256, 512, 1024)}
+    for _, b, r, c, rows, adc in mc.RAGGED_CASES:
+        b4.append(mc.check_path(dev, mc.path_operands(dev, gen, b, r, c, rows),
+                                rows, ir_of[rows], adc))
+        torch.cuda.empty_cache()
+    for _, b, r, c, rows, adc in mc.ROW_CASES:
+        b4.append(mc.check_rows(dev, gen, b, r, c, rows, adc))
+        torch.cuda.empty_cache()
     b4_err = max(st["max_abs_err"] for st in b4)
     b4_over = max(st["max_err_over_allow"] for st in b4)
     b4_tight = min(st["tight"] for st in b4)
     zero_ir_err = mc.check_zero_ir(dev, gen)
     print(f"B4 vs plain: {len(b4)} cases (the reference's CASES, "
           f"{len(mc.PROPERTY_CASES)} ragged shapes at adc 6/8/12, the tiled "
-          f"identity case), ADC contract: max |err| {b4_err:.4e} = "
+          f"identity case, {len(mc.SPLIT_CASES)} wide R-split cases, "
+          f"{len(mc.RAGGED_CASES)} ragged stream tiles, {len(mc.ROW_CASES)} "
+          f"batches whose 32-row slices equal the full call bit for bit), "
+          f"ADC contract: max |err| {b4_err:.4e} = "
           f"{b4_over:.3f} of one LSB per array, least tight share "
           f"{b4_tight:.4f} (>= 0.95); zero IR at 24 bits vs x @ w: max |err| "
           f"{zero_ir_err:.4e} (rtol 1e-3 + half an LSB per array)")
@@ -891,20 +947,42 @@ def phase_mac_path(dev, models, knot) -> dict:
             row_activation_weight(x[:CALIB_ROWS], spec, 17), rows)
         for tag, p in (("natural", None), ("sam", perm)):
             cases.append((f"{label}/{tag}", cfg, drives, w_rows, p))
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    by_shape, widths = {}, {}
     cuda.reset_launch_counts()
     outs = []
-    for _, cfg, drives, w_rows, p in cases:
-        xd, wd = drives, w_rows
-        if p is not None:
-            idx = torch.as_tensor(p, device=dev)
-            xd, wd = drives.index_select(1, idx), w_rows.index_select(0, idx)
-        outs.append(cim_mac(xd, wd, array_rows=cfg.array_rows,
-                            ir_scale=cfg.ir_scale(), adc_bits=cfg.adc_bits,
-                            x_max=255.0))
-    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for key, cfg, drives, w_rows, p in cases:
+            xd, wd = drives, w_rows
+            if p is not None:
+                idx = torch.as_tensor(p, device=dev)
+                xd, wd = drives.index_select(1, idx), \
+                    w_rows.index_select(0, idx)
+            before = cuda.LAUNCHES["cim_mac_fwd"]
+            outs.append(cim_mac(xd, wd, array_rows=cfg.array_rows,
+                                ir_scale=cfg.ir_scale(),
+                                adc_bits=cfg.adc_bits, x_max=255.0))
+            shape = f"{key.split('/')[1]}_l1_{ACIM_ROWS}"
+            widths[shape] = (shape, *xd.shape, wd.shape[1], cfg.array_rows,
+                             cfg.adc_bits)
+            by_shape[shape] = by_shape.get(shape, 0) \
+                + cuda.LAUNCHES["cim_mac_fwd"] - before
+        torch.cuda.synchronize()
     launches = cuda.launch_counts()
     require(launches == {"cim_mac_fwd": len(cases)},
             f"simulator MAC launches {launches} != {len(cases)}")
+    # B4's device time on this path: every kernel of cim_mac.cu
+    b4_us = []
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and "cim_mac" in ev.key:
+            us = getattr(ev, "self_device_time_total", None)
+            b4_us.append(ev.self_cuda_time_total if us is None else us)
+    b4_ms = sum(b4_us) / 1e3
+    require(b4_ms > 0, "the profiler saw no B4 device time on the MAC path")
     stats = {}
     for (key, cfg, drives, w_rows, p), out in zip(cases, outs):
         want = cim_matmul(drives, w_rows, cfg, row_perm=p, x_max=255.0)
@@ -922,7 +1000,10 @@ def phase_mac_path(dev, models, knot) -> dict:
     for k, st in stats.items():
         print(f"    {k} | {st['max_err_over_allow']:.3f} | {st['tight']:.5f} "
               f"| {st['rel_err_vs_ideal']:.5f}")
-    return {"launches": launches, "vs_cim_matmul": stats}
+    print(f"  B4 device time of the {len(cases)} launches (profiler): "
+          f"{b4_ms:.4f} ms")
+    return {"launches": launches, "launches_by_shape": by_shape,
+            "shapes": widths, "b4_device_ms": b4_ms, "vs_cim_matmul": stats}
 
 
 # ----------------------------------------------------------------------------
@@ -1379,11 +1460,16 @@ def phase_times_lm(dev, report) -> tuple:
     return b2, [r for r in rows if r["kernel"] == "kan_pipeline_layer"]
 
 
-def phase_times_b4(dev) -> dict:
-    """B4 at the acim study's shapes (``cardcheck.PATH_SHAPES``): each held
-    against plain under the ADC contract, then timed beside its bound and
-    plain version.  No library call computes the function (the ADC rounds
-    each array's partial inside the contraction), so library_ms is None."""
+def phase_times_b4(dev, shapes=None) -> list:
+    """B4 at ``shapes``, by default ``cardcheck.PATH_SHAPES`` (the simulator
+    path's six first-layer MACs and the reference's largest case): each held
+    against
+    plain under the ADC contract, then timed L2-cold (``cold_ms``: the
+    path's caller has just written a larger basis, so it finds x cold),
+    warm from back-to-back events (``cuda_ms``) and warm from a CUDA-graph
+    replay, beside its bound and plain version; one row per shape.  No
+    library call computes the function (the ADC rounds each array's partial
+    inside the contraction), so library_ms is None."""
     import torch
 
     from repro_torch.core.cim import CIMConfig
@@ -1393,19 +1479,24 @@ def phase_times_b4(dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(17)
     rows = []
-    print("B4 at the acim study's shapes (held against plain, ADC contract): "
-          "shape (B, R_total, A x R, C, adc) | kernel ms | plain ms | "
-          "graph ms | bound ms (by) | "
-          "max |err| / LSB | library_ms: none")
-    for name, b, r, c, arr, adc in mc.PATH_SHAPES:
+    print("B4 at the simulator path's shapes (held against plain, ADC "
+          "contract): shape (B, R_total, A x R, C, adc) | cold ms | warm "
+          "event ms | warm graph ms | cold x.sum() ms | plain ms | bound ms "
+          "(by) | bound / cold | max |err| / LSB | library_ms: none")
+    for name, b, r, c, arr, adc in shapes or mc.PATH_SHAPES:
         ops = mc.path_operands(dev, gen, b, r, c, arr)
         ir = CIMConfig(array_rows=arr, ir_gamma=0.06).ir_scale()
         st = mc.check_path(dev, ops, arr, ir, adc)
         x, w, load, fs = ops
+
         def run():
             return cim_mac_arrays(*ops, array_rows=arr, ir_scale=ir,
                                   adc_bits=adc)
 
+        cold = cold_ms(run)
+        # one cold read of x by a PyTorch reduction: the rate this card
+        # reaches for these bytes (not the same function: no library_ms)
+        read = cold_ms(x.sum)
         ms = cuda_ms(run, reps=20)
         g_ms = graph_ms(run, 20)
         # the plain version on the operands as the reference tiles them
@@ -1419,23 +1510,43 @@ def phase_times_b4(dev) -> dict:
         b_ms, by = bound(nbytes, 2 * b * r * c)
         rows.append({"kernel": "cim_mac_fwd", "shape": name, "B": b,
                      "R_total": r, "A": n_arr, "R": arr, "C": c,
-                     "adc_bits": adc, "ms": ms, "graph_ms": g_ms,
+                     "adc_bits": adc, "ms": cold, "cold_ms": cold,
+                     "event_ms": ms, "graph_ms": g_ms, "read_ms": read,
                      "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": by, "library_ms": None,
                      **st})
         print(f"  {name} ({b}, {r}, {n_arr} x {arr}, {c}, {adc}) | "
-              f"{ms:.4f} | {plain:.4f} | {g_ms:.4f} | {b_ms:.4f} ({by}) | "
+              f"{cold:.4f} | {ms:.4f} | {g_ms:.4f} | {read:.4f} | "
+              f"{plain:.4f} | "
+              f"{b_ms:.4f} ({by}) | {b_ms / cold:.3f} | "
               f"{st['max_err_over_allow']:.3f}")
         del ops, x, w, load, fs
         torch.cuda.empty_cache()
+    return rows
+
+
+def b4_totals(rows, mac) -> dict:
+    """B4's kernel-line numbers: sums over the shapes that the MAC path
+    (``mac``, phase 5b) launches, each of which must be a timed shape of
+    ``rows``; the shapes it does not launch (the reference's C = 64 case)
+    stand beside the sums, by name."""
+    timed = {(r["shape"], r["B"], r["R_total"], r["C"], r["R"],
+              r["adc_bits"]) for r in rows}
+    for shape in mac["shapes"].values():
+        require(shape in timed, f"B4: the MAC path's shape {shape} is not "
+                "among the timed cardcheck.PATH_SHAPES")
+    on = [r for r in rows if mac["launches_by_shape"].get(r["shape"], 0)]
     by_time = {"bytes": 0.0, "operations": 0.0}
-    for r in rows:
+    for r in on:
         by_time[r["bound_by"]] += r["bound_ms"]
-    return {"ms": sum(r["ms"] for r in rows),
-            "graph_ms": sum(r["graph_ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows),
+    return {"ms": sum(r["cold_ms"] for r in on),
+            "event_ms": sum(r["event_ms"] for r in on),
+            "graph_ms": sum(r["graph_ms"] for r in on),
+            "plain_ms": sum(r["plain_ms"] for r in on),
+            "bound_ms": sum(r["bound_ms"] for r in on),
             "bound_by": max(by_time, key=by_time.get), "library_ms": None,
+            "off_path_cold_ms": {r["shape"]: r["cold_ms"] for r in rows
+                                 if r not in on},
             "shapes": rows}
 
 
@@ -1448,6 +1559,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    sys.path.insert(0, str(ROOT / "src"))
     try:
         import repro_torch  # noqa: F401
     except ImportError as e:
@@ -1500,7 +1612,8 @@ def main() -> int:
     totals["flash_attention"], ffn_full = timed("7", phase_times_lm, dev,
                                                 report)
     print(f"[phases 3-7: {time.perf_counter() - t_all:.1f} s]")
-    totals["cim_mac_fwd"] = report["times_b4"]
+    totals["cim_mac_fwd"] = b4_totals(report["times_b4"],
+                                      report["acim"]["mac"])
     errs["flash_attention"] = max(
         [errs["flash_attention"]]
         + [r["max_abs_err"] for r in totals["flash_attention"]["shapes"]])
@@ -1537,12 +1650,21 @@ def main() -> int:
                 "library_ms", "bound_ms", "bound_by", "max_abs_err")}
                 for r in t["shapes"]]
         if k == "cim_mac_fwd":
-            row["shapes"] = [{key: r[key] for key in (
-                "shape", "B", "R_total", "A", "R", "C", "adc_bits", "ms",
-                "graph_ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err", "max_err_over_allow", "tight")}
+            # ms: L2-cold, summed over the six shapes of the MAC path (the
+            # reference's C = 64 case, never launched there, stands in
+            # off_path_cold_ms); event and graph times are warm (operands
+            # left in L2 by the previous launch)
+            mac = report["acim"]["mac"]
+            row["shapes"] = [{**{key: r[key] for key in (
+                "shape", "B", "R_total", "A", "R", "C", "adc_bits",
+                "cold_ms", "event_ms", "graph_ms", "plain_ms", "bound_ms",
+                "bound_by", "max_abs_err", "max_err_over_allow", "tight")},
+                "launches": mac["launches_by_shape"].get(r["shape"], 0)}
                 for r in t["shapes"]]
-            row["graph_ms"] = t["graph_ms"]
+            row["warm_event_ms"] = t["event_ms"]
+            row["warm_graph_ms"] = t["graph_ms"]
+            row["off_path_cold_ms"] = t["off_path_cold_ms"]
+            row["mac_path_device_ms"] = mac["b4_device_ms"]
         if k == "kan_pipeline_layer":
             row["ffn_full_width"] = [{key: r[key] for key in (
                 "layer", "rows", "feature_splits", "ms", "plain_ms",

@@ -18,14 +18,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...core.cim import CIMConfig
 from .. import cuda
 from .kernel import cim_mac_arrays
 from .ops import array_stats, cim_mac
 from .ref import cim_mac_plain, tile_rows
 
-__all__ = ["CASES", "PROPERTY_CASES", "PATH_SHAPES", "adc_close",
-           "assert_adc_close", "zero_ir_atol", "mac_operands", "check_case",
-           "check_tiled", "check_zero_ir", "path_operands", "check_path"]
+__all__ = ["CASES", "PROPERTY_CASES", "PATH_SHAPES", "RAGGED_CASES",
+           "ROW_CASES", "SPLIT_CASES", "adc_close", "assert_adc_close",
+           "zero_ir_atol", "mac_operands", "check_case", "check_tiled",
+           "check_zero_ir", "path_operands", "check_path", "check_rows"]
 
 X_MAX = 255.0
 # (B, R, C, array rows): the reference's CASES, (130, 136, 1, 128) being
@@ -38,11 +40,29 @@ PROPERTY_CASES = ((1, 1, 1, 128, 8), (7, 400, 48, 256, 6),
                   (32, 129, 33, 128, 12), (5, 257, 9, 256, 8),
                   (300, 77, 2, 128, 12), (3, 399, 17, 128, 6))
 # the shapes the acim study gives the kernel: (name, B, R, C, array rows,
-# adc bits), KAN2 and KAN1 layer 1 at Fig. 13's arrays, 65536 rows, and
-# the largest reference case
+# adc bits): the simulator path's six layer-1 MACs (17 features x G+3
+# bases, one column) at 65536 rows, KAN2 and KAN1 at Fig. 13's arrays and
+# Fig. 12's G = 7 / 15 / 30 / 60 sweep, and the largest reference case
 PATH_SHAPES = (("kan2_l1_65536", 65536, 17 * 71, 1, 1024, 10),
                ("kan1_l1_65536", 65536, 17 * 8, 1, 128, 8),
+               ("g7_l1_65536", 65536, 17 * 10, 1, 128, 10),
+               ("g15_l1_65536", 65536, 17 * 18, 1, 256, 10),
+               ("g30_l1_65536", 65536, 17 * 33, 1, 512, 10),
+               ("g60_l1_65536", 65536, 17 * 63, 1, 1024, 10),
                ("ref_32x2048x64", 32, 2048, 64, 1024, 10))
+# stream tiles that end ragged, one of them 1 row of 1207 floats (4828
+# bytes, not a multiple of 16): (name, B, R, C, array rows, adc bits)
+RAGGED_CASES = (("kan2_l1_65537", 65537, 17 * 71, 1, 1024, 10),
+                ("g7_l1_1001", 1001, 17 * 10, 1, 128, 10))
+# rows whose bits must not depend on B: the stream path at KAN2 and KAN1
+# layer 1, the wide path at the reference's C = 64
+ROW_CASES = (("kan2_l1_65536", 65536, 17 * 71, 1, 1024, 10),
+             ("kan1_l1_65536", 65536, 17 * 8, 1, 128, 8),
+             ("ref_4096x2048x64", 4096, 2048, 64, 1024, 10))
+# the wide path's R-chunks added in order before the ADC: (B, R, C, array
+# rows, adc bits), a C = 1 row too long to stage among them
+SPLIT_CASES = ((33, 2048, 64, 1024, 10), (64, 7000, 1, 1024, 10),
+               (40, 1500, 5, 512, 8))
 
 
 def _np(a) -> np.ndarray:
@@ -177,3 +197,23 @@ def check_path(dev, operands, rows, ir, adc) -> dict:
     out = _launch(x, w, load, fs, rows, ir, adc)
     want = cim_mac_plain(*tile_rows(x, w, rows), load, fs, ir, adc)
     return assert_adc_close(out, want, w, rows, adc)
+
+
+def check_rows(dev, gen, b, r, c, rows, adc, n: int = 32) -> dict:
+    """B4 on (b, r) operands from ``path_operands`` against plain, then on
+    n-row slices of x (the first rows, and rows from the middle, whose start
+    is not 16-byte aligned at an odd r) with the same col_load and fs: each
+    slice's output must equal the full call's rows bit for bit."""
+    x, w, load, fs = ops = path_operands(dev, gen, b, r, c, rows)
+    ir = CIMConfig(array_rows=rows, ir_gamma=0.06).ir_scale()
+    out = _launch(x, w, load, fs, rows, ir, adc)
+    st = assert_adc_close(out, cim_mac_plain(*tile_rows(x, w, rows), load, fs,
+                                             ir, adc), w, rows, adc)
+    for start in (0, b // 2 + 1):
+        part = _launch(x[start:start + n], w, load, fs, rows, ir, adc)
+        if not torch.equal(part, out[start:start + n]):
+            raise AssertionError(
+                f"B4 rows {start}..{start + n} differ between B = {n} and "
+                f"B = {b}")
+    del ops
+    return st

@@ -75,9 +75,9 @@ _SIGNATURES = {
     # q k v qpos kpos out ws_o ws_ml | B S T Hkv G D bf16 kind window
     # splits | softcap scale | device stream
     "flash_attention_fwd": [_P] * 8 + [_I] * 10 + [_F] * 2 + [_I, _P],
-    # x w load fs out | B Rt R C | ir_scale comp_scale | adc_bits | device
-    # stream
-    "cim_mac_fwd": [_P] * 5 + [_I] * 4 + [_F] * 2 + [_I, _I, _P],
+    # x w load fs out ws | B Rt R C tile_rows chunks | ir_scale comp_scale
+    # | adc_bits | device stream
+    "cim_mac_fwd": [_P] * 6 + [_I] * 6 + [_F] * 2 + [_I, _I, _P],
 }
 
 

@@ -11,8 +11,13 @@
     LSB per array, >= 95% of elements tight); the zero-IR, 24-bit case is
     the plain matmul within 1e-3 relative plus half an LSB per array;
   * the wrapper refuses malformed operands, and a CPU call launches no
-    kernel.
+    kernel;
+  * the kernel's shape-only plan (``mac_plan``): stream tiles of a multiple
+    of 4 rows whose ring fits an H100 block's shared memory, the wide
+    path's R-chunks, nothing taken from the batch.
 """
+
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -27,9 +32,17 @@ from repro.kernels.cim_mac.ref import cim_mac_ref as j_cim_mac_ref
 from repro_torch.kernels import cuda
 from repro_torch.kernels.cim_mac import cim_mac, cim_mac_arrays, cim_mac_plain
 from repro_torch.kernels.cim_mac.cardcheck import (
+    PATH_SHAPES,
     adc_close,
     assert_adc_close,
     zero_ir_atol,
+)
+from repro_torch.kernels.cim_mac.kernel import (
+    SMEM_BYTES,
+    STAGES,
+    MacPlan,
+    mac_plan,
+    stream_smem_bytes,
 )
 from repro_torch.kernels.cim_mac.ops import array_stats
 from repro_torch.kernels.cim_mac.ref import tile_rows
@@ -151,3 +164,41 @@ def test_wrapper_refuses_bad_operands_and_launches_nothing_on_cpu():
     assert cuda.launch_counts() == before
     assert torch.equal(out, cim_mac_plain(*tile_rows(x, w, 128), load,
                                           load + 1.0, 0.0, 8))
+
+
+@pytest.mark.parametrize("r_total,rows", [(b[2], b[4]) for b in PATH_SHAPES
+                                          if b[3] == 1] + [(1, 128), (77, 128)])
+def test_stream_plan_tiles_are_16_byte_runs_within_shared_memory(r_total,
+                                                                  rows):
+    plan = mac_plan(r_total, 1, rows)
+    assert plan.tile_rows > 0 and plan.tile_rows % 4 == 0
+    assert plan.tile_rows * r_total * 4 % 16 == 0
+    n_arrays = -(-r_total // rows)
+    assert stream_smem_bytes(r_total, n_arrays, plan.tile_rows) <= SMEM_BYTES
+
+
+def test_stream_plan_fits_kan2_where_a_64_row_tile_would_not():
+    """KAN2's layer-1 row is 1207 floats: a 64-row tile (309 KB) is over
+    the 227 KB a block may have, so the plan takes fewer rows and keeps
+    a ring of STAGES stages."""
+    assert 64 * 1207 * 4 > SMEM_BYTES
+    plan = mac_plan(1207, 1, 1024)
+    assert plan.tile_rows == 4 and STAGES >= 2
+    assert stream_smem_bytes(1207, 2, 4) <= SMEM_BYTES
+
+
+@pytest.mark.parametrize("r_total,cols,rows,chunks", [
+    (2048, 64, 1024, 8), (300, 20, 128, 1), (400, 48, 256, 2),
+    (7000, 1, 1024, 8)])
+def test_wide_plan_splits_each_array_into_128_row_chunks(r_total, cols, rows,
+                                                         chunks):
+    """C > 1, and a C = 1 row too long for two stages of 4 rows, take the
+    wide path with ceil(R / 128) chunks per array."""
+    assert mac_plan(r_total, cols, rows) == MacPlan(0, chunks)
+
+
+def test_plan_is_a_function_of_the_widths_alone():
+    """No batch size enters the plan, so a row's reduction order, and its
+    bits, are the same in any batch."""
+    assert list(inspect.signature(mac_plan).parameters) == [
+        "r_total", "cols", "array_rows"]

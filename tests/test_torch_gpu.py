@@ -15,6 +15,9 @@ a noisy layer; the launch counters once per call of two kernels; B4
 through ``repro_torch.kernels.cim_mac.cardcheck`` (the reference's ADC
 contract: within one ADC LSB per array, >= 95% tight; the zero-IR 24-bit
 case the plain matmul within 1e-3 relative plus half an LSB per array);
+at the simulator path's six shapes and the reference's largest, on
+ragged stream tiles, with a row's bits equal at 32 rows and the full
+batch, and on the wide path's R-chunks;
 the slice's fused path against "ref"; the acim backend's quiet run
 against "fused" bit for bit and its noise under one generator seed; and
 one layer of the full-width qwen2.5-14b KAN-FFN model served on the card.  This file
@@ -275,6 +278,40 @@ def test_b4_kernel_matches_plain_at_path_shapes(dev, name, b, r, c, rows,
                   .ir_scale(), adc)
     del ops
     torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("name,b,r,c,rows,adc", mc.RAGGED_CASES)
+def test_b4_kernel_matches_plain_on_ragged_stream_tiles(dev, name, b, r, c,
+                                                        rows, adc):
+    from repro_torch.core.cim import CIMConfig
+    from repro_torch.kernels.cim_mac.kernel import mac_plan
+
+    plan = mac_plan(r, c, rows)
+    assert plan.tile_rows > 0 and b % plan.tile_rows != 0
+    gen = torch.Generator(device=dev).manual_seed(25)
+    ops = mc.path_operands(dev, gen, b, r, c, rows)
+    mc.check_path(dev, ops, rows, CIMConfig(array_rows=rows, ir_gamma=0.06)
+                  .ir_scale(), adc)
+    del ops
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("name,b,r,c,rows,adc", mc.ROW_CASES)
+def test_b4_rows_bit_identical_at_32_rows_and_full_batch(dev, name, b, r, c,
+                                                         rows, adc):
+    mc.check_rows(dev, torch.Generator(device=dev).manual_seed(26), b, r, c,
+                  rows, adc)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("b,r,c,rows,adc", mc.SPLIT_CASES)
+def test_b4_wide_path_adds_r_chunks_in_order(dev, b, r, c, rows, adc):
+    from repro_torch.kernels.cim_mac.kernel import mac_plan
+
+    plan = mac_plan(r, c, rows)
+    assert plan.tile_rows == 0 and plan.chunks > 1
+    mc.check_case(dev, torch.Generator(device=dev).manual_seed(27), b, r, c,
+                  rows, adc=adc)
 
 
 def test_b4_wrapper_raises_instead_of_falling_back(dev):
