@@ -18,13 +18,15 @@ Phases (any failure exits non-zero):
      combination at the KAN1 / KAN2 / FFN layer geometries (packed and
      unpacked B1 runs bit-identical), B3 on ragged shapes, both at every
      spline order 1..5 the kernel library is built for, and B1 at the
-     full-width qwen2.5-14b KAN-FFN halves, where the feature axis is
+     full-width qwen2.5-14b KAN-FFN halves (G=8, and the speculative
+     drafter's G=4), where the feature axis is
      split: packed == unpacked there, a row's bits equal at 8 and 1024
      rows, and a noisy layer's padded columns y = noise; B2 (flash
      attention, ``repro_torch.kernels.attention.cardcheck``) in f32 and bf16
      x kinds x GQA groups x head dims at odd lengths with fully masked rows,
      and its bf16 tensor-core instance with the KV axis split (decode,
-     verify, a masked split, rows masked in every split); B4 (the
+     verify at S = 3 and 5, a masked split, rows masked in every split);
+     B4 (the
      ACIM MAC, ``repro_torch.kernels.cim_mac.cardcheck``) on the reference's
      cases and ragged shapes under the reference's ADC contract, its
      zero-IR 24-bit case against the plain matmul, the wide path's
@@ -61,13 +63,26 @@ Phases (any failure exits non-zero):
      "ref" KAN and "ref" attention backends; timed: TTFT, prefill and
      decode ms, tokens/s, peak memory, and (a profiled run of each mode)
      the device time by kernel and the host idle share.
+     With the obs registry on and the scheduler tracing, the contiguous
+     run serves the same streams, leaves the documented series and one
+     span tree per request.  The profiled contiguous run has the spans'
+     ``torch.profiler`` ranges on: its host time split by span (count,
+     host ms, device ms of the kernels inside), the wall outside them,
+     launches per decode step and the device-to-host syncs.
      Then ``kan_backend="acim"``: the quiet config serves the fused
      streams token for token, the default config serves one stream in two
      runs (B1 with its noise operand on every layer of every call), timed
-     beside the fused run;
-  7. CUDA-event times of B2 at the three shapes the serving path gives it
-     and at decode over 4096 keys (with its KV split count), of B1 at the
-     full-width FFN halves (with their feature split count), beside bounds,
+     beside the fused run.  Last, speculative decoding (paged, the default
+     drafter refit to grid 4 from the float weights) at k = 2 and 4: the
+     verify-vs-decode logit difference measured on the served model, the
+     streams against the paged k = 0 streams (parting only at a k = 0
+     top-2 margin within twice that difference, counted), every token
+     under the teacher-forced gate, rounds, accept rate, tokens/s, draft
+     and verify times, B1 / B2 launches per round, peak memory;
+  7. CUDA-event times of B2 at the three shapes the serving path gives it,
+     at decode over 4096 keys and at the k = 4 verify pass (with its KV
+     split count), of B1 at the full-width FFN halves of the target and of
+     the drafter (with their feature split count), beside bounds,
      plain versions and ``scaled_dot_product_attention`` from the same run;
      and of B4 at the simulator path's six shapes and the reference's
      largest case, L2-cold (``cold_ms``) and warm (events, graph replay),
@@ -117,6 +132,9 @@ SHARED = (511, 257)
 # B2 timed beside the path shapes: decode over a 4096-key cache (a longer
 # context than the cell's max_len; the split count stays 8)
 DECODE_LONG = (("decode_t4096", 4, 1, 4096, "causal"),)
+# and at the speculative verify pass of k = 4 (4 slots x 5 rows over the
+# gathered paged view of a full 1024-token cache)
+VERIFY_SHAPES = (("verify", 4, 5, 1024, "causal"),)
 # Teacher-forced gate on the bf16 logits: each served token's logit under
 # the "ref" KAN and "ref" attention backends must lie within LOGIT_TOL of
 # the "ref" maximum.  The logits come out of a bf16 matmul, so near their
@@ -311,6 +329,16 @@ def phase_kernels(dev, report) -> dict:
     print(f"B1 vs plain at the full-width KAN-FFN halves (5120 -> 1280 -> "
           f"5120, G=8, 8 and 1024 rows): max |err| {ffn_err:.3e}, excused "
           f"codes {ffn_excused} (tie window {cc.FFN_FULL_TIE_EPS:.2e})")
+    draft_err, draft_excused = 0.0, 0
+    for grid, f, o, flags, rows in cc.B1_FFN_DRAFT:
+        st = cc.check_b1(dev, gen, grid, f, o, flags, rows,
+                         eps=cc.FFN_FULL_TIE_EPS)
+        draft_err = max(draft_err, st["max_abs_err"])
+        draft_excused += st["excused"]
+    ffn_err = max(ffn_err, draft_err)
+    print(f"B1 vs plain at the speculative drafter's full-width halves (G=4, "
+          f"K=3: 7 basis functions; 8 and 32 rows): max |err| "
+          f"{draft_err:.3e}, excused codes {draft_excused}")
     from repro_torch.kernels.kan_spline.pipeline import feature_split_plan
 
     for grid, f, o, flags, rows in cc.B1_FFN_PACKED:
@@ -348,7 +376,7 @@ def phase_kernels(dev, report) -> dict:
           f"GQA {ac.GQA} x D {ac.HEAD_DIMS} at S=33, T=47, plus the serving "
           f"geometry, softcap and D=32) and {len(split_cases)} with the KV "
           f"axis split ({[c['kv_splits'] for c in split_cases]} splits: "
-          f"decode T=1023/4096, verify S=3, a masked split, local, full "
+          f"decode T=1023/4096, verify S=3/5, a masked split, local, full "
           f"D=64), fully masked rows exact 0; max |err| "
           f"{b2_err:.3e}, worst err / tol {b2_ratio:.3f} (f32 tol "
           f"{ac.F32_TOL} + rel, bf16 + one bf16 ulp)")
@@ -390,6 +418,8 @@ def phase_kernels(dev, report) -> dict:
                                "b1_excused_codes": excused,
                                "b1_ffn_full_max_abs_err": ffn_err,
                                "b1_ffn_full_excused_codes": ffn_excused,
+                               "b1_ffn_draft_max_abs_err": draft_err,
+                               "b1_ffn_draft_excused_codes": draft_excused,
                                "b3_max_abs_err": b3_err,
                                "b1_packed_split_cases": len(cc.B1_FFN_PACKED),
                                "b1_rows_independent": rows_eq,
@@ -1051,30 +1081,43 @@ def _timed(eng, name: str, sink: list) -> None:
 
 
 def serve_once(params, cfg, prompts, dev, mode: str, profile: bool = False,
-               kan_backend: str | None = None):
+               kan_backend: str | None = None, spec_decode: int = 0,
+               sched_kw: dict | None = None, hook=None):
     """One engine serves the requests through the scheduler; returns its
-    streams, counters and times."""
+    streams, counters and times.  ``spec_decode``: k of a speculative
+    engine (paged; ``params`` then the FLOAT tree the drafter refits);
+    ``sched_kw``: Scheduler options (``trace``); ``hook(eng)`` runs after
+    the warm-up (e.g. to wrap the engine's calls)."""
+    import gc
+
     import torch
 
     from repro_torch import runtime
     from repro_torch.kernels import cuda
     from repro_torch.serve import Request, Scheduler, ServeEngine
 
+    gc.collect()        # engines of earlier runs (their timers form cycles)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
     kw = ({} if mode == "contiguous" else
           {"kv_block_size": SERVE_BLOCK, "prefill_chunk": SERVE_CHUNK})
     eng = ServeEngine(params, cfg, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
                       kan_deploy=True, kan_backend=kan_backend, device=dev,
-                      **kw)
+                      spec_decode=spec_decode, **kw)
     # warm-up (library load, plan builds) outside the measured run
     eng.run([Request(rid=-1, prompt=[5, 6, 7, 8, 9, 10, 11, 12],
                      max_new_tokens=2)])
+    if hook is not None:
+        hook(eng)
+    engine_bytes = torch.cuda.memory_allocated() - before
     prefill_ms, decode_ms = [], []
     _timed(eng, "_prefill_step", prefill_ms)
-    _timed(eng, "decode_active", decode_ms)
+    _timed(eng, "verify_active" if spec_decode else "decode_active",
+           decode_ms)
     base = eng.compile_stats()
     reqs = [Request(rid=i, prompt=list(p), max_new_tokens=SERVE_NEW)
             for i, p in enumerate(prompts)]
-    sched = Scheduler(eng)
+    sched = Scheduler(eng, **(sched_kw or {}))
     for r in reqs:
         sched.submit(r)
     torch.cuda.synchronize()
@@ -1082,7 +1125,7 @@ def serve_once(params, cfg, prompts, dev, mode: str, profile: bool = False,
     runtime.reset_dispatch_counts()
     runtime.reset_attn_dispatch_counts()
     cuda.reset_launch_counts()
-    prof = None
+    prof, prof_wall = None, None
     t0 = time.perf_counter()
     if profile:
         from torch.profiler import ProfilerActivity
@@ -1090,22 +1133,31 @@ def serve_once(params, cfg, prompts, dev, mode: str, profile: bool = False,
 
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
+            t_in = time.perf_counter()
             done = sched.run_until_idle()
             torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t_in
     else:
         done = sched.run_until_idle()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     st = eng.compile_stats()
+    calls = {"prefill_calls": st["prefill_calls"] - base["prefill_calls"],
+             "decode_calls": st["decode_traces"] - base["decode_traces"],
+             "verify_calls": st["verify_calls"] - base["verify_calls"]}
+    if spec_decode:
+        d, d0 = st["spec"]["draft"], base["spec"]["draft"]
+        calls["draft_prefill_calls"] = d["prefill_calls"] - d0["prefill_calls"]
+        calls["draft_decode_calls"] = d["decode_traces"] - d0["decode_traces"]
     return {
         "engine": eng, "streams": {r.rid: list(r.output) for r in done},
         "status": {r.rid: r.status for r in done},
         "launches": cuda.launch_counts(), "kan": runtime.dispatch_counts(),
-        "attn": runtime.attn_dispatch_counts(),
-        "prefill_calls": st["prefill_calls"] - base["prefill_calls"],
-        "decode_calls": st["decode_traces"] - base["decode_traces"],
-        "kv": st["kv"], "sched": sched.stats(), "wall_s": wall,
+        "attn": runtime.attn_dispatch_counts(), **calls,
+        "kv": st["kv"], "sched": sched.stats(), "tracer": sched.tracer,
+        "wall_s": wall, "prof_wall_s": prof_wall,
         "peak_bytes": torch.cuda.max_memory_allocated(),
+        "engine_bytes": engine_bytes,
         "prefill_ms": prefill_ms, "decode_ms": decode_ms,
         "ttft_s": {r.rid: r.ttft_s for r in done}, "prof": prof,
     }
@@ -1113,9 +1165,12 @@ def serve_once(params, cfg, prompts, dev, mode: str, profile: bool = False,
 
 def check_counts(run: dict, mode: str, layers: int, backend: str = "fused",
                  noise: bool = False) -> None:
-    """B2 once and B1 twice per layer of every prefill / decode call (with
-    ``noise``: every B1 launch carried the psum-noise operand)."""
-    calls = run["prefill_calls"] + run["decode_calls"]
+    """B2 once and B1 twice per layer of every prefill / decode / verify
+    call of the engine and of its drafter (with ``noise``: every B1 launch
+    carried the psum-noise operand)."""
+    calls = (run["prefill_calls"] + run["decode_calls"] + run["verify_calls"]
+             + run.get("draft_prefill_calls", 0)
+             + run.get("draft_decode_calls", 0))
     want = {"flash_attention": calls * layers,
             "kan_pipeline_layer": 2 * calls * layers}
     if noise:
@@ -1176,7 +1231,7 @@ def device_breakdown(prof, wall_ms: float) -> dict:
     kernels = []
     for ev in prof.key_averages():
         if (ev.device_type != torch.autograd.DeviceType.CUDA
-                or ev.key.startswith("kan_spline.")
+                or ev.key.startswith(("kan_spline.", "serve."))
                 or getattr(ev, "is_user_annotation", False)):
             continue
         us = getattr(ev, "self_device_time_total", None)
@@ -1203,6 +1258,154 @@ def device_breakdown(prof, wall_ms: float) -> dict:
             "by_class_ms": classes, "top": kernels[:8]}
 
 
+# runtime calls that launch a kernel, and the host's waits on the device
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
+SPAN_PREFIXES = ("serve.", "kan_spline.")
+
+
+def host_split(prof, wall_ms: float, decode_steps: int) -> dict:
+    """The host time of one profiled serving run split by the reference's
+    spans (``obs.profile_scope`` ranges, on while the run was profiled).
+
+    Per span name: its count, host ms (the CPU extent of its ranges) and
+    the device ms of the kernels launched inside them.  A kernel is owned
+    by the range around the PyTorch op that launched it (the profiler's
+    correlation); a kernel with no correlation was launched by the port's
+    own kernel library (``ctypes``, its CUDA runtime linked statically, so
+    the profiler records the kernel but not its launch call) and is owned
+    by the range of the kernel before it on the stream, which runs the
+    launches in their order.  For ``kan_spline.*`` those kernels (B1's)
+    are counted by name: only the executor's range launches them.  Also:
+    the wall outside every ``serve.*`` range (the scheduler and the Python
+    between calls); kernels and launch calls per decode step; the host's
+    waits on the device by the op that waited; the top host ops by self
+    CPU time.  Times in ms."""
+    import bisect
+    import collections
+
+    from torch.autograd import DeviceType
+
+    evs = prof.profiler.kineto_results.events()
+    cpu = [e for e in evs if e.device_type() == DeviceType.CPU]
+    ops = {e.correlation_id(): e for e in cpu
+           if e.linked_correlation_id() == 0 and e.correlation_id()}
+
+    def ranges(prefix):
+        rs = sorted((e.start_ns(), e.end_ns(), e.name()) for e in cpu
+                    if e.name().startswith(prefix))
+        return rs, [r[0] for r in rs]
+
+    serve_r, serve_t0 = ranges("serve.")
+    kan_r, kan_t0 = ranges("kan_spline.")
+
+    def inside(rs, t0s, t):
+        i = bisect.bisect_right(t0s, t) - 1
+        return rs[i] if i >= 0 and rs[i][0] <= t <= rs[i][1] else None
+
+    spans = {}
+    for rs in (serve_r, kan_r):
+        for a, b, name in rs:
+            d = spans.setdefault(name, {"count": 0, "host_ms": 0.0,
+                                        "device_ms": 0.0})
+            d["count"] += 1
+            d["host_ms"] += (b - a) / 1e6
+    kan_names = sorted({r[2] for r in kan_r})
+    dev = sorted((e for e in evs if e.device_type() == DeviceType.CUDA
+                  and not e.is_user_annotation()
+                  and not e.name().startswith(SPAN_PREFIXES)),
+                 key=lambda e: e.start_ns())
+    outside_dev_ms = lib_kernels = 0.0
+    cur = None
+    decode_kernels = decode_lib_kernels = 0
+    for e in dev:
+        ms = (e.end_ns() - e.start_ns()) / 1e6
+        op = ops.get(e.linked_correlation_id())
+        lib = op is None
+        if not lib:
+            cur = inside(serve_r, serve_t0, op.start_ns())
+            k = inside(kan_r, kan_t0, op.start_ns())
+            if k is not None:
+                spans[k[2]]["device_ms"] += ms
+        elif "kan_layer" in e.name() and len(kan_names) == 1:
+            spans[kan_names[0]]["device_ms"] += ms
+        lib_kernels += lib
+        if cur is None:
+            outside_dev_ms += ms
+            continue
+        spans[cur[2]]["device_ms"] += ms
+        if cur[2] == "serve.decode_step" and "Memcpy" not in e.name() \
+                and "Memset" not in e.name():
+            decode_kernels += 1
+            decode_lib_kernels += lib
+    launch_calls = sum(1 for e in cpu if e.name() in LAUNCH_CALLS
+                       and inside(serve_r, serve_t0, e.start_ns()) is not None
+                       and inside(serve_r, serve_t0, e.start_ns())[2]
+                       == "serve.decode_step")
+    waits = collections.defaultdict(lambda: [0, 0.0])
+    for e in cpu:
+        if e.name() in SYNC_CALLS:
+            op = ops.get(e.linked_correlation_id())
+            w = waits[f"{op.name() if op is not None else '-'} ({e.name()})"]
+            w[0] += 1
+            w[1] += (e.end_ns() - e.start_ns()) / 1e6
+    rows = [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CPU
+            and not ev.key.startswith(SPAN_PREFIXES)]
+    host_ops = sorted(((ev.self_cpu_time_total / 1e3, ev.count, ev.key)
+                       for ev in rows), reverse=True)[:12]
+    # the wall by what the host did: self CPU of the runtime's launch
+    # calls, of its syncs and copies, of every other op (PyTorch's
+    # dispatch, allocation, host math); the rest is Python outside any op
+    # (the spans' own self time) and the profiler's per-op cost
+    by_kind = {"launch_calls": 0.0, "syncs_and_copies": 0.0, "ops": 0.0}
+    for ev in rows:
+        kind = ("launch_calls" if ev.key in LAUNCH_CALLS else
+                "syncs_and_copies" if ev.key in SYNC_CALLS else "ops")
+        by_kind[kind] += ev.self_cpu_time_total / 1e3
+    by_kind["python_and_profiler"] = wall_ms - sum(by_kind.values())
+    steps = max(decode_steps, 1)
+    top_serve_ms = sum((b - a) / 1e6 for a, b, _ in serve_r)
+    return {"spans": spans, "wall_ms": wall_ms,
+            "outside_spans_ms": wall_ms - top_serve_ms,
+            "outside_spans_device_ms": outside_dev_ms,
+            "library_kernels": int(lib_kernels),
+            "kernels_per_decode_step": decode_kernels / steps,
+            "library_kernels_per_decode_step": decode_lib_kernels / steps,
+            "launch_calls_per_decode_step": (launch_calls + decode_lib_kernels)
+            / steps,
+            "waits": {k: {"count": n, "cpu_ms": ms}
+                      for k, (n, ms) in sorted(waits.items(),
+                                               key=lambda kv: -kv[1][1])},
+            "host_ms_by_kind": by_kind, "top_host_ops": host_ops}
+
+
+def print_host_split(hs: dict, label: str) -> None:
+    print(f"  host split of the {label} run (profiler ranges of the "
+          f"reference's spans; wall {hs['wall_ms']:.2f} ms inside the "
+          f"profiler): span | count | host ms | device ms of its kernels")
+    for name, d in sorted(hs["spans"].items(),
+                          key=lambda kv: -kv[1]["host_ms"]):
+        print(f"    {name} | {d['count']} | {d['host_ms']:.2f} | "
+              f"{d['device_ms']:.2f}")
+    print(f"    outside every serve.* span (scheduler, Python between calls):"
+          f" {hs['outside_spans_ms']:.2f} ms host, "
+          f"{hs['outside_spans_device_ms']:.2f} ms device; per decode step "
+          f"{hs['kernels_per_decode_step']:.1f} kernels "
+          f"({hs['library_kernels_per_decode_step']:.1f} of the kernel "
+          f"library), {hs['launch_calls_per_decode_step']:.1f} launch calls")
+    print("    host waits on the device and copies (call by the op that "
+          "made it): "
+          + "; ".join(f"{k} x{v['count']} {v['cpu_ms']:.2f} ms"
+                      for k, v in hs["waits"].items()))
+    print("    the wall by what the host did (ms): " + "; ".join(
+        f"{k} {v:.2f}" for k, v in hs["host_ms_by_kind"].items()))
+    print("    top host ops by self CPU ms: " + "; ".join(
+        f"{name} x{n} {ms:.2f}" for ms, n, name in hs["top_host_ops"]))
+
+
 def phase_serve(dev, report) -> dict:
     import numpy as np
     import torch
@@ -1218,21 +1421,26 @@ def phase_serve(dev, report) -> dict:
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     t0 = time.perf_counter()
-    # quantized and deployed once; both engines take the same tree
+    # quantized and deployed once; the plain engines take this tree, the
+    # speculative ones the float tree (their drafter refits from it)
     qparams = quantize_kan_ffn_params_tree(params, cfg)
-    del params
     torch.cuda.synchronize()
     t_quant = time.perf_counter() - t0
     torch.cuda.empty_cache()
     weights = torch.cuda.memory_allocated()
+    float_ffn = sum(t.numel() * t.element_size() for g in params["decoder"]
+                    for k, blk in g.items() if k.endswith("_ffn")
+                    for t in blk.values())
     print(f"serving slice: {cfg.name}, {cfg.num_layers} of 48 layers, "
           f"d_model {cfg.d_model}, heads {cfg.phys_heads}/{cfg.phys_kv_heads}"
           f" (physical q/kv), vocab {cfg.vocab_size}, bf16; init "
           f"{t_init:.2f} s, quantize + deploy {t_quant:.2f} s, weights on "
-          f"the card {weights} B")
+          f"the card {weights} B (of them {float_ffn} B the float KAN-FFN "
+          f"blocks kept for the drafter)")
     prompts = serve_prompts(cfg.vocab_size)
     out = {"config": cfg.name, "layers": cfg.num_layers, "init_s": t_init,
            "quantize_deploy_s": t_quant, "weights_bytes": weights,
+           "float_ffn_bytes": float_ffn,
            "prompt_lens": list(SERVE_LENS), "modes": {}}
     runs = {}
     for mode in ("contiguous", "paged"):
@@ -1280,26 +1488,296 @@ def phase_serve(dev, report) -> dict:
     out["contiguous_equals_paged"] = same
     print(f"  contiguous and paged streams equal: {same}")
 
-    # where the time goes: each mode again, under the profiler
+    launches = {f"lm_{mode}": r["launches"] for mode, r in runs.items()}
+    out["obs"] = serve_obs(qparams, cfg, prompts, dev, runs["contiguous"],
+                           launches)
+
+    # where the time goes: each mode again, under the profiler; the
+    # contiguous run with the spans' profiler ranges on (the host split)
+    from repro_torch import obs
+
     for mode in ("paged", "contiguous"):
-        run = serve_once(qparams, cfg, prompts, dev, mode, profile=True)
+        if mode == "contiguous":
+            obs.enable_profiler_annotations()
+        try:
+            run = serve_once(qparams, cfg, prompts, dev, mode, profile=True)
+        finally:
+            obs.disable_profiler_annotations()
         check_counts(run, f"{mode} (profiled)", cfg.num_layers)
-        bd = device_breakdown(run["prof"], run["wall_s"] * 1e3)
+        # the wall inside the profiler: its start and stop (which earlier
+        # runs counted) are no serving time
+        bd = device_breakdown(run["prof"], run["prof_wall_s"] * 1e3)
+        bd["wall_ms_with_profiler_start_stop"] = run["wall_s"] * 1e3
         out[f"breakdown_{mode}"] = bd
         out["modes"][mode]["host_idle_share"] = 1.0 - bd["busy_share"]
+        outer = bd["wall_ms_with_profiler_start_stop"]
         print(f"  profiled {mode} run: device {bd['device_ms']:.2f} ms of "
-              f"{bd['wall_ms']:.2f} ms wall (busy {bd['busy_share']:.3f}, "
-              f"host idle share {1.0 - bd['busy_share']:.3f}); "
+              f"{bd['wall_ms']:.2f} ms wall inside the profiler (busy "
+              f"{bd['busy_share']:.3f}, host idle share "
+              f"{1.0 - bd['busy_share']:.3f}; with the profiler's start and "
+              f"stop {outer:.2f} ms, idle share "
+              f"{1.0 - bd['device_ms'] / outer:.3f}); "
               + "; ".join(f"{k} {v:.2f}" for k, v in bd["by_class_ms"].items()))
         for ms, name in bd["top"][:6]:
             print(f"    {ms:9.3f} ms  {name}")
-    launches = {f"lm_{mode}": r["launches"] for mode, r in runs.items()}
+        if mode == "contiguous":
+            hs = host_split(run["prof"], run["prof_wall_s"] * 1e3,
+                            run["decode_calls"])
+            hs["device_ms"] = bd["device_ms"]
+            out["host_split_contiguous"] = hs
+            print_host_split(hs, "profiled contiguous")
     out["acim"] = serve_acim(qparams, cfg, prompts, dev, runs["contiguous"],
                              bd, launches)
+    out["spec"] = serve_spec(params, qparams, cfg, prompts, dev,
+                             runs["paged"], launches)
     report["serve"] = out
-    del runs, run, qparams
+    del runs, run, qparams, params
     torch.cuda.empty_cache()
     return launches
+
+
+# the documented series (docs/observability.md) a contiguous fused run
+# produces: no request expires or is rejected, no pool (kv.*), no drafter
+OBS_SERIES = ("serve.submitted", "serve.completed", "serve.tokens",
+              "serve.decode_steps", "serve.queue_depth", "serve.active_slots",
+              "serve.prefilling_slots", "serve.ttft_s", "serve.itl_s",
+              "plan_cache.hits", "plan_cache.misses", "plan_cache.traces",
+              "plan_cache.entries", "runtime.backend_dispatch{backend=fused}")
+
+
+OBS_TURNS = (False, True, True, False)
+
+
+def serve_obs(qparams, cfg, prompts, dev, plain_run, launches) -> dict:
+    """The contiguous run in turns with obs off and on (off, on, on, off:
+    the registry recording and the scheduler tracing): every run serves
+    the plain run's streams; with obs on the documented series are
+    present, the Prometheus text parses, and the span tree has one closed
+    ``request`` root per request."""
+    from repro_torch import obs
+
+    turns = []
+    for on in OBS_TURNS:
+        obs.REGISTRY.reset()
+        if on:
+            obs.enable()
+        try:
+            run = serve_once(qparams, cfg, prompts, dev, "contiguous",
+                             sched_kw={"trace": on})
+            snap = obs.REGISTRY.snapshot()["metrics"]
+            parsed = obs.parse_prometheus_text(obs.prometheus_text())
+        finally:
+            obs.disable()
+            obs.REGISTRY.reset()
+        check_counts(run, f"obs {'on' if on else 'off'}", cfg.num_layers)
+        require(run["streams"] == plain_run["streams"],
+                f"obs {'on' if on else 'off'}: the streams differ from the "
+                "plain run's")
+        turns.append((on, run["sched"]["tokens_per_s"], run["wall_s"]))
+        if not on:
+            continue
+        missing = [k for k in OBS_SERIES if k not in snap]
+        require(not missing, f"obs on: documented series missing: {missing}")
+        # the warm-up request of serve_once is served with obs on too
+        require(snap["serve.completed"]["value"] == len(prompts) + 1,
+                f"obs on: serve.completed {snap['serve.completed']}")
+        recs = run["tracer"].records()
+        roots = [r for r in recs if r["name"] == "request"]
+        require(len(roots) == len(prompts)
+                and all(r["parent"] is None and r["t1"] is not None
+                        and r["attrs"]["status"] == "done" for r in roots)
+                and sorted(r["rid"] for r in roots)
+                == list(range(len(prompts))),
+                f"obs on: request roots {roots}")
+        launches["lm_obs"] = run["launches"]
+        last = {"series": sorted(snap), "prometheus_samples": len(parsed),
+                "span_records": len(recs),
+                "span_names": sorted({r["name"] for r in recs})}
+    on_tps = [t for on, t, _ in turns if on]
+    off_tps = [t for on, t, _ in turns if not on]
+    print(f"  obs off / on / on / off (registry + tracer): every run's "
+          f"streams == the plain run's; {len(last['series'])} series "
+          f"({len(OBS_SERIES)} documented ones checked), "
+          f"{last['prometheus_samples']} Prometheus samples, "
+          f"{last['span_records']} span records {last['span_names']}, one "
+          f"closed request root per request; tokens/s "
+          + " / ".join(f"{t:.1f}" for _, t, _ in turns))
+    return {**last, "turns": [{"obs": on, "tokens_per_s": t, "wall_s": w}
+                              for on, t, w in turns],
+            "on_tokens_per_s_mean": sum(on_tps) / len(on_tps),
+            "off_tokens_per_s_mean": sum(off_tps) / len(off_tps)}
+
+
+SPEC_KS = (2, 4)
+
+
+def tensor_bytes(obj, seen=None) -> int:
+    """Bytes of the distinct tensors in a param tree (dicts, lists, tuples,
+    deployed bundles)."""
+    import torch
+
+    seen = set() if seen is None else seen
+    if isinstance(obj, torch.Tensor):
+        if obj.data_ptr() in seen:
+            return 0
+        seen.add(obj.data_ptr())
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(tensor_bytes(v, seen) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(tensor_bytes(v, seen) for v in obj)
+    if hasattr(obj, "layers"):             # a DeployedKAN bundle
+        return tensor_bytes(obj.layers, seen)
+    return 0
+
+
+def row_bits(dev, cfg) -> dict:
+    """Which op of the served model keeps a row's bits when the rows
+    around it change from a decode step's (4 slots) to a verify pass's
+    (4 x 5): the largest |difference| of the same 4 rows computed among 4
+    and among 20, for the bf16 matmuls of the LM head and the query
+    projection, and for B2 (one query at a time against S = 5 at once over
+    the same 1024 keys)."""
+    import torch
+
+    from repro_torch.kernels.attention import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    d = cfg.d_model
+    x = (torch.randn(20, d, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    out = {}
+    for name, cols in (("lm_head", cfg.vocab_size),
+                       ("wq", cfg.phys_heads * cfg.head_dim)):
+        w = (torch.randn(d, cols, generator=gen, device=dev)
+             * d ** -0.5).to(torch.bfloat16)
+        out[name] = float(((x[:4] @ w).float() - (x @ w)[:4].float())
+                          .abs().max())
+        del w
+    q = torch.randn(4, 5, 48, 128, generator=gen, device=dev).to(torch.bfloat16)
+    kv = [torch.randn(4, 1024, 8, 128, generator=gen, device=dev)
+          .to(torch.bfloat16) for _ in range(2)]
+    qpos = (1019 + torch.arange(5, device=dev, dtype=torch.int32)).expand(4, 5)
+    kpos = torch.arange(1024, device=dev, dtype=torch.int32).expand(4, 1024)
+    full = flash_attention(q, *kv, qpos=qpos.contiguous(),
+                           kpos=kpos.contiguous())
+    out["flash_attention"] = max(
+        float((flash_attention(q[:, j:j + 1], *kv,
+                               qpos=qpos[:, j:j + 1].contiguous(),
+                               kpos=kpos.contiguous()).float()
+               - full[:, j:j + 1].float()).abs().max())
+        for j in range(5))
+    torch.cuda.synchronize()
+    return out
+
+
+def serve_spec(params, qparams, cfg, prompts, dev, paged_run,
+               launches) -> dict:
+    """Speculative decoding at full width: paged engines with the default
+    drafter (grid 4, refit from the float tree) at k = 2 and 4 on the same
+    requests.  First the largest |logit| difference between a verify row
+    and its sequential decode row (``serve.cardcheck``), measured on the
+    served model at each k; then each k's streams held against the paged
+    k = 0 streams (parting only at a k = 0 margin within twice that
+    difference, counted) and every emitted token against the
+    teacher-forced gate; launches checked per call as ``check_counts``
+    does."""
+    import torch
+
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import cardcheck as sc
+
+    layers = cfg.num_layers
+    holder = {}
+
+    def record(eng):
+        holder["margins"] = sc.record_step_margins(eng)
+
+    base = serve_once(qparams, cfg, prompts, dev, "paged", hook=record)
+    require(base["streams"] == paged_run["streams"],
+            "paged k = 0: two runs gave different streams")
+    margins = holder["margins"]
+    out = {"k0_tokens_per_s": paged_run["sched"]["tokens_per_s"],
+           "k0_decode_ms_median": sorted(paged_run["decode_ms"])[
+               len(paged_run["decode_ms"]) // 2],
+           "k0_peak_bytes": paged_run["peak_bytes"],
+           "k0_engine_bytes": paged_run["engine_bytes"], "runs": {}}
+    del base
+    bits = row_bits(dev, cfg)
+    out["row_bits"] = bits
+    print("  a row's logits among 4 rows vs among 20 (max |diff|; 0 = the "
+          "same bits): " + "; ".join(f"{k} {v:.4g}" for k, v in bits.items()))
+    for k in SPEC_KS:
+        eng = ServeEngine(qparams, cfg, slots=SERVE_SLOTS,
+                          max_len=SERVE_MAX_LEN, kan_deploy=True,
+                          kv_block_size=SERVE_BLOCK,
+                          prefill_chunk=SERVE_CHUNK, device=dev)
+        delta = sc.verify_decode_delta(eng, prompts[:SERVE_SLOTS], k)
+        del eng
+        run = serve_once(params, cfg, prompts, dev, "paged", spec_decode=k)
+        check_counts(run, f"spec k={k}", layers)
+        sp = run["sched"]["spec"]
+        rounds = sp["rounds"]
+        require(run["verify_calls"] == rounds
+                and k * rounds <= run["draft_decode_calls"] <= (k + 1) * rounds,
+                f"spec k={k}: {rounds} rounds, {run['verify_calls']} verify "
+                f"and {run['draft_decode_calls']} drafter decode calls")
+        parted = sc.spec_divergences(paged_run["streams"], run["streams"],
+                                     margins, delta["max_abs_delta"])
+        gate = teacher_forced(qparams, cfg, prompts, run["streams"], dev)
+        require(gate["worst_gap"] <= LOGIT_TOL,
+                f"spec k={k}: a served token's ref logit is "
+                f"{gate['worst_gap']:.4f} below the ref maximum")
+        round_calls = run["verify_calls"] + run["draft_decode_calls"]
+        dec = sorted(run["decode_ms"])
+        d = run["engine"].draft.describe()
+        draft_bytes = tensor_bytes([
+            blk for g in run["engine"].draft.params["decoder"]
+            for key, blk in g.items() if key.endswith("_ffn")])
+        info = {
+            "k": k, "draft": d, "verify_vs_decode": delta,
+            "parted": parted, "equal_to_k0": not parted and
+            run["streams"] == paged_run["streams"], "gate": gate,
+            "rounds": rounds, "drafted": sp["drafted"],
+            "accepted": sp["accepted"], "accept_rate": sp["accept_rate"],
+            "tokens_per_round": run["sched"]["tokens_per_round"],
+            "tokens": run["sched"]["tokens"],
+            "tokens_per_s": run["sched"]["tokens_per_s"],
+            "wall_s": run["wall_s"], "draft_s": sp["draft_s"],
+            "verify_s": sp["verify_s"], "verify_ms_median": dec[len(dec) // 2],
+            "ttft_s": run["sched"]["ttft_s"],
+            "calls": {c: run[c] for c in (
+                "prefill_calls", "verify_calls", "draft_prefill_calls",
+                "draft_decode_calls")},
+            "b2_per_round": round_calls * layers / rounds,
+            "b1_per_round": 2 * round_calls * layers / rounds,
+            "launches": run["launches"], "peak_bytes": run["peak_bytes"],
+            "engine_bytes": run["engine_bytes"],
+            "draft_ffn_bytes": draft_bytes, "streams": run["streams"],
+        }
+        out["runs"][k] = info
+        launches[f"lm_spec_k{k}"] = run["launches"]
+        print(f"  spec k={k} (drafter G={d['kan_grid']} K={d['kan_order']}, "
+              f"{d['kan_n_bits']} bit): verify vs sequential decode max "
+              f"|dlogit| {delta['max_abs_delta']:.4f} ({delta['rows_bit_equal']}"
+              f" of {delta['rows']} rows bit-equal); streams vs paged k=0: "
+              f"{'equal' if info['equal_to_k0'] else f'parted at {parted}'};"
+              f" teacher-forced worst ref gap {gate['worst_gap']:.4f}")
+        print(f"    {rounds} rounds, accept rate {sp['accept_rate']:.3f} "
+              f"({sp['accepted']}/{sp['drafted']}), "
+              f"{info['tokens_per_round']:.2f} tokens per slot-round; "
+              f"{info['tokens_per_s']:.1f} tokens/s (k=0 "
+              f"{out['k0_tokens_per_s']:.1f}); draft_s p50 "
+              f"{sp['draft_s']['p50'] * 1e3:.2f} ms, verify_s p50 "
+              f"{sp['verify_s']['p50'] * 1e3:.2f} ms; per round "
+              f"{info['b2_per_round']:.1f} B2 and {info['b1_per_round']:.1f} "
+              f"B1 launches; launches {run['launches']}; peak "
+              f"{run['peak_bytes']} B (k=0 {out['k0_peak_bytes']} B); the "
+              f"engine (target + drafter) {run['engine_bytes']} B, of it "
+              f"the drafter's KAN-FFN {draft_bytes} B; k=0 engine "
+              f"{paged_run['engine_bytes']} B (the phase's tree)")
+        del run
+        torch.cuda.empty_cache()
+    return out
 
 
 def serve_acim(qparams, cfg, prompts, dev, fused_run, fused_bd,
@@ -1337,7 +1815,7 @@ def serve_acim(qparams, cfg, prompts, dev, fused_run, fused_bd,
     first = {rid: next((i for i, (a, f) in enumerate(zip(run["streams"][rid],
                                                          toks)) if a != f),
                        None) for rid, toks in fused.items()}
-    bd = device_breakdown(runs[1]["prof"], runs[1]["wall_s"] * 1e3)
+    bd = device_breakdown(runs[1]["prof"], runs[1]["prof_wall_s"] * 1e3)
     s, fs = run["sched"], fused_run["sched"]
     dec = sorted(run["decode_ms"])
     fdec = sorted(fused_run["decode_ms"])
@@ -1400,7 +1878,7 @@ def phase_times_lm(dev, report) -> tuple:
           f"(bf16 tol: one bf16 ulp + {ac.F32_TOL} + rel): shape | KV splits"
           " | kernel ms | plain ms | sdpa ms | bound ms (by) | max |err| | "
           "err / tol")
-    for name, b, s, t, kind in ac.PATH_SHAPES + DECODE_LONG:
+    for name, b, s, t, kind in ac.PATH_SHAPES + DECODE_LONG + VERIFY_SHAPES:
         # raises if the kernel disagrees with plain beyond the gate
         st, (q, k, v, qpos, kpos) = ac.check_b2_path(dev, name, b, s, t, kind)
         args = dict(kind=kind, qpos=qpos, kpos=kpos)
@@ -1426,10 +1904,11 @@ def phase_times_lm(dev, report) -> tuple:
               f"{plain:.4f} | {lib:.4f} | {b_ms:.4f} ({by}) | "
               f"{st['max_abs_err']:.3e} | {st['max_err_over_tol']:.3f}")
 
-    print("B1 at the full-width KAN-FFN halves (G=8, K=3, raw residual): "
-          "half rows | feature splits | kernel ms | plain ms | bound ms (by)")
+    print("B1 at the full-width KAN-FFN halves (raw residual; G=8 the "
+          "target's, G=4 the drafter's): G half rows | feature splits | "
+          "kernel ms | plain ms | bound ms (by)")
     gen = torch.Generator(device=dev).manual_seed(13)
-    for grid, f, o, flags, nrows in cc.B1_FFN_FULL:
+    for grid, f, o, flags, nrows in cc.B1_FFN_FULL + cc.B1_FFN_DRAFT:
         lp, lw, _, codes, xraw, _ = cc.b1_case(dev, gen, grid, f, o, flags,
                                                nrows)
         a = (codes, xraw, lw, lp, nrows)
@@ -1439,10 +1918,11 @@ def phase_times_lm(dev, report) -> tuple:
             *a, feature_splits=splits), reps=2, warmup=1)
         b_ms, by = bound(*b1_work(lp, lw, nrows))
         rows.append({"kernel": "kan_pipeline_layer", "layer": f"ffn {f}x{o}",
-                     "rows": nrows, "feature_splits": splits, "ms": ms,
-                     "plain_ms": plain, "bound_ms": b_ms, "bound_by": by})
-        print(f"  {f}x{o} rows={nrows} | {splits} | {ms:.4f} | {plain:.4f} | "
-              f"{b_ms:.4f} ({by})")
+                     "grid": grid, "rows": nrows, "feature_splits": splits,
+                     "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                     "bound_by": by})
+        print(f"  G={grid} {f}x{o} rows={nrows} | {splits} | {ms:.4f} | "
+              f"{plain:.4f} | {b_ms:.4f} ({by})")
     report["times_lm"] = rows
     report["times_b4"] = phase_times_b4(dev)
     # the kernel line sums the three path shapes (as in earlier runs); the
@@ -1667,7 +2147,7 @@ def main() -> int:
             row["mac_path_device_ms"] = mac["b4_device_ms"]
         if k == "kan_pipeline_layer":
             row["ffn_full_width"] = [{key: r[key] for key in (
-                "layer", "rows", "feature_splits", "ms", "plain_ms",
+                "layer", "grid", "rows", "feature_splits", "ms", "plain_ms",
                 "bound_ms", "bound_by")} for r in ffn_full]
         require(row["launches"] > 0, f"{k}: no launch on any main path")
         kernels.append(row)

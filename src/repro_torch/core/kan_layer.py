@@ -39,6 +39,8 @@ __all__ = [
     "init_kan_network",
     "kan_network_apply",
     "param_count",
+    "refit_layer_spec",
+    "extend_layer_grid",
 ]
 
 
@@ -242,3 +244,50 @@ def param_count(kspec: KANSpec) -> int:
     ((17,1,14): 279 at G=5 = KAN1, 2232 at G=68 = KAN2)."""
     edges = sum(a * b for a, b in zip(kspec.dims[:-1], kspec.dims[1:]))
     return edges * (kspec.grid_size + kspec.order + 1)
+
+
+# ----------------------------------------------------------------------------
+# Grid transfer (original-KAN §2.5; the speculative drafter's refit)
+# ----------------------------------------------------------------------------
+
+
+def refit_matrix(old_spec: ASPQuantSpec, new_spec: ASPQuantSpec) -> np.ndarray:
+    """(G'+K', G+K) float64 map taking a spline's old coefficients to the
+    least-squares coefficients of the new basis.
+
+    The reference samples both bases at ``4(G'+K')+16`` points of the knot
+    domain and solves ``new_b @ c_new = old_b @ c`` by ``lstsq``.  Both
+    matrices are tiny, so the port forms them in float64 on the host and
+    takes the pseudo-inverse once: ``c_new = pinv(new_b) @ old_b @ c`` is
+    the same minimum-norm solution, and the result is the same on the CPU
+    and on the card."""
+    new_g, new_k = new_spec.grid_size, new_spec.order
+    xs = torch.linspace(old_spec.lo, old_spec.hi, 4 * (new_g + new_k) + 16,
+                        dtype=torch.float64)
+    old_b = bspline_basis(xs, old_spec.lo, old_spec.hi, old_spec.grid_size,
+                          old_spec.order).numpy()
+    new_b = bspline_basis(xs, new_spec.lo, new_spec.hi, new_g,
+                          new_k).numpy()
+    return np.linalg.pinv(new_b) @ old_b
+
+
+def refit_layer_spec(params: dict, old_spec: ASPQuantSpec,
+                     new_spec: ASPQuantSpec) -> dict:
+    """Refit layer coefficients onto a different (G, K) basis by least
+    squares; ``w_b`` is unchanged.
+
+    ``c`` (F, G+K, O) becomes f32 (F, G'+K', O): one matmul by
+    :func:`refit_matrix` on the coefficients' device (the reference's
+    result is f32 too).  To a finer grid the refit is near-lossless, to a
+    coarser one it is the best L2 approximation of the same spline."""
+    c = params["c"]
+    m = torch.as_tensor(refit_matrix(old_spec, new_spec), dtype=torch.float32,
+                        device=c.device)
+    c_new = torch.einsum("jn,fno->fjo", m, c.to(torch.float32))
+    return {"c": c_new, "w_b": params["w_b"]}
+
+
+def extend_layer_grid(params: dict, old_spec: ASPQuantSpec, new_g: int) -> dict:
+    """Refit layer coefficients on a finer grid by least squares (same K)."""
+    return refit_layer_spec(
+        params, old_spec, dataclasses.replace(old_spec, grid_size=new_g))

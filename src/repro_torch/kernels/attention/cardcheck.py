@@ -20,9 +20,9 @@ on disagreement:
 The plain version runs with the kernel's KV split count
 (:func:`.ops.call_kv_splits`), so both merge the same key runs.
 ``B2_SPLIT`` holds the bf16 tensor-core instance at the serving geometry
-where it splits the KV axis (decode at T = 1023 and 4096, verify at S = 3),
-with one split's keys all invalid for one batch row and rows masked in
-every split.
+where it splits the KV axis (decode at T = 1023 and 4096, verify at S = 3
+and 5), with one split's keys all invalid for one batch row and rows
+masked in every split.
 
 :func:`check_b2` draws small cases with masked rows and keys;
 :func:`check_b2_path` holds the kernel to the same gate at the serving
@@ -63,15 +63,18 @@ B2_EXTRA = (
 )
 # the tensor-core instance with its KV axis split (keyword arguments of
 # check_b2; ``dead`` = keys (lo, hi) made invalid in the last batch row,
-# one whole split of it in the first three cases): decode at T = 1023 and
-# 4096, verify at S = 3, a local window (most splits masked by position)
-# and D = 64 under "full" (the last batch row has no valid key at all)
+# one whole split of it in the first four cases): decode at T = 1023 and
+# 4096, verify at S = 3 and S = 5 (speculative k = 2 and 4), a local window
+# (most splits masked by position) and D = 64 under "full" (the last batch
+# row has no valid key at all)
 B2_SPLIT = (
     dict(dtype=torch.bfloat16, kind="causal", hq=48, hkv=8, d=128, b=4, s=1,
          t=1023, dead=(128, 256)),
     dict(dtype=torch.bfloat16, kind="causal", hq=48, hkv=8, d=128, b=4, s=1,
          t=4096, dead=(512, 1024)),
     dict(dtype=torch.bfloat16, kind="causal", hq=48, hkv=8, d=128, b=4, s=3,
+         t=1023, dead=(0, 128)),
+    dict(dtype=torch.bfloat16, kind="causal", hq=48, hkv=8, d=128, b=4, s=5,
          t=1023, dead=(0, 128)),
     dict(dtype=torch.bfloat16, kind="local", hq=48, hkv=8, d=128, b=2, s=1,
          t=1023, window=100),
@@ -126,16 +129,16 @@ def b2_inputs(dev, gen, *, dtype, hq, hkv, d, b, s, t, kind, masked=True,
 def path_inputs(dev, name: str, b: int, s: int, t: int):
     """bf16 operands of one ``PATH_SHAPES`` entry at the serving geometry,
     with the positions the path sets (decode, also as ``decode_t<T>``:
-    every slot at the last
-    position of a full cache; prefill: right-aligned; paged chunk: the
-    third 256-token chunk of a prompt over the gathered view).  Returns
+    every slot at the last position of a full cache; verify: the last S
+    positions; prefill: right-aligned; paged chunk: the third 256-token
+    chunk of a prompt over the gathered view).  Returns
     ``(q, k, v, qpos, kpos)``."""
     gen = torch.Generator(device=dev).manual_seed(5)
     hq, hkv, d = 48, 8, 128
     q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn(b, t, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn(b, t, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
-    start = {"decode": t - 1, "prefill": 0,
+    start = {"decode": t - 1, "verify": t - s, "prefill": 0,
              "paged_chunk": 512}[name.split("_t")[0]]
     qpos = (start + torch.arange(s, device=dev, dtype=torch.int32)).expand(b, s)
     kpos = torch.arange(t, device=dev, dtype=torch.int32).expand(b, t)

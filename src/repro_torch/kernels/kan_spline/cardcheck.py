@@ -36,7 +36,7 @@ from .ops import kan_spline
 from .ref import kan_spline_ref
 
 __all__ = ["ATOL", "RTOL", "ORDERS", "B1_GEOMETRIES", "B1_FLAGS",
-           "B1_FFN_FULL", "B1_FFN_PACKED", "FFN_FULL_TIE_EPS", "B3_SHAPES",
+           "B1_FFN_FULL", "B1_FFN_DRAFT", "B1_FFN_PACKED", "FFN_FULL_TIE_EPS", "B3_SHAPES",
            "b1_case", "check_b1", "check_b1_rows_independent",
            "check_b1_padded_columns", "check_b3"]
 
@@ -56,6 +56,14 @@ B1_FFN_FULL = tuple(
     (8, f, o, (True, False, False, False, emit), rows)
     for f, o, emit in ((5120, 1280, True), (1280, 5120, False))
     for rows in (8, 1024))
+# the same halves at the speculative drafter's default spec (G=4, K=3: 7
+# basis functions instead of 11), at the executor's row buckets of a
+# 4-slot decode (8) and of 20 rows (32: 4 slots x k+1 = 5 verify rows, and
+# a drafter prefill bucket): (grid, f, o, flags, rows)
+B1_FFN_DRAFT = tuple(
+    (4, f, o, (True, False, False, False, emit), rows)
+    for f, o, emit in ((5120, 1280, True), (1280, 5120, False))
+    for rows in (8, 32))
 # int4-packed weights (and a packed SH-LUT, with noise) at a full-width
 # half, where the kernel splits the feature axis: (grid, f, o, flags, rows)
 B1_FFN_PACKED = ((8, 5120, 1280, (True, True, True, True, True), 8),

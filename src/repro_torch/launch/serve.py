@@ -16,26 +16,36 @@ Port of ``repro.launch.serve``.  Runs on the card unless ``--device cpu``:
     # stream tokens, sample instead of greedy decode:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
         --stream --sampling 0.8 --top-k 16 --seed 7
+    # speculative decoding (a grid-4 refit drafter, k = 2), with the span
+    # trace and a metrics snapshot written at shutdown:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
+        --kan-ffn --kv-block-size 8 --spec-decode 2 --draft-spec grid=4 \\
+        --trace-out trace.jsonl --metrics-dump metrics.prom --device cpu
 
 ``--kan-ffn`` serves the paper's datapath: the FFN blocks are
 ASP-quantized and deployed at startup, and every prefill / decode step runs
 them through kernel B1 (``--backend acim``: with the paper's ACIM
 non-idealities injected); attention runs through kernel B2 ("flash")
 unless ``--attn-backend ref``.  Weights are random, drawn from a fixed seed.
-The reference's mesh, speculative-decoding, tuning-artifact and
-observability flags exit with "not ported yet" and their ROADMAP item.
+``--spec-decode K`` (with ``--kan-ffn`` and ``--kv-block-size``) adds a
+refit KAN drafter (``--draft-spec``); ``--metrics-port`` / ``--metrics-dump``
+turn the obs registry on, ``--trace-out`` records the per-request span
+trees, ``--log-level`` and ``--stats-interval`` drive the structured
+logger.  The reference's mesh and tuning-artifact flags exit with "not
+ported yet" and their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
 import torch
 
-from .. import runtime
+from .. import obs, runtime
 from ..configs.registry import smoke_config
 from ..core.asp_quant import resolve_layer_bits
 from ..device import resolve_device
@@ -46,20 +56,8 @@ from ..serve.scheduler import QueueFull, SamplingParams, Scheduler
 # reference flags that wait for a later slice -> their ROADMAP item
 NOT_PORTED = {
     "mesh": "A10 (distribution)",
-    "spec_decode": "A6 (serve/spec.py)",
-    "draft_spec": "A6 (serve/spec.py)",
     "tuned_config": "A9 (co-design stack)",
-    "metrics_port": "A6 (obs)",
-    "metrics_dump": "A6 (obs)",
-    "trace_out": "A6 (obs)",
-    "log_level": "A6 (obs)",
-    "stats_interval": "A6 (obs)",
 }
-
-
-def log(msg: str, **fields) -> None:
-    extra = " ".join(f"{k}={v}" for k, v in fields.items())
-    print(f"{msg} {extra}".strip(), flush=True)
 
 
 def parse_args(argv=None):
@@ -101,6 +99,36 @@ def parse_args(argv=None):
     ap.add_argument("--deadline", type=float, default=None, metavar="S")
     ap.add_argument("--stream", action="store_true",
                     help="print every token as it is produced")
+    ap.add_argument("--spec-decode", type=int, default=0, metavar="K",
+                    help="speculative decoding: a refit KAN drafter proposes "
+                         "K tokens per round, the target verifies K+1 "
+                         "positions in one forward (needs --kan-ffn and "
+                         "--kv-block-size); 0 = off")
+    ap.add_argument("--draft-spec", default=None, metavar="SPEC",
+                    help="with --spec-decode: the drafter's deployment "
+                         "point, e.g. 'grid=4,order=2,bits=6,backend=ref' "
+                         "(defaults: half the target grid, same order and "
+                         "bits, the engine's backend)")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="enable the obs registry and serve Prometheus text "
+                         "at http://127.0.0.1:PORT/metrics (JSON at "
+                         "/metrics.json); 0 picks a free port")
+    ap.add_argument("--metrics-dump", action="append", default=None,
+                    metavar="PATH",
+                    help="enable the obs registry and write a snapshot at "
+                         "shutdown: '.json' -> JSON, else Prometheus text; "
+                         "repeatable")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record one span tree per request, written at "
+                         "shutdown: '.json' -> Chrome trace events, else "
+                         "JSONL span records")
+    ap.add_argument("--log-level", default=None,
+                    choices=("debug", "info", "warning", "error"),
+                    help="structured-logger threshold (sets REPRO_LOG_LEVEL "
+                         "for this process)")
+    ap.add_argument("--stats-interval", type=float, default=None,
+                    metavar="S",
+                    help="a one-line scheduler stats summary every S seconds")
     ap.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu'")
     for flag in NOT_PORTED:
@@ -115,6 +143,11 @@ def main(argv=None) -> None:
         if getattr(args, flag) is not None:
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
                              f"(ROADMAP {item})")
+    if args.log_level:
+        os.environ[obs.ENV_LOG_LEVEL_VAR] = args.log_level
+    if args.metrics_port is not None or args.metrics_dump:
+        obs.enable()
+    log = obs.get_logger("serve")
     dev = resolve_device(args.device)
 
     cfg = smoke_config(args.arch)
@@ -137,6 +170,13 @@ def main(argv=None) -> None:
                          "are not ported yet (ROADMAP A7)")
     if args.prefill_chunk is not None and args.kv_block_size is None:
         raise SystemExit("--prefill-chunk requires --kv-block-size")
+    if args.spec_decode:
+        if not args.kan_ffn:
+            raise SystemExit("--spec-decode requires --kan-ffn (the drafter "
+                             "is refit from the KAN-FFN weights)")
+        if args.kv_block_size is None:
+            raise SystemExit("--spec-decode requires --kv-block-size "
+                             "(draft rollback releases pool blocks)")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(gen, cfg, device=dev)
@@ -145,28 +185,44 @@ def main(argv=None) -> None:
                          attn_backend=args.attn_backend,
                          kv_block_size=args.kv_block_size,
                          prefix_cache=args.prefix_cache == "on",
-                         prefill_chunk=args.prefill_chunk, device=dev)
+                         prefill_chunk=args.prefill_chunk,
+                         spec_decode=args.spec_decode,
+                         draft_spec=args.draft_spec, device=dev)
     kan_backend = (runtime.resolve_backend(args.backend) if args.kan_ffn
                    else "none")
-    log("device", device=dev,
-        name=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
-              else "cpu"))
-    log("backends", attn_backend=engine.attn_backend, kan_backend=kan_backend)
+    log.info("device", device=dev,
+             name=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"))
+    log.info("backends", attn_backend=engine.attn_backend,
+             kan_backend=kan_backend)
+    if engine.draft is not None:
+        d = engine.draft.describe()
+        log.info("spec decode", k=engine.spec_k, draft_grid=d["kan_grid"],
+                 draft_order=d["kan_order"], draft_bits=d["kan_n_bits"],
+                 draft_backend=d["kan_backend"] or "inherit")
     if engine.paged:
         kv = engine.kv_stats()
-        log("paged kv", blocks=kv["num_blocks"], block_size=kv["block_size"],
-            prefix_cache="on" if kv["prefix_cache"] else "off",
-            prefill_chunk=kv["prefill_chunk"] or "whole-prompt")
+        log.info("paged kv", blocks=kv["num_blocks"],
+                 block_size=kv["block_size"],
+                 prefix_cache="on" if kv["prefix_cache"] else "off",
+                 prefill_chunk=kv["prefill_chunk"] or "whole-prompt")
     if args.kan_ffn:
-        log("kan-ffn", G=cfg.kan_grid, K=cfg.kan_order, n_bits=cfg.kan_n_bits,
-            layer_bits=("uniform" if not cfg.kan_layer_bits
-                        else ",".join(map(str, cfg.kan_layer_bits))))
+        log.info("kan-ffn", G=cfg.kan_grid, K=cfg.kan_order,
+                 n_bits=cfg.kan_n_bits,
+                 layer_bits=("uniform" if not cfg.kan_layer_bits
+                             else ",".join(map(str, cfg.kan_layer_bits))))
+    metrics_server = None
+    if args.metrics_port is not None:
+        metrics_server = obs.start_metrics_server(args.metrics_port)
+        log.info("metrics server",
+                 url=f"http://127.0.0.1:{metrics_server.server_port}/metrics")
     sampling = None
     if args.sampling > 0.0:
         sampling = SamplingParams(temperature=args.sampling, top_k=args.top_k,
                                   top_p=args.top_p, seed=args.seed)
-        log("sampling", temperature=sampling.temperature, top_k=sampling.top_k,
-            top_p=sampling.top_p, seed=sampling.seed)
+        log.info("sampling", temperature=sampling.temperature,
+                 top_k=sampling.top_k, top_p=sampling.top_p,
+                 seed=sampling.seed)
 
     rng = np.random.default_rng(1)
     reqs = []
@@ -178,7 +234,9 @@ def main(argv=None) -> None:
                             deadline_s=args.deadline, sampling=sampling))
 
     sched = Scheduler(engine, max_queue=args.queue_limit,
-                      log=None if args.stream else log)
+                      log=None if args.stream else print,
+                      trace=args.trace_out is not None,
+                      stats_interval_s=args.stats_interval)
     on_token = None
     if args.stream:
         def on_token(r, tok):
@@ -189,7 +247,7 @@ def main(argv=None) -> None:
             sched.submit(r, on_token=on_token)
         except QueueFull as e:
             dropped += 1
-            log("backpressure", detail=str(e))
+            log.warning("backpressure", detail=str(e))
     t0 = time.perf_counter()
     results = sched.run_until_idle()
     if dev.type == "cuda":
@@ -198,28 +256,56 @@ def main(argv=None) -> None:
     served = [r for r in results if r.status == "done"]
     total = sum(len(r.output) for r in served)
     stats = engine.compile_stats()
-    log("served", requests=len(served), tokens=total,
-        tokens_per_s=round(total / wall, 1), rejected=dropped)
-    log("steps", prefill_buckets=stats["prefill_traces"],
-        prefill_calls=stats["prefill_calls"], decode=stats["decode_traces"],
-        kan_plan_cache=stats["plan_cache"])
+    log.info("served", requests=len(served), tokens=total,
+             tokens_per_s=round(total / wall, 1), rejected=dropped)
+    log.info("steps", prefill_buckets=stats["prefill_traces"],
+             prefill_calls=stats["prefill_calls"],
+             decode=stats["decode_traces"], verify=stats["verify_calls"],
+             kan_plan_cache=stats["plan_cache"])
     s = sched.stats()
 
     def ms(v):
         return "n/a" if v is None else f"{v * 1e3:.1f}ms"
 
-    log("scheduler", submitted=s["submitted"], completed=s["completed"],
-        expired=s["expired"], rejected=s["rejected"])
+    log.info("scheduler", submitted=s["submitted"], completed=s["completed"],
+             expired=s["expired"], rejected=s["rejected"])
     ttft = s["ttft_s"] or {"p50": None, "p95": None}
-    log("latency", ttft_p50=ms(ttft["p50"]), ttft_p95=ms(ttft["p95"]),
-        itl_p50=ms(s["itl_s"]["p50"]), itl_p95=ms(s["itl_s"]["p95"]),
-        tokens_per_s=round(s["tokens_per_s"] or 0.0, 1))
+    log.info("latency", ttft_p50=ms(ttft["p50"]), ttft_p95=ms(ttft["p95"]),
+             itl_p50=ms(s["itl_s"]["p50"]), itl_p95=ms(s["itl_s"]["p95"]),
+             tokens_per_s=round(s["tokens_per_s"] or 0.0, 1))
+    log.info("queue depth", max=s["queue_depth"]["max"],
+             mean=round(s["queue_depth"]["mean"], 2),
+             samples=s["queue_depth"]["samples"])
     if s["kv"] is not None:
         kv = s["kv"]
-        log("kv pool", hit_rate=round(kv["prefix_hit_rate"], 2),
-            hits=kv["prefix_hits"], misses=kv["prefix_misses"],
-            in_use=kv["blocks_in_use"], cached=kv["blocks_cached"],
-            free=kv["blocks_free"], evictions=kv["evictions"])
+        log.info("kv pool", hit_rate=round(kv["prefix_hit_rate"], 2),
+                 hits=kv["prefix_hits"], misses=kv["prefix_misses"],
+                 in_use=kv["blocks_in_use"], cached=kv["blocks_cached"],
+                 free=kv["blocks_free"], evictions=kv["evictions"],
+                 truncations=kv["truncations"])
+    if s["spec"] is not None:
+        sp = s["spec"]
+        log.info("spec decode", k=sp["k"], rounds=sp["rounds"],
+                 drafted=sp["drafted"], accepted=sp["accepted"],
+                 accept_rate=(round(sp["accept_rate"], 3)
+                              if sp["accept_rate"] is not None else None),
+                 draft_p50=ms(sp["draft_s"]["p50"]),
+                 verify_p50=ms(sp["verify_s"]["p50"]),
+                 tokens_per_round=(round(s["tokens_per_round"], 2)
+                                   if s["tokens_per_round"] is not None
+                                   else None))
+    if args.trace_out:
+        if args.trace_out.endswith(".json"):
+            sched.tracer.export_chrome(args.trace_out)
+        else:
+            sched.tracer.export_jsonl(args.trace_out)
+        log.info("trace written", path=args.trace_out,
+                 records=len(sched.tracer.records()))
+    for path in args.metrics_dump or ():
+        obs.dump_metrics(path)
+        log.info("metrics dump written", path=path)
+    if metrics_server is not None:
+        metrics_server.shutdown()
 
 
 if __name__ == "__main__":

@@ -18,8 +18,11 @@ bundle (duck-typed: ``.dims``, ``.specs``, ``.layers``, ``.residual_raw``):
 
 Selection precedence: explicit argument > :func:`use_backend` scope >
 ``REPRO_KAN_BACKEND`` > the call site's default.  Every backend shares the
-:mod:`plancache` (pow2 batch bucketing + LRU of built entries).  The mesh
-path waits for a later slice.
+:mod:`plancache` (pow2 batch bucketing + LRU of built entries).  Each
+dispatch is counted per backend (fed to the obs registry as
+``runtime.backend_dispatch{backend=...}``) and runs under
+``obs.profile_scope("kan_spline.<backend>")``.  The mesh path waits for a
+later slice.
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ from ..kernels.kan_spline.pipeline import (
     unpacked_wc,
     weight_bits,
 )
+from ..obs import REGISTRY as _OBS_REGISTRY
+from ..obs.trace import profile_scope
 from .plancache import PLAN_CACHE, PlanKey, bucket_batch
 
 __all__ = [
@@ -222,7 +227,7 @@ class _CachedExecutor:
         )
         _, apply = PLAN_CACHE.get(key, self._build)
         DISPATCH_COUNTS[self.name] += 1
-        with torch.profiler.record_function(f"kan_spline.{self.name}"):
+        with profile_scope(f"kan_spline.{self.name}"):
             out = self._run(key, apply, _pad_batch(codes, bucket),
                             _pad_batch(xraw, bucket), dep.layers, generator,
                             return_intermediates)
@@ -508,3 +513,16 @@ class ACIMExecutor(_CachedExecutor):
 register_executor("ref", RefExecutor())
 register_executor("fused", FusedExecutor())
 register_executor("acim", ACIMExecutor())
+
+
+def _obs_collect() -> dict:
+    """Per-backend dispatch counts under the reference's labeled series
+    ``runtime.backend_dispatch{backend=...}``; the fused backend's label is
+    ``fused`` (the reference's ``pallas``)."""
+    return {
+        ("runtime.backend_dispatch", (("backend", name),)): count
+        for name, count in sorted(DISPATCH_COUNTS.items())
+    }
+
+
+_OBS_REGISTRY.register_collector(_obs_collect)

@@ -10,7 +10,10 @@ Port of ``repro.runtime.plancache``.
   * **LRU cache**: ``PlanKey -> (PipelinePlan, apply)``.  PyTorch runs
     eagerly, so an entry is the plan plus the backend's apply closure, and
     the reference's ``traces`` counter becomes ``builds``: entries built.
-  * **counters**: hits / misses / builds / entries (:meth:`PlanCache.stats`).
+  * **counters**: hits / misses / builds / entries (:meth:`PlanCache.stats`),
+    fed to the obs registry at snapshot time as ``plan_cache.hits`` /
+    ``.misses`` / ``.traces`` / ``.entries``: the reference's series names,
+    with ``builds`` exported as ``plan_cache.traces``.
 
 The reference's tuned-tile registry waits for the tune slice.
 """
@@ -114,3 +117,20 @@ class PlanCache:
 
 # The process-wide cache every executor resolves through.
 PLAN_CACHE = PlanCache()
+
+
+def _obs_collect() -> dict:
+    """The cache counters under the reference's documented dotted names,
+    pulled at snapshot time (the cache's hot path pays nothing).  The
+    reference counts jit traces where the port counts builds; both are
+    entries made on a miss, so ``builds`` is exported as
+    ``plan_cache.traces`` and the series names equal the reference's."""
+    st = PLAN_CACHE.stats()
+    return {"plan_cache.hits": st["hits"], "plan_cache.misses": st["misses"],
+            "plan_cache.traces": st["builds"],
+            "plan_cache.entries": st["entries"]}
+
+
+from ..obs import REGISTRY as _OBS_REGISTRY  # noqa: E402
+
+_OBS_REGISTRY.register_collector(_obs_collect)

@@ -3,9 +3,8 @@
 Port of ``repro.serve``: :mod:`.engine` owns the state (slot pool, KV
 cache, contiguous or paged), :mod:`.scheduler` the event loop (arrivals,
 admission / backpressure, deadlines, streaming callbacks, seeded sampling,
-TTFT / throughput metrics), :mod:`.kvpool` the paged block pool.  The
-speculative-decode drafter (``serve/spec.py``) is not ported yet
-(ROADMAP A6).
+TTFT / throughput / accept-rate metrics, obs tracing), :mod:`.kvpool` the
+paged block pool and :mod:`.spec` the speculative-decode drafter.
 """
 
 from .engine import Request, ServeEngine, prefill_bucketing_supported
@@ -16,8 +15,11 @@ from .scheduler import (
     Scheduler,
     sample_token,
 )
+from .spec import DraftModel, DraftSpec
 
 __all__ = [
+    "DraftModel",
+    "DraftSpec",
     "ManualClock",
     "QueueFull",
     "Request",

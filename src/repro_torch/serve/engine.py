@@ -12,8 +12,9 @@ decoders only): the padding sits at the END of the prompt, causal
 attention keeps real positions from seeing it, it is zeroed out of the
 cache at splice time, and the first-token logits are read at the true last
 token.  PyTorch runs eagerly, so there are no traces:
-``compile_stats()["prefill_traces"]`` counts the distinct prefill buckets
-and ``"decode_traces"`` the decode calls, under the reference's keys.
+``compile_stats()["prefill_traces"]`` counts the distinct prefill buckets,
+``"verify_traces"`` the distinct verify widths and ``"decode_traces"`` the
+decode calls, under the reference's keys.
 
 ``kan_deploy=True`` quantizes every KAN-FFN block once at engine build
 (``core.kan_ffn_deploy.quantize_kan_ffn_params_tree``, deployed bundles
@@ -28,8 +29,16 @@ block table per slot, and a hash-keyed prefix cache that splices cached
 prompt blocks in copy-free.  ``prefill_chunk=`` stages long prompts one
 chunk per scheduling round.  Greedy streams equal the contiguous path's.
 
-Not ported yet: ``mesh=`` (ROADMAP A10) and ``spec_decode`` /
-``draft_spec`` (ROADMAP A6: ``serve/spec.py``).
+``spec_decode=k`` (with ``kan_deploy`` and the paged cache) adds a drafter
+(:class:`.spec.DraftModel`, refit from the FLOAT params the engine was
+given, before its own quantization) and the batched verify pass
+(:meth:`ServeEngine.verify_active`) the scheduler's speculative rounds
+drive; ``draft_spec`` sets the drafter's deployment point.  Every prefill,
+decode and verify call runs under ``obs.profile_scope`` (``serve.prefill``,
+``serve.prefill_chunk``, ``serve.decode_step``, ``serve.verify``): a
+``torch.profiler`` range while annotations are on, nothing otherwise.
+
+Not ported yet: ``mesh=`` (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from .. import runtime
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..models import model as M
+from ..obs.trace import profile_scope
 from .kvpool import KVBlockPool
 
 __all__ = ["Request", "ServeEngine", "prefill_bucketing_supported",
@@ -87,6 +97,28 @@ class Request:
     ttft_s: float = 0.0          # arrival -> first token
 
 
+def step_scope(kan_backend, attn_backend):
+    """The KAN and attention backends and ``no_grad`` for one step."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(runtime.use_backend(kan_backend))
+    stack.enter_context(runtime.use_attn_backend(attn_backend))
+    stack.enter_context(torch.no_grad())
+    return stack
+
+
+def splice_slot(pool, one, slot: int, plen: int, zero_tail: bool) -> None:
+    """Copy a B=1 prefill cache ``one`` into row ``slot`` of a contiguous
+    pool IN PLACE; with ``zero_tail`` the KV past the prompt (bucket
+    padding) is zeroed so no stale state enters the pool."""
+    for pool_g, one_g in zip(pool, one):
+        for key, kv in pool_g.items():
+            for name in ("k", "v"):
+                dst = kv[name][:, slot]          # (repeats, T, H, D)
+                dst.copy_(one_g[key][name][:, 0])
+                if zero_tail:
+                    dst[:, plen:] = 0
+
+
 def _to_device(tree, dev: torch.device):
     """Tensors of a param tree on ``dev`` (a no-op where they are); deployed
     KAN bundles must already be there."""
@@ -116,12 +148,11 @@ class ServeEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh serving is not ported yet (ROADMAP A10)")
-        if spec_decode or draft_spec is not None:
-            raise NotImplementedError(
-                "speculative decoding (serve/spec.py) is not ported yet "
-                "(ROADMAP A6)")
         self.device = resolve_device(device)
         params = _to_device(params, self.device)
+        # the drafter refits from the FLOAT weights: keep them before the
+        # kan_deploy quantization below swaps the tree for int8 + SH-LUT
+        float_params = params
         if kan_deploy:
             # every KAN-FFN block on the quantized datapath (kernel B1),
             # quantized and deployed once here
@@ -186,16 +217,38 @@ class ServeEngine:
         self.prefill_calls = 0
         self.decode_calls = 0
         self.verify_calls = 0
+        self._verify_widths: set = set()
+
+        # -- speculative decoding (spec_decode=k) ---------------------------
+        self.spec_k = int(spec_decode or 0)
+        self.draft = None
+        if self.spec_k < 0:
+            raise ValueError(f"spec_decode must be >= 0, got {spec_decode}")
+        if self.spec_k:
+            if not kan_deploy:
+                raise ValueError(
+                    "spec_decode requires kan_deploy=True: the drafter is "
+                    "refit from the deployed target's KAN-FFN weights")
+            if not self.paged:
+                raise ValueError(
+                    "spec_decode requires the paged KV cache (set "
+                    "kv_block_size): draft rollback releases pool blocks")
+            from .spec import DraftModel, DraftSpec
+
+            dspec = (draft_spec if isinstance(draft_spec, DraftSpec)
+                     else DraftSpec.parse(draft_spec))
+            self.draft = DraftModel(float_params, cfg, dspec, slots, max_len,
+                                    kan_backend=self.kan_backend,
+                                    attn_backend=self.attn_backend)
+        elif draft_spec is not None:
+            raise ValueError("draft_spec without spec_decode=k has no effect")
+        del float_params
 
     # -- backend scope ----------------------------------------------------
 
     def _scope(self):
         """The engine's KAN and attention backends, for one step."""
-        stack = contextlib.ExitStack()
-        stack.enter_context(runtime.use_backend(self.kan_backend))
-        stack.enter_context(runtime.use_attn_backend(self.attn_backend))
-        stack.enter_context(torch.no_grad())
-        return stack
+        return step_scope(self.kan_backend, self.attn_backend)
 
     def _tensor(self, a, dtype=torch.int64) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -218,6 +271,8 @@ class ServeEngine:
         (paged) and put it back on the free list."""
         self.active[slot] = None
         self._prefilling.pop(slot, None)
+        if self.draft is not None:
+            self.draft.release(slot)
         if self.paged:
             for bid in self._slot_blocks[slot]:
                 self.pool.release(bid)
@@ -290,6 +345,10 @@ class ServeEngine:
         self.pos[slot] = len(req.prompt)
         self.active[slot] = req
         del self._prefilling[slot]
+        if self.draft is not None:
+            # the drafter needs the prompt in its own cache before it can
+            # propose for this slot: one B=1 drafter prefill
+            self.draft.prefill_slot(slot, req)
         return logits
 
     def _prefill_contiguous(self, slot: int, req: Request) -> np.ndarray:
@@ -298,19 +357,11 @@ class ServeEngine:
         tokens = self._tensor([padded])
         self._prefill_buckets_seen.add(len(padded))
         self.prefill_calls += 1
-        with self._scope():
+        with self._scope(), profile_scope("serve.prefill"):
             logits, cache1 = M.prefill(self.params, {"tokens": tokens},
                                        self.cfg, max_len=self.max_len,
                                        last_index=[plen - 1])
-            # splice into the pool IN PLACE; KV written past the real prompt
-            # (pad tokens) is zeroed so no stale state enters the pool
-            for pool_g, one_g in zip(self.cache, cache1):
-                for key, kv in pool_g.items():
-                    for name in ("k", "v"):
-                        dst = kv[name][:, slot]          # (repeats, T, H, D)
-                        dst.copy_(one_g[key][name][:, 0])
-                        if self.prefill_buckets:
-                            dst[:, plen:] = 0
+            splice_slot(self.cache, cache1, slot, plen, self.prefill_buckets)
         return logits[0].cpu().numpy()
 
     def _prefill_paged_chunk(self, slot: int, st: dict):
@@ -341,7 +392,7 @@ class ServeEngine:
         chunk = req.prompt[start:start + take] + [0] * (c - take)
         self._prefill_buckets_seen.add(c)
         self.prefill_calls += 1
-        with self._scope():
+        with self._scope(), profile_scope("serve.prefill_chunk"):
             logits, self.cache = M.prefill_chunk(
                 self.params, self._tensor([chunk]), self.cache,
                 self._tensor(self.block_tables[slot]), start, start + take,
@@ -386,7 +437,7 @@ class ServeEngine:
         the caller's."""
         tables = self._step_tables(1) if self.paged else None
         self.decode_calls += 1
-        with self._scope():
+        with self._scope(), profile_scope("serve.decode_step"):
             logits, self.cache = M.decode_step(
                 self.params, self.cache, self._tensor(tokens),
                 self._tensor(self.pos), self.cfg, block_table=tables,
@@ -403,7 +454,8 @@ class ServeEngine:
         tokens = np.asarray(tokens)
         tables = self._step_tables(int(tokens.shape[1]))
         self.verify_calls += 1
-        with self._scope():
+        self._verify_widths.add(int(tokens.shape[1]))
+        with self._scope(), profile_scope("serve.verify"):
             logits, self.cache = M.verify_step(
                 self.params, self.cache, self._tensor(tokens),
                 self._tensor(self.pos), self.cfg, tables,
@@ -439,16 +491,20 @@ class ServeEngine:
         return sched.run_until_idle()
 
     def compile_stats(self) -> dict:
-        """Engine counters under the reference's keys, plus the call counts
-        and the runtime plan-cache counters."""
+        """Engine counters under the reference's keys (``prefill_traces``:
+        distinct prefill buckets, ``decode_traces``: decode calls,
+        ``verify_traces``: distinct verify widths, what a jit would trace),
+        plus the call counts and the runtime plan-cache counters."""
         return {
             "prefill_traces": len(self._prefill_buckets_seen),
             "decode_traces": self.decode_calls,
-            "verify_traces": self.verify_calls,
+            "verify_traces": len(self._verify_widths),
+            "verify_calls": self.verify_calls,
             "prefill_calls": self.prefill_calls,
             "plan_cache": runtime.cache_stats(),
             "mesh": None,
             "attn_backend": self.attn_backend,
             "kv": self.kv_stats(),
-            "spec": None,
+            "spec": (None if self.draft is None
+                     else {"k": self.spec_k, "draft": self.draft.describe()}),
         }

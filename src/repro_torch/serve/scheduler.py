@@ -10,17 +10,30 @@ pool and the KV cache; this module owns *when* its steps run:
   * **prefill / decode rounds**: each round expires overdue requests,
     admits arrived ones into free slots (whole prompts, or with
     ``engine.prefill_chunk`` one chunk per round), then advances ALL
-    active slots with one decode step (FIFO, as the reference);
+    active slots with one decode step (FIFO, as the reference), or, when
+    the engine speculates (``engine.spec_k``), with one propose -> verify
+    -> accept round (:meth:`Scheduler._spec_round`);
   * **streaming**: ``on_token(request, token)`` / ``on_done(request)``
     callbacks as tokens are produced;
   * **sampling**: per-request :class:`SamplingParams`, greedy by default;
-  * **metrics**: TTFT, inter-token latencies, tokens/s and queue depth in
-    :meth:`Scheduler.stats`.
+  * **metrics**: TTFT, inter-token latencies, tokens/s, queue depth and the
+    speculative accept rate in :meth:`Scheduler.stats`; with the obs
+    registry enabled (``repro_torch.obs.enable()`` / ``REPRO_OBS=1``) the
+    same events feed the ``serve.*`` / ``kv.*`` series of
+    ``docs/observability.md``.  Recording only: token streams are the
+    same with observability on or off;
+  * **tracing**: ``Scheduler(trace=True)`` records one span tree per
+    request (``request`` > ``queued`` / ``prefill`` / ``decode`` and a
+    ``first_token`` event) through :class:`repro_torch.obs.Tracer` on the
+    scheduler's own clock (:meth:`Scheduler.elapsed`), so a
+    :class:`ManualClock` workload exports byte-identical JSONL run to run;
+  * **logging**: ``log=`` takes a bare callable (every line forwarded) or
+    None for the structured ``repro_torch.obs`` logger, where per-request
+    lines sit at debug level under ``REPRO_LOG_LEVEL``;
+    ``stats_interval_s=`` adds a periodic one-line stats summary.
 
-The reference's observability hooks (tracer, metrics registry, periodic
-stats line) wait for the obs slice (ROADMAP A6), and so does speculative
-decoding (``serve/spec.py``).  Time comes from an injectable clock;
-:class:`ManualClock` makes arrivals and deadlines deterministic.
+Time comes from an injectable clock; :class:`ManualClock` makes arrivals
+and deadlines deterministic.
 """
 
 from __future__ import annotations
@@ -32,6 +45,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from .. import obs
 
 __all__ = [
     "ManualClock",
@@ -142,28 +157,48 @@ def _summary(xs: list) -> dict:
     }
 
 
+# KV-pool counters mirrored into gauges each scheduling round (paged
+# engines only; the reference's names, docs/observability.md)
+_KV_GAUGES = (
+    "blocks_in_use", "blocks_in_use_peak", "blocks_cached", "blocks_free",
+    "prefix_hits", "prefix_misses", "allocs", "evictions", "truncations",
+)
+
+
+
+
 class Scheduler:
     """Event-driven continuous batching over one :class:`ServeEngine`.
 
-    ``log``: a callable that receives one line per scheduler event, or
-    None for silence.  ``trace`` / ``tracer`` / ``stats_interval_s`` are
-    the reference's observability hooks and raise until the obs slice
-    ports them (ROADMAP A6).
+    The scheduler drives the engine's slot pool / cache through its
+    internals (``_free_slot`` / ``_prefill_slot`` / ``decode_active`` /
+    ``verify_active``); one scheduler per engine at a time.  ``log``: a
+    bare callable (every line, debug included) or None for the
+    structured ``obs`` logger; ``trace`` / ``tracer``: span recording on
+    :meth:`elapsed`; ``stats_interval_s``: a periodic stats line.
     """
 
     def __init__(self, engine, max_queue: int | None = None, clock=None,
                  log: Callable | None = None, trace: bool = False,
                  tracer=None, stats_interval_s: float | None = None):
-        if trace or tracer is not None or stats_interval_s is not None:
-            raise NotImplementedError(
-                "scheduler tracing / stats lines are not ported yet "
-                "(ROADMAP A6: obs)")
         self.engine = engine
         self.max_queue = max_queue
         self._clock = clock
         self._now = clock.now if clock is not None else time.perf_counter
         self._t0 = self._now()
-        self._log = log
+        # bare callables keep their legacy everything-forwarded behavior;
+        # None routes through the structured process logger (info threshold,
+        # REPRO_LOG_LEVEL) where per-request chatter sits at debug level
+        self.log = obs.as_logger(log, "sched")
+        self.stats_interval_s = stats_interval_s
+        self._last_stats_line = 0.0
+        # span recorder on the scheduler's own clock: ManualClock workloads
+        # trace deterministically (byte-identical JSONL run to run)
+        self.tracer = tracer
+        if trace and self.tracer is None:
+            self.tracer = obs.Tracer(clock=self.elapsed)
+        self._spans: dict[int, dict] = {}      # ACTIVE rid -> span handles
+        self._mx = self._bind_metrics() if obs.enabled() else None
         self.queue: list = []                  # submitted, not yet admitted
         self.finished: list = []               # completion order (+ expired)
         self._on_token: dict[int, Callable] = {}
@@ -174,12 +209,24 @@ class Scheduler:
         self.expired = 0
         self.rejected = 0
         self.decode_steps = 0
-        # bounded metric state: per-request records live only while active
+        # bounded metric state: per-request records live only while the
+        # request is active (<= slots of them); finished requests leave
+        # behind scalars/capped samples, so a long-lived scheduler's
+        # footprint does not grow with total requests served.  finished
+        # itself is the caller's to drain (drain_finished()).
         self._ttfts: collections.deque = collections.deque(maxlen=4096)
         self._itls: collections.deque = collections.deque(maxlen=4096)
         self._tokens_done = 0                  # tokens of finished requests
+        # decode-round shape: tokens emitted per (active slot, round) pair —
+        # exactly 1.0 without speculative decoding, 1 + accepted/round with
         self._round_tokens = 0
         self._round_slots = 0
+        # speculative-decode aggregates (engine.spec_k > 0 rounds only)
+        self._spec_rounds = 0
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._draft_s: collections.deque = collections.deque(maxlen=4096)
+        self._verify_s: collections.deque = collections.deque(maxlen=4096)
         self._span_start: float | None = None  # first admission
         self._span_end: float | None = None    # last emitted token
         self._depth_samples: collections.deque = collections.deque(
@@ -188,10 +235,32 @@ class Scheduler:
         self._depth_sum = 0
         self._depth_max = 0
 
-    def _say(self, msg: str, **fields) -> None:
-        if self._log is not None:
-            extra = " ".join(f"{k}={v}" for k, v in fields.items())
-            self._log(f"{msg} {extra}".strip())
+    def _bind_metrics(self) -> dict:
+        """Resolve the serve.* / kv.* instruments once at construction so
+        the per-round record path is attribute access, not registry
+        lookups.  Only called when obs is enabled; ``self._mx is None``
+        otherwise and every obs block below is skipped outright."""
+        R = obs.REGISTRY
+        mx = {
+            "submitted": R.counter("serve.submitted"),
+            "completed": R.counter("serve.completed"),
+            "expired": R.counter("serve.expired"),
+            "rejected": R.counter("serve.rejected"),
+            "tokens": R.counter("serve.tokens"),
+            "decode_steps": R.counter("serve.decode_steps"),
+            "queue_depth": R.gauge("serve.queue_depth"),
+            "active": R.gauge("serve.active_slots"),
+            "prefilling": R.gauge("serve.prefilling_slots"),
+            "ttft": R.histogram("serve.ttft_s"),
+            "itl": R.histogram("serve.itl_s"),
+            "spec_drafted": R.counter("serve.spec.drafted"),
+            "spec_accepted": R.counter("serve.spec.accepted"),
+            "spec_draft_s": R.histogram("serve.spec.draft_s"),
+            "spec_verify_s": R.histogram("serve.spec.verify_s"),
+        }
+        for k in _KV_GAUGES:
+            mx[f"kv.{k}"] = R.gauge(f"kv.{k}")
+        return mx
 
     # -- time -------------------------------------------------------------
 
@@ -212,10 +281,17 @@ class Scheduler:
     def submit(self, req, on_token: Callable | None = None,
                on_done: Callable | None = None):
         """Enqueue a request; raises :class:`QueueFull` on backpressure.
-        An ``arrival_s`` in the past is bumped to now; a future one keeps
-        the request invisible to admission until then."""
+
+        ``req.arrival_s`` earlier than now is bumped to the submission
+        instant (you cannot arrive in the past); a future value keeps the
+        request invisible to admission until that offset — the hook the
+        sustained-load benchmark drives its deterministic arrival schedule
+        through.
+        """
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             self.rejected += 1
+            if self._mx is not None:
+                self._mx["rejected"].inc()
             raise QueueFull(
                 f"queue full ({len(self.queue)}/{self.max_queue}); "
                 f"request {req.rid} rejected"
@@ -224,6 +300,17 @@ class Scheduler:
         req.status = "queued"
         self.queue.append(req)
         self.submitted += 1
+        if self._mx is not None:
+            self._mx["submitted"].inc()
+        if self.tracer is not None:
+            root = self.tracer.begin(
+                "request", rid=req.rid, prompt_tokens=len(req.prompt),
+                max_new_tokens=req.max_new_tokens,
+            )
+            self._spans[req.rid] = {
+                "request": root,
+                "queued": self.tracer.begin("queued", parent=root),
+            }
         self._on_token[req.rid] = on_token
         self._on_done[req.rid] = on_done
         return req
@@ -232,7 +319,18 @@ class Scheduler:
 
     def step(self) -> bool:
         """Expire, admit, advance staged prefills, then one decode step.
-        Returns True if a prefill or a decode ran."""
+
+        With chunked prefill (``engine.prefill_chunk``) each round advances
+        every mid-prefill slot by ONE chunk before the pooled decode, so a
+        long prompt prefills interleaved with decode instead of stalling
+        the whole pool; without it admission prefills whole prompts
+        synchronously (the classic path — greedy streams bit-identical to
+        the pre-scheduler loop).
+
+        Returns True if any progress was made (a prefill or a decode ran);
+        False means the scheduler is idle right now — either fully drained,
+        or every queued request has a future arrival time.
+        """
         now = self.elapsed()
         self._expire(now)
         progressed = self._admit_arrived(now)
@@ -242,14 +340,27 @@ class Scheduler:
         self._depth_rounds += 1
         self._depth_sum += depth
         self._depth_max = max(self._depth_max, depth)
+        if self._mx is not None:
+            self._sample_gauges(depth)
+        if (self.stats_interval_s is not None
+                and now - self._last_stats_line >= self.stats_interval_s):
+            self._last_stats_line = now
+            self._stats_line(now)
         if any(r is not None for r in self.engine.active):
-            self._decode_round()
+            if self.engine.spec_k:
+                self._spec_round()
+            else:
+                self._decode_round()
             progressed = True
         return progressed
 
     def run_until_idle(self) -> list:
         """Drive :meth:`step` until queue and pool drain; returns finished.
-        When only future arrivals remain, waits for the next one."""
+
+        When the only remaining work is a future arrival, the scheduler
+        waits for it (``time.sleep`` on the wall clock, ``advance`` on a
+        :class:`ManualClock`).
+        """
         eng = self.engine
         while (self.queue or any(r is not None for r in eng.active)
                or eng.prefilling_slots()):
@@ -268,11 +379,14 @@ class Scheduler:
                 r.done = True
                 r.status = "expired"
                 self.expired += 1
+                if self._mx is not None:
+                    self._mx["expired"].inc()
+                self._trace_finish(r, "expired")
                 self.finished.append(r)
                 self._finish_cb(r)
                 self._retire(r.rid)
-                self._say("request expired", rid=r.rid,
-                          queued_s=round(now - r.arrival_s, 3))
+                self.log.debug("request expired", rid=r.rid,
+                               queued_s=round(now - r.arrival_s, 3))
             else:
                 keep.append(r)
         self.queue = keep
@@ -292,41 +406,62 @@ class Scheduler:
                 break
             req = self.queue.pop(idx)
             if eng.prefill_chunk is not None:
-                # chunked prefill: claim the slot now, one chunk per round
+                # chunked prefill: claim the slot now, advance one chunk per
+                # round (_advance_prefills) — the first token is emitted
+                # when the prompt completes
+                self._trace_admit(req, chunked=True)
                 eng._begin_prefill(slot, req)
                 req.status = "running"
                 admitted = True
-                self._say("admitted request", rid=req.rid, prefill="chunked",
-                          queued=len(self.queue))
+                self.log.debug("admitted request", rid=req.rid,
+                               prefill="chunked", queued=len(self.queue))
                 continue
+            self._trace_admit(req, chunked=False)
             logits = eng._prefill_slot(slot, req)
             self._first_token(req, logits)
             admitted = True
-            self._say("admitted request", rid=req.rid, queued=len(self.queue))
+            self.log.debug("admitted request", rid=req.rid,
+                           queued=len(self.queue))
         return admitted
 
     def _advance_prefills(self) -> bool:
-        """One chunk for every mid-prefill slot; emits the first token of
-        any prompt that completes this round."""
+        """One chunk of progress for every mid-prefill slot (chunked mode);
+        emits the first token of any prompt that completes this round."""
         eng = self.engine
         progressed = False
         for slot in eng.prefilling_slots():
             req = eng._prefilling[slot]["req"]
             logits = eng._prefill_step(slot)
             progressed = True
+            if self.tracer is not None:
+                sp = self._spans.get(req.rid)
+                if sp is not None and "chunks" in sp:
+                    sp["chunks"] += 1
             if logits is not None:
                 self._first_token(req, logits)
-                self._say("prefill complete", rid=req.rid)
+                self.log.debug("prefill complete", rid=req.rid)
         return progressed
 
     def _first_token(self, req, logits) -> None:
-        """Select and record a freshly prefilled request's first token."""
+        """Select and record a freshly-prefilled request's first token."""
         t = self.elapsed()
         tok = self._select(req, logits)
         req.output.append(tok)
         req.status = "running"
         req.ttft_s = t - req.arrival_s
         self._ttfts.append(req.ttft_s)
+        if self._mx is not None:
+            self._mx["ttft"].observe(req.ttft_s)
+        if self.tracer is not None:
+            sp = self._spans.get(req.rid)
+            if sp is not None:
+                pre = sp.pop("prefill", None)
+                if pre is not None:
+                    self.tracer.end(pre, chunks=sp.pop("chunks", 0))
+                self.tracer.event("first_token", parent=sp["request"],
+                                  ttft_s=round(req.ttft_s, 9))
+                sp["decode"] = self.tracer.begin("decode",
+                                                 parent=sp["request"])
         self._rec[req.rid] = {
             "arrival": req.arrival_s, "admit": t, "token_times": [t],
         }
@@ -343,8 +478,12 @@ class Scheduler:
                 tokens[i] = r.output[-1]
         logits = eng.decode_active(tokens)
         self.decode_steps += 1
-        # pure-greedy pools take the device-side argmax (B ints to the
-        # host, not the (slots, vocab) logits)
+        if self._mx is not None:
+            self._mx["decode_steps"].inc()
+        # pure-greedy pools (the common case, and all of run()) take the
+        # device-side argmax — transferring B ints per step, not the whole
+        # (slots, vocab) logits matrix; the full rows come to host only
+        # when some active request actually samples
         if any(getattr(r, "sampling", None) is not None
                for r in eng.active if r is not None):
             rows, nxt = logits.cpu().numpy(), None
@@ -358,7 +497,8 @@ class Scheduler:
             eng.pos[i] += 1
             tok = int(nxt[i]) if rows is None else self._select(r, rows[i])
             # a slot admitted behind the scheduler's back (direct
-            # ServeEngine._admit) is adopted on its first decode
+            # ServeEngine._admit) is adopted on its first decode: timing
+            # starts now, its prefill token predates the record
             rec = self._rec.setdefault(
                 r.rid, {"arrival": r.arrival_s, "admit": t, "token_times": []}
             )
@@ -369,31 +509,150 @@ class Scheduler:
                     or eng.pos[i] >= eng.max_len - 1):
                 self._finish_request(r, i, t, rec)
 
+    def _spec_round(self) -> None:
+        """One speculative decode round: propose -> verify -> accept/emit.
+
+        The drafter proposes ``spec_k`` greedy tokens per active slot; the
+        target scores all k+1 positions in ONE batched forward
+        (``verify_active``); the longest draft prefix matching the
+        target's own greedy argmax is accepted, and the matching argmax
+        tokens plus the first-mismatch correction are emitted through the
+        SAME per-token finish checks as :meth:`_decode_round`.  Every
+        emitted token is the argmax of the target's verify row for its
+        position, so greedy streams equal ``spec_decode=0`` wherever a
+        verify row equals the sequential ``decode_step`` row (the
+        reference's invariant; the port's tests hold it on the CPU, and
+        ``chip_smoke.py`` measures on the card how far a bf16 matmul over
+        slots x (k+1) rows moves a row's logits against one over slots
+        rows).  Speculation only decides how many rows a round consumes.
+        Sampled requests emit ONE token from row 0 under the classic
+        ``(seed, rid, position)`` draw (their drafts are discarded).
+        Rejected draft KV rolls back via ``truncate_slot`` /
+        ``draft.truncate``.
+        """
+        eng = self.engine
+        k = eng.spec_k
+        draft = eng.draft
+        active = [(i, r) for i, r in enumerate(eng.active) if r is not None]
+        # catch-up token lists: the true tokens at drafter positions
+        # dpos..pos inclusive (one entry at steady state; two after a
+        # fully-accepted round — see DraftModel.propose)
+        pend = {}
+        for i, r in active:
+            plen = len(r.prompt)
+            lo, hi = int(draft.pos[i]), int(eng.pos[i])
+            pend[i] = [r.prompt[p] if p < plen else r.output[p - plen]
+                       for p in range(lo, hi + 1)]
+        t0 = time.perf_counter()
+        drafts = draft.propose(pend, k)
+        t1 = time.perf_counter()
+        tokens = np.zeros((eng.slots, k + 1), np.int32)
+        for i, r in active:
+            tokens[i, 0] = r.output[-1]
+            tokens[i, 1:] = drafts[i]
+        logits = eng.verify_active(tokens)
+        self.decode_steps += 1
+        self._spec_rounds += 1
+        if self._mx is not None:
+            self._mx["decode_steps"].inc()
+        # pure-greedy pools take the device-side argmax — (slots, k+1) ints
+        # per round, not the logits cube; full rows come to host only when
+        # some active request actually samples
+        if any(getattr(r, "sampling", None) is not None for _, r in active):
+            rows = logits.cpu().numpy()                     # (slots, k+1, V)
+            g = np.argmax(rows, axis=-1)
+        else:
+            rows = None
+            g = logits.argmax(dim=-1).cpu().numpy()         # (slots, k+1)
+        t2 = time.perf_counter()
+        self._draft_s.append(t1 - t0)
+        self._verify_s.append(t2 - t1)
+        if self._mx is not None:
+            self._mx["spec_draft_s"].observe(t1 - t0)
+            self._mx["spec_verify_s"].observe(t2 - t1)
+        t = self.elapsed()
+        self._span_end = t
+        for i, r in active:
+            rec = self._rec.setdefault(
+                r.rid, {"arrival": r.arrival_s, "admit": t, "token_times": []}
+            )
+            sampled = getattr(r, "sampling", None) is not None
+            if sampled:
+                toks = [self._select(r, rows[i, 0])]
+            else:
+                m = 0
+                while m < k and int(tokens[i, m + 1]) == int(g[i, m]):
+                    m += 1
+                toks = [int(g[i, j]) for j in range(m + 1)]
+                self._spec_drafted += k
+                self._spec_accepted += m
+                if self._mx is not None:
+                    self._mx["spec_drafted"].inc(k)
+                    self._mx["spec_accepted"].inc(m)
+            # accepted tokens still pass the baseline's PER-TOKEN finish
+            # checks: acceptance can never run past EOS / max_new_tokens /
+            # the max_len position cap (tokens after the finish point are
+            # discarded, exactly as the baseline would never produce them)
+            emit = []
+            out_len = len(r.output)
+            posi = int(eng.pos[i])
+            finished = False
+            for tok in toks:
+                posi += 1
+                out_len += 1
+                emit.append(tok)
+                if (tok == r.eos_id or out_len >= r.max_new_tokens
+                        or posi >= eng.max_len - 1):
+                    finished = True
+                    break
+            eng.pos[i] = posi
+            self._round_tokens += len(emit)
+            self._round_slots += 1
+            self._emit_tokens(r, rec, emit, t)
+            if finished:
+                self._finish_request(r, i, t, rec)
+            else:
+                # roll back the rejected speculative KV tail on both models
+                eng.truncate_slot(i, posi)
+                draft.truncate(i, posi)
+
     def _finish_request(self, r, slot: int, t: float, rec: dict) -> None:
         r.done = True
         r.status = "done"
         r.latency_s = t - rec["admit"]
         self.completed += 1
+        if self._mx is not None:
+            self._mx["completed"].inc()
+        self._trace_finish(r, "done")
         self.finished.append(r)
         self.engine.release_slot(slot)
         self._finish_cb(r)
         self._retire(r.rid)
-        self._say("request done", rid=r.rid, tokens=len(r.output),
-                  latency_s=round(r.latency_s, 3))
+        self.log.debug("request done", rid=r.rid, tokens=len(r.output),
+                       latency_s=round(r.latency_s, 3))
 
     def _emit_tokens(self, r, rec: dict, toks: list, t: float) -> None:
-        """Record and stream tokens emitted together at instant ``t``."""
+        """Record + stream tokens emitted together at wall instant ``t``.
+
+        Multi-token acceptance (speculative decode) lands n > 1 tokens of
+        one request in one round; inter-token latency stays
+        per-EMITTED-token by spreading the round's wall time uniformly
+        across them — each gap records as (t - last) / n, which at n = 1
+        is exactly the classic per-round ITL."""
         times = rec["token_times"]
         n = len(toks)
         last = times[-1] if times else t
         for j, tok in enumerate(toks, start=1):
             tj = t if j == n else last + (t - last) * (j / n)
             r.output.append(tok)
+            if self._mx is not None and times:
+                self._mx["itl"].observe(tj - times[-1])
             times.append(tj)
             self._emit(r, tok)
 
     def _retire(self, rid: int) -> None:
-        """Fold a finished request's record into the capped aggregates."""
+        """Fold a finished request's record into the capped aggregates and
+        drop all per-request state (records live only while active)."""
         rec = self._rec.pop(rid, None)
         if rec is not None:
             times = rec["token_times"]
@@ -409,6 +668,8 @@ class Scheduler:
         return sample_token(logits_row, sp, req.rid, len(req.output))
 
     def _emit(self, req, tok: int) -> None:
+        if self._mx is not None:
+            self._mx["tokens"].inc()
         cb = self._on_token.get(req.rid)
         if cb is not None:
             cb(req, tok)
@@ -418,22 +679,110 @@ class Scheduler:
         if cb is not None:
             cb(req)
 
+    # -- obs hooks (no-ops unless tracing / metrics are enabled) -----------
+
+    def _trace_admit(self, req, chunked: bool) -> None:
+        """queued span ends, prefill span opens (admission instant)."""
+        if self.tracer is None:
+            return
+        sp = self._spans.get(req.rid)
+        if sp is None:
+            return  # submitted before tracing was attached
+        q = sp.pop("queued", None)
+        if q is not None:
+            self.tracer.end(q)
+        sp["prefill"] = self.tracer.begin("prefill", parent=sp["request"],
+                                          chunked=chunked)
+        sp["chunks"] = 0
+
+    def _trace_finish(self, req, status: str) -> None:
+        """Close the request's whole span tree (done or expired)."""
+        if self.tracer is None:
+            return
+        sp = self._spans.pop(req.rid, None)
+        if sp is None:
+            return
+        dec = sp.get("decode")
+        if dec is not None and dec.open:
+            self.tracer.end(dec, tokens=len(req.output))
+        for k in ("queued", "prefill"):
+            s = sp.get(k)
+            if s is not None and s.open:
+                self.tracer.end(s)
+        if sp["request"].open:
+            self.tracer.end(sp["request"], status=status,
+                            tokens=len(req.output))
+
+    def _sample_gauges(self, depth: int) -> None:
+        """Mirror the point-in-time pool state into the obs gauges (one
+        call per scheduling round; only reached when obs is enabled)."""
+        mx = self._mx
+        mx["queue_depth"].set(depth)
+        mx["active"].set(sum(r is not None for r in self.engine.active))
+        mx["prefilling"].set(len(self.engine.prefilling_slots()))
+        kv = self.engine.kv_stats()
+        if kv:
+            for k in _KV_GAUGES:
+                if k in kv:
+                    mx[f"kv.{k}"].set(kv[k])
+
+    def _stats_line(self, now: float) -> None:
+        """One periodic info-level summary line through the structured
+        logger (``stats_interval_s=``) — replaces ad-hoc caller lambdas."""
+        s = self.stats()
+        ttft_p50 = None if s["ttft_s"] is None else s["ttft_s"]["p50"]
+        self.log.info(
+            "stats",
+            elapsed_s=round(now, 3),
+            submitted=s["submitted"], completed=s["completed"],
+            expired=s["expired"], rejected=s["rejected"],
+            queued=s["queued"], active=s["active"],
+            tokens=s["tokens"],
+            tokens_per_s=(round(s["tokens_per_s"], 1)
+                          if s["tokens_per_s"] is not None else None),
+            ttft_p50_s=(round(ttft_p50, 4) if ttft_p50 is not None else None),
+        )
+
     # -- observability ----------------------------------------------------
 
     def queue_depth_trace(self) -> list:
-        """(elapsed_s, queue_depth) samples, one per scheduling round."""
+        """(elapsed_s, queue_depth) samples, one per scheduling round
+        (capped tail: the most recent 4096 rounds)."""
         return list(self._depth_samples)
 
     def drain_finished(self) -> list:
-        """Return and clear the finished list."""
+        """Return and clear the finished list — long-lived callers should
+        drain periodically so completed Request objects don't accumulate."""
         out, self.finished = self.finished, []
         return out
 
     def stats(self) -> dict:
-        """Aggregate metrics snapshot (the reference's keys; ``spec`` is
-        None until speculative decoding is ported).  TTFT counts from
-        arrival; ITLs are per emitted token; ``tokens_per_s`` spans first
-        admission to the last emitted token."""
+        """Aggregate metrics snapshot (the reference's keys; see
+        docs/serving.md for the glossary).
+
+        TTFT is measured from *arrival* (not admission), so queueing delay
+        under load shows up where a caller would feel it; inter-token
+        latencies are PER EMITTED TOKEN — the gaps between consecutive
+        emitted tokens of one request, pooled over all requests (finished
+        aggregates plus the currently active requests' partial streams).
+        When a round emits n > 1 tokens of one request (speculative
+        multi-token acceptance) the round's wall time spreads uniformly
+        across them, so ITL keeps meaning seconds-per-token instead of
+        deflating to seconds-per-round; ``tokens_per_round`` (mean tokens
+        emitted per active slot per decode round — exactly 1.0 without
+        speculation) carries the round-shape signal separately.
+        ``tokens_per_s`` spans first admission to the last emitted token.
+        TTFT/ITL percentiles are over the most recent 4096 samples.
+        ``spec`` is None unless the engine speculates (``spec_decode=k``);
+        ``accept_rate`` is accepted/drafted over greedy slots (sampled
+        requests discard their drafts and are not counted).
+
+        Every field is defined for every scheduler state: zero completed
+        requests never divides by zero or emits NaN (``tokens_per_s`` is
+        None until a span exists), and a workload where no request ever
+        produced a first token — e.g. everything expired in the queue —
+        reports ``ttft_s: None`` rather than an empty summary dict.
+        """
         active_recs = list(self._rec.values())
         itls = list(self._itls) + [
             b - a for rec in active_recs
@@ -461,7 +810,16 @@ class Scheduler:
                                  if self._round_slots else None),
             "ttft_s": _summary(list(self._ttfts)) if self._ttfts else None,
             "itl_s": _summary(itls),
-            "spec": None,
+            "spec": (None if not getattr(self.engine, "spec_k", 0) else {
+                "k": self.engine.spec_k,
+                "rounds": self._spec_rounds,
+                "drafted": self._spec_drafted,
+                "accepted": self._spec_accepted,
+                "accept_rate": (self._spec_accepted / self._spec_drafted
+                                if self._spec_drafted else None),
+                "draft_s": _summary(list(self._draft_s)),
+                "verify_s": _summary(list(self._verify_s)),
+            }),
             "queue_depth": {
                 "samples": len(self._depth_samples),
                 "rounds": self._depth_rounds,

@@ -20,7 +20,9 @@ ragged stream tiles, with a row's bits equal at 32 rows and the full
 batch, and on the wide path's R-chunks;
 the slice's fused path against "ref"; the acim backend's quiet run
 against "fused" bit for bit and its noise under one generator seed; and
-one layer of the full-width qwen2.5-14b KAN-FFN model served on the card.  This file
+one layer of the full-width qwen2.5-14b KAN-FFN model served on the card,
+also with speculative decoding (k = 2) against plain decode, and B1 at the
+drafter's G = 4 halves.  This file
 imports only the port, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -70,6 +72,14 @@ def test_b1_kernel_matches_plain(dev, grid, f, o, order):
 def test_b1_kernel_matches_plain_at_full_width_ffn(dev, grid, f, o, flags,
                                                    rows):
     gen = torch.Generator(device=dev).manual_seed(f + rows)
+    cc.check_b1(dev, gen, grid, f, o, flags, rows, eps=cc.FFN_FULL_TIE_EPS)
+
+
+@pytest.mark.parametrize("grid,f,o,flags,rows", cc.B1_FFN_DRAFT)
+def test_b1_kernel_matches_plain_at_draft_ffn(dev, grid, f, o, flags, rows):
+    """The speculative drafter's halves (G=4: 7 basis functions) at full
+    width, at the row buckets its decode and the 20-row verify give."""
+    gen = torch.Generator(device=dev).manual_seed(f + rows + grid)
     cc.check_b1(dev, gen, grid, f, o, flags, rows, eps=cc.FFN_FULL_TIE_EPS)
 
 
@@ -151,6 +161,60 @@ def test_one_full_width_layer_serves_through_b1_and_b2(dev):
                                         "kan_pipeline_layer": 2 * calls}, kw
         del eng
     del params
+    torch.cuda.empty_cache()
+
+
+def test_spec_decode_on_one_full_width_layer_matches_plain_decode(dev):
+    """One layer of the full-width qwen2.5-14b kan_variant(), paged, with
+    the default drafter (grid 4) at k = 2: the spec streams equal the
+    k = 0 streams but where the k = 0 top-2 margin is within twice the
+    measured verify-vs-decode logit difference (``serve.cardcheck``; with
+    a difference of 0 they are equal), and B1 / B2 launch on every layer
+    of every target and drafter call."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import cardcheck as sc
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("qwen2.5-14b").kan_variant(),
+                              num_layers=1)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    prompts = [list(range(3, 23)), list(range(100, 400))]
+    kw = dict(slots=2, max_len=512, kan_deploy=True, kv_block_size=16,
+              prefill_chunk=128, device=dev)
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+
+    # the difference on an engine of its own (its prefills publish the
+    # prompts' blocks to the prefix cache)
+    delta = sc.verify_decode_delta(ServeEngine(params, cfg, **kw), prompts,
+                                   2)["max_abs_delta"]
+    eng = ServeEngine(params, cfg, **kw)
+    margins = sc.record_step_margins(eng)
+    base = {r.rid: r.output for r in eng.run(reqs())}
+    del eng
+    eng = ServeEngine(params, cfg, spec_decode=2, **kw)
+    cuda.reset_launch_counts()
+    spec = {r.rid: r.output for r in eng.run(reqs())}
+    torch.cuda.synchronize()
+    parted = sc.spec_divergences(base, spec, margins, delta)
+    if delta == 0:
+        assert spec == base
+    st = eng.compile_stats()
+    d = st["spec"]["draft"]
+    calls = (st["prefill_calls"] + st["verify_calls"] + d["prefill_calls"]
+             + d["decode_traces"])
+    assert st["decode_traces"] == 0 and st["verify_calls"] > 0
+    assert cuda.launch_counts() == {"flash_attention": calls,
+                                    "kan_pipeline_layer": 2 * calls}
+    print(f"verify-vs-decode |dlogit| {delta}; streams parted at {parted}")
+    del eng, params
     torch.cuda.empty_cache()
 
 

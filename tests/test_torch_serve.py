@@ -20,6 +20,7 @@ from different tokens).
 
 import contextlib
 import io
+import json
 
 import jax
 import jax.numpy as jnp
@@ -185,7 +186,9 @@ def test_engine_refuses_what_is_not_ported(setup):
     _, cfg, _, tp = setup
     with pytest.raises(NotImplementedError, match="A10"):
         ServeEngine(tp, cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
+    # speculative decoding is ported (tests/test_torch_spec.py): only its
+    # inconsistent settings are refused
+    with pytest.raises(ValueError, match="kan_deploy"):
         ServeEngine(tp, cfg, spec_decode=2, kv_block_size=8, device="cpu")
     with pytest.raises(ValueError):
         ServeEngine(tp, smoke_config("qwen2.5-14b"), kan_deploy=True,
@@ -249,9 +252,48 @@ def test_cli_serves_at_smoke_size_on_the_cpu(setup):
     out = buf.getvalue()
     assert "served requests=3" in out, out
     assert "attn_backend=flash" in out and "kan_backend=fused" in out, out
-    for flag in ("--mesh", "--spec-decode", "--trace-out"):
+    assert set(cli.NOT_PORTED) == {"mesh", "tuned_config"}
+    for flag in ("--mesh", "--tuned-config"):
         with pytest.raises(SystemExit, match="not ported yet"):
             cli.main(["--arch", "qwen2.5-14b", flag, "1", "--device", "cpu"])
+
+
+def test_cli_spec_decode_trace_and_metrics_on_the_cpu(setup, tmp_path):
+    """The seven flags the obs and spec slice ported, in one CPU run:
+    --spec-decode / --draft-spec serve through the drafter, --trace-out
+    writes the span records, --metrics-dump both snapshot formats,
+    --metrics-port serves /metrics while it runs, --log-level and
+    --stats-interval drive the structured logger."""
+    from repro_torch import obs
+
+    trace, prom, js = (tmp_path / n for n in ("t.jsonl", "m.prom", "m.json"))
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(["--arch", "qwen2.5-14b", "--kan-ffn", "--requests", "3",
+                      "--slots", "2", "--max-new", "4", "--kv-block-size",
+                      "8", "--spec-decode", "2", "--draft-spec", "grid=4",
+                      "--trace-out", str(trace), "--metrics-dump", str(prom),
+                      "--metrics-dump", str(js), "--metrics-port", "0",
+                      "--log-level", "info", "--stats-interval", "0",
+                      "--device", "cpu"])
+    finally:
+        obs.disable()
+        obs.REGISTRY.reset()
+    out = buf.getvalue()
+    assert "serve: spec decode k=2 draft_grid=4" in out, out
+    assert "served requests=3" in out and "accept_rate=" in out, out
+    assert "metrics server url=http://127.0.0.1:" in out, out
+    assert "stats elapsed_s=" in out, out
+    recs = [json.loads(ln) for ln in trace.read_text().splitlines()]
+    assert sum(r["name"] == "request" for r in recs) == 3
+    assert obs.parse_prometheus_text(prom.read_text())["serve_completed"] == 3
+    assert json.loads(js.read_text())["metrics"]["serve.spec.drafted"][
+        "value"] > 0
+    for argv in (["--spec-decode", "2", "--kv-block-size", "8"],
+                 ["--spec-decode", "2", "--kan-ffn"]):
+        with pytest.raises(SystemExit, match="--spec-decode requires"):
+            cli.main(["--arch", "qwen2.5-14b", *argv, "--device", "cpu"])
 
 
 def test_cpu_run_launches_no_kernel(setup):

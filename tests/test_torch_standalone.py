@@ -43,7 +43,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "models.model", "serve.engine", "serve.scheduler",
               "launch.serve", "configs.registry", "core.kan_ffn_deploy",
               "core.tmdv", "core.cim", "core.sam", "kernels.cim_mac.ops",
-              "kernels.cim_mac.cardcheck"):
+              "kernels.cim_mac.cardcheck", "obs.metrics", "obs.trace",
+              "obs.logging", "obs.exposition", "serve.spec",
+              "serve.cardcheck"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
