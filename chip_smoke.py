@@ -38,9 +38,10 @@ Phases (any failure exits non-zero):
      (default "fused" backend) and, for KAN1, the single-layer B3 path of the
      quickstart; every answer is held against the "ref" backend; the
      dispatch, launch and plan-cache counters are checked;
-  5. CUDA-event times of B1 and B3 at the slice's 65536-row shapes beside
-     their bounds and plain versions, the 65536-row request time and the
-     peak device memory of those requests;
+  5. CUDA-event times of B1 and B3 at the slice's 65536-row shapes,
+     L2-cold (``cold_ms``) and warm, beside their bounds and plain
+     versions, the 65536-row request time and the peak device memory of
+     those requests;
   5b. the acim KAN slice: KAN1, KAN2 and mixed (8, 4) KAN1 at 1..65536 rows
      through ``runtime.execute(backend="acim")``: a quiet config is "fused"
      bit for bit; IR-drop only (natural and KAN-SAM placement) matches the
@@ -79,15 +80,30 @@ Phases (any failure exits non-zero):
      top-2 margin within twice that difference, counted), every token
      under the teacher-forced gate, rounds, accept rate, tokens/s, draft
      and verify times, B1 / B2 launches per round, peak memory;
-  7. CUDA-event times of B2 at the three shapes the serving path gives it,
-     at decode over 4096 keys and at the k = 4 verify pass (with its KV
-     split count), of B1 at the full-width FFN halves of the target and of
-     the drafter (with their feature split count), beside bounds,
-     plain versions and ``scaled_dot_product_attention`` from the same run;
-     and of B4 at the simulator path's six shapes and the reference's
-     largest case, L2-cold (``cold_ms``) and warm (events, graph replay),
-     beside its bound, its plain version and a cold read of x;
-  8. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
+  7. CUDA-event times, L2-cold and warm, of B2 at the three shapes the
+     serving path gives it, at decode over 4096 keys and at the k = 4
+     verify pass (with its KV split count), of B1 at the full-width FFN
+     halves of the target and of the drafter (with their feature split
+     count) and at each row tile (16, 32, 64; bits checked equal) on the
+     target's halves at 8 and 1024 rows, beside bounds, plain versions and
+     ``scaled_dot_product_attention`` (warm) from the same run; and of B4
+     at the simulator path's six shapes and the reference's largest case,
+     L2-cold and warm (events, graph replay), beside its bound, its plain
+     version and a cold read of x;
+  8. the co-design flow of ``examples/tune_deploy.py`` at its full budgets
+     (``repro_torch.tune``): the knot task's (17, 1, 14) G=8 base network
+     trained on the card (8192 / 1024 rows, 120 epochs), its float, fused
+     and acim validation accuracy beside the 17-420-420-14 MLP baseline's,
+     the cost model's MLP / KAN1 area, energy and latency ratios inside the
+     reference's bands, the Pareto search (budget 32, ``DesignSpace()``,
+     0.02 mm2 / 300 pJ / 900 ns) with B1 and its noise operand on every
+     acim accuracy run, run twice under one seed (equal fronts), the
+     chosen point's B1 tile sweep in measured mode (every kept trial
+     bit-exact), the artifact saved, the runtime reset, reloaded and
+     redeployed (bit-identical outputs and codes), and ``launch.serve
+     --tuned-config`` serving the full-width 4-layer LM at the chosen
+     point;
+  9. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
 
 A longer report goes to ``reports/chip_smoke_report.json`` (gitignored).
 """
@@ -593,8 +609,8 @@ def phase_times(dev, models, report) -> dict:
     rows, totals = [], {}
     # library_ms stays none: no single PyTorch call computes either kernel's
     # function (a gathered band MAC + requantizer), so none is timed
-    print("B1 at 65536 rows: layer | kernel ms | plain ms | bound ms (by) | "
-          "library_ms: none")
+    print("B1 at 65536 rows: layer | kernel ms L2-cold | warm (graph) | "
+          "back-to-back events | plain ms | bound ms (by) | library_ms: none")
     for name, (_, _, dep) in models.items():
         plan = runtime.PLAN_CACHE.plan(bp, dep.dims, dep.specs,
                                        residual_raw=dep.residual_raw)
@@ -606,6 +622,8 @@ def phase_times(dev, models, report) -> dict:
         for li, (lp, lw) in enumerate(zip(plan.layers, dep.layers)):
             args = (codes, xraw if lp.residual_raw else None, lw, lp, bp)
             ms = cuda_ms(lambda: pl.run_pipeline_layer(*args), reps=50)
+            cold = cold_ms(lambda: pl.run_pipeline_layer(*args))
+            warm = graph_ms(lambda: pl.run_pipeline_layer(*args), 20)
             plain = cuda_ms(lambda: pl.run_pipeline_layer_plain(*args), reps=5,
                             warmup=1)
             b_ms, by = bound(*b1_work(lp, lw, bp))
@@ -614,11 +632,13 @@ def phase_times(dev, models, report) -> dict:
                          "nb": lp.spec.num_basis,
                          "feature_splits": pl.feature_split_plan(lp.f, lp.o)[0],
                          "packed_w": "wcp" in lw, "packed_lut": "lutp" in lw,
-                         "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                         "ms": cold, "cold_ms": cold, "warm_ms": warm,
+                         "event_ms": ms, "plain_ms": plain, "bound_ms": b_ms,
                          "bound_by": by})
             print(f"  {name}/{li} f={lp.f} o={lp.o} fp={lp.fp} op={lp.op} "
                   f"nb={lp.spec.num_basis} splits={rows[-1]['feature_splits']}"
-                  f" | {ms:.4f} | {plain:.4f} | {b_ms:.4f} ({by})")
+                  f" | {cold:.4f} | {warm:.4f} | {ms:.4f} | {plain:.4f} | "
+                  f"{b_ms:.4f} ({by})")
             y, nxt = pl.run_pipeline_layer(*args)
             codes, xraw = nxt, y
 
@@ -626,22 +646,27 @@ def phase_times(dev, models, report) -> dict:
     specs = kspec1.layer_specs()
     x = torch.as_tensor(knot[:bp], device=dev)
     c0 = quantize_input(x, specs[0])
-    print("B3 at 65536 rows (quickstart's KAN1 layers), library_ms: none:")
+    print("B3 at 65536 rows (quickstart's KAN1 layers): layer | kernel ms "
+          "L2-cold | warm (graph) | back-to-back events | plain ms | bound ms "
+          "(by) | library_ms: none")
     for li, (qp, spec) in enumerate(zip(qp1, specs)):
         wc = qp["c_q"].to(torch.float32) * qp["c_scale"]
         wb = qp["w_b_q"].to(torch.float32) * qp["w_b_scale"]
         args = (c0, qp["lut"], wc, wb, spec)
         ms = cuda_ms(lambda: kan_spline(*args), reps=50)
+        cold = cold_ms(lambda: kan_spline(*args))
+        warm = graph_ms(lambda: kan_spline(*args), 20)
         plain = cuda_ms(lambda: kan_spline_ref(*args), reps=5, warmup=1)
         f, nb, o = wc.shape
         nbytes = (c0.numel() * 4 + qp["lut"].numel() * 4 + wc.numel() * 4
                   + wb.numel() * 4 + bp * o * 4)
         b_ms, by = bound(nbytes, 2 * bp * f * o * (spec.order + 2))
         rows.append({"kernel": "kan_spline", "layer": f"kan1/{li}", "fp": f,
-                     "op": o, "nb": nb, "ms": ms, "plain_ms": plain,
+                     "op": o, "nb": nb, "ms": cold, "cold_ms": cold,
+                     "warm_ms": warm, "event_ms": ms, "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": by})
-        print(f"  kan1/{li} F={f} O={o} | {ms:.4f} | {plain:.4f} | "
-              f"{b_ms:.4f} ({by})")
+        print(f"  kan1/{li} F={f} O={o} | {cold:.4f} | {warm:.4f} | "
+              f"{ms:.4f} | {plain:.4f} | {b_ms:.4f} ({by})")
         if li == 0:
             c0 = quantize_input(torch.tanh(kan_spline(*args)), specs[1])
 
@@ -651,15 +676,19 @@ def phase_times(dev, models, report) -> dict:
         for r in sel:
             by_time[r["bound_by"]] += r["bound_ms"]
         totals[kern] = {
-            "ms": sum(r["ms"] for r in sel),
+            "ms": sum(r["cold_ms"] for r in sel),
+            "warm_ms": sum(r["warm_ms"] for r in sel),
+            "event_ms": sum(r["event_ms"] for r in sel),
             "plain_ms": sum(r["plain_ms"] for r in sel),
             "bound_ms": sum(r["bound_ms"] for r in sel),
             "bound_by": max(by_time, key=by_time.get),
         }
         t = totals[kern]
-        print(f"{kern} at 65536 rows, all layers: {t['ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
-              f"bound / kernel time {100 * t['bound_ms'] / t['ms']:.2f}%")
+        print(f"{kern} at 65536 rows, all layers: {t['ms']:.4f} ms L2-cold "
+              f"({t['warm_ms']:.4f} warm, {t['event_ms']:.4f} back-to-back "
+              f"events), bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}), bound / cold time "
+              f"{100 * t['bound_ms'] / t['ms']:.2f}%")
 
     e2e = {}
     torch.cuda.synchronize()
@@ -1876,53 +1905,64 @@ def phase_times_lm(dev, report) -> tuple:
     print("B2 at the serving path's shapes, and decode over a 4096-key "
           "cache (bf16, 48 q heads / 8 kv heads, D=128), held against plain "
           f"(bf16 tol: one bf16 ulp + {ac.F32_TOL} + rel): shape | KV splits"
-          " | kernel ms | plain ms | sdpa ms | bound ms (by) | max |err| | "
+          " | kernel ms L2-cold | warm (graph) | back-to-back events | plain "
+          "ms | sdpa ms L2-cold | warm (graph) | bound ms (by) | max |err| | "
           "err / tol")
     for name, b, s, t, kind in ac.PATH_SHAPES + DECODE_LONG + VERIFY_SHAPES:
         # raises if the kernel disagrees with plain beyond the gate
         st, (q, k, v, qpos, kpos) = ac.check_b2_path(dev, name, b, s, t, kind)
         args = dict(kind=kind, qpos=qpos, kpos=kpos)
         ms = cuda_ms(lambda: flash_attention(q, k, v, **args), reps=20)
+        cold = cold_ms(lambda: flash_attention(q, k, v, **args))
+        warm = graph_ms(lambda: flash_attention(q, k, v, **args), 20)
         plain = cuda_ms(lambda: flash_attention_plain(
             q, k, v, qpos, kpos, kind=kind, window=0, softcap=0.0,
             scale=128 ** -0.5, kv_splits=st["kv_splits"]), reps=3, warmup=1)
         mask = (kpos[:, None, None, :] <= qpos[:, None, :, None]) \
             & (kpos[:, None, None, :] >= 0)                  # (B, 1, S, T)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=20)
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        lib, lib_warm = cold_ms(sdpa), graph_ms(sdpa, 20)
         pairs = int(mask.sum().item())          # admitted (q, k) per head
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         flops = 4 * 48 * 128 * pairs
         b_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
         rows.append({"kernel": "flash_attention", "shape": name, "B": b,
-                     "S": s, "T": t, "admitted_pairs": pairs, "ms": ms,
-                     "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                     "S": s, "T": t, "admitted_pairs": pairs, "ms": cold,
+                     "cold_ms": cold, "warm_ms": warm, "event_ms": ms,
+                     "plain_ms": plain, "library_ms": lib,
+                     "library_warm_ms": lib_warm, "bound_ms": b_ms,
                      "bound_by": by, "on_path": (name, b, s, t, kind)
                      in ac.PATH_SHAPES, **st})
-        print(f"  {name} B={b} S={s} T={t} | {st['kv_splits']} | {ms:.4f} | "
-              f"{plain:.4f} | {lib:.4f} | {b_ms:.4f} ({by}) | "
+        print(f"  {name} B={b} S={s} T={t} | {st['kv_splits']} | {cold:.4f} | "
+              f"{warm:.4f} | {ms:.4f} | {plain:.4f} | {lib:.4f} | "
+              f"{lib_warm:.4f} | {b_ms:.4f} ({by}) | "
               f"{st['max_abs_err']:.3e} | {st['max_err_over_tol']:.3f}")
 
     print("B1 at the full-width KAN-FFN halves (raw residual; G=8 the "
           "target's, G=4 the drafter's): G half rows | feature splits | "
-          "kernel ms | plain ms | bound ms (by)")
+          "kernel ms L2-cold | warm (graph) | plain ms | bound ms (by)")
     gen = torch.Generator(device=dev).manual_seed(13)
     for grid, f, o, flags, nrows in cc.B1_FFN_FULL + cc.B1_FFN_DRAFT:
         lp, lw, _, codes, xraw, _ = cc.b1_case(dev, gen, grid, f, o, flags,
                                                nrows)
         a = (codes, xraw, lw, lp, nrows)
         splits = pl.feature_split_plan(lp.f, lp.o)[0]
-        ms = cuda_ms(lambda: pl.run_pipeline_layer(*a), reps=10)
+        ms = graph_ms(lambda: pl.run_pipeline_layer(*a), 10)
+        cold = cold_ms(lambda: pl.run_pipeline_layer(*a), reps=10)
         plain = cuda_ms(lambda: pl.run_pipeline_layer_plain(
             *a, feature_splits=splits), reps=2, warmup=1)
         b_ms, by = bound(*b1_work(lp, lw, nrows))
         rows.append({"kernel": "kan_pipeline_layer", "layer": f"ffn {f}x{o}",
                      "grid": grid, "rows": nrows, "feature_splits": splits,
-                     "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                     "bound_by": by})
-        print(f"  G={grid} {f}x{o} rows={nrows} | {splits} | {ms:.4f} | "
-              f"{plain:.4f} | {b_ms:.4f} ({by})")
+                     "ms": cold, "cold_ms": cold, "warm_ms": ms,
+                     "plain_ms": plain, "bound_ms": b_ms, "bound_by": by})
+        print(f"  G={grid} {f}x{o} rows={nrows} | {splits} | {cold:.4f} | "
+              f"{ms:.4f} | {plain:.4f} | {b_ms:.4f} ({by})")
+    report["b1_row_tiles"] = b1_row_tile_times(dev)
     report["times_lm"] = rows
     report["times_b4"] = phase_times_b4(dev)
     # the kernel line sums the three path shapes (as in earlier runs); the
@@ -1931,13 +1971,47 @@ def phase_times_lm(dev, report) -> tuple:
     by_time = {"bytes": 0.0, "operations": 0.0}
     for r in sel:
         by_time[r["bound_by"]] += r["bound_ms"]
-    b2 = {"ms": sum(r["ms"] for r in sel),
+    b2 = {"ms": sum(r["cold_ms"] for r in sel),
+          "warm_ms": sum(r["warm_ms"] for r in sel),
+          "event_ms": sum(r["event_ms"] for r in sel),
           "plain_ms": sum(r["plain_ms"] for r in sel),
           "library_ms": sum(r["library_ms"] for r in sel),
+          "library_warm_ms": sum(r["library_warm_ms"] for r in sel),
           "bound_ms": sum(r["bound_ms"] for r in sel),
           "bound_by": max(by_time, key=by_time.get),
           "shapes": [r for r in rows if r["kernel"] == "flash_attention"]}
     return b2, [r for r in rows if r["kernel"] == "kan_pipeline_layer"]
+
+
+def b1_row_tile_times(dev) -> list:
+    """B1 at each row tile (``pipeline.ROW_TILES``) on the full-width G=8
+    FFN halves at 8 and 1024 rows, L2-cold and warm, after the card check
+    of the tiles' bits (``cardcheck.check_b1_row_tiles``)."""
+    import torch
+
+    from repro_torch.kernels.kan_spline import cardcheck as cc
+    from repro_torch.kernels.kan_spline import pipeline as pl
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rows = []
+    print("B1 row tiles at the full-width G=8 halves: half rows | row tile |"
+          " kernel ms L2-cold | warm (graph) (bits equal across tiles)")
+    for grid, f, o, flags, nrows in cc.B1_FFN_FULL:
+        cc.check_b1_row_tiles(dev, gen, grid, f, o, flags, nrows)
+        lp, lw, _, codes, xraw, _ = cc.b1_case(dev, gen, grid, f, o, flags,
+                                               nrows)
+        for tile in pl.ROW_TILES:
+            def run(tile=tile):
+                return pl.run_pipeline_layer(codes, xraw, lw, lp, nrows,
+                                             row_tile=tile)
+
+            cold, ms = cold_ms(run, reps=10), graph_ms(run, 10)
+            rows.append({"layer": f"ffn {f}x{o}", "rows": nrows,
+                         "row_tile": tile, "cold_ms": cold, "warm_ms": ms})
+            print(f"  {f}x{o} rows={nrows} | {tile} | {cold:.4f} | {ms:.4f}")
+        del lw, codes, xraw
+        torch.cuda.empty_cache()
+    return rows
 
 
 def phase_times_b4(dev, shapes=None) -> list:
@@ -2030,6 +2104,219 @@ def b4_totals(rows, mac) -> dict:
             "shapes": rows}
 
 
+# ----------------------------------------------------------------------------
+# phase 8: the co-design flow at examples/tune_deploy.py's full budgets
+# ----------------------------------------------------------------------------
+
+# the knot task and search budgets of examples/tune_deploy.py:50-57 (its
+# non-smoke settings) and the constraints of its HardwareConstraints
+CODESIGN_TASK = dict(n_train=8192, n_val=1024, epochs=120, seed=0)
+CODESIGN_SEARCH = dict(budget=32, n_init=8)
+CODESIGN_HC = dict(max_area_mm2=0.02, max_energy_pj=300.0,
+                   max_latency_ns=900.0)
+CODESIGN_TILES = 16
+# the paper's Fig. 13 headline ratios (MLP / KAN1) and the reference's bands
+# for them (tests/test_costmodel_neurosim.py:43-53)
+PAPER_RATIOS = {"area": (41.78, 30, 55), "energy": (77.97, 55, 105),
+                "latency": (23.6, 20, 40)}
+
+
+def phase_codesign(dev, report) -> dict:
+    """Train the knot task's base network on the card, score it (float,
+    fused, acim) beside the MLP baseline and the cost model's ratios,
+    search the design space twice under one seed (the fronts must be
+    equal), tune B1's tiles on the chosen point, save / reset / reload the
+    artifact (the redeployed outputs must be bit-identical) and serve the
+    full-width LM at the chosen point through ``launch.serve
+    --tuned-config``.  Returns the phase's kernel launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch import runtime, tune
+    from repro_torch.core.costmodel import accelerator_cost, mlp_accelerator
+    from repro_torch.core.mlp_baseline import (
+        PAPER_MLP_DIMS,
+        init_mlp,
+        mlp_param_count,
+        train_mlp,
+    )
+    from repro_torch.core.neurosim import (
+        HardwareConstraints,
+        evaluate_accuracy,
+        kan_cost,
+    )
+    from repro_torch.core.tmdv import PURE_PWM, TMDVConfig
+    from repro_torch.data.knot import make_knot_dataset
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import serve as serve_cli
+
+    steps = {}
+
+    def step(name, fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t0
+        return out
+
+    def acc_of(logits, y):
+        return float((logits.argmax(-1).cpu().numpy() == y).mean())
+
+    runtime.reset_cache()
+    cuda.reset_launch_counts()
+
+    # the base network, trained on the card, and its accuracies
+    task = step("train_kan", tune.make_knot_task, device=dev, **CODESIGN_TASK)
+    base = tune.Candidate(grid_size=task.base_kspec.grid_size)
+    _, _, base_dep = tune.deploy_candidate(task, base)
+    acc = {"float": evaluate_accuracy(task.base_params, task.x_val,
+                                      task.y_val, task.base_kspec),
+           "fused": acc_of(runtime.execute(base_dep, task.x_val,
+                                           backend="fused"), task.y_val),
+           "acim": tune.evaluate_candidate(task, base)["accuracy"]}
+    xt, yt, xv, yv = make_knot_dataset(
+        CODESIGN_TASK["n_train"], CODESIGN_TASK["n_val"],
+        seed=CODESIGN_TASK["seed"], label_noise=0.04)
+    mlp = init_mlp(torch.Generator(device=dev).manual_seed(0), device=dev)
+    _, mlp_hist = step("train_mlp", train_mlp, mlp, xt, yt, xv, yv)
+    acc["mlp"] = mlp_hist[-1]
+    print(f"knot task {CODESIGN_TASK}, base (17, 1, 14) G="
+          f"{base.grid_size}: trained in {steps['train_kan']:.2f} s; "
+          f"validation accuracy float {acc['float']:.4f}, fused "
+          f"{acc['fused']:.4f}, acim {acc['acim']:.4f} (2 noise seeds); MLP "
+          f"{PAPER_MLP_DIMS} ({mlp_param_count()} params, 200 epochs, "
+          f"{steps['train_mlp']:.2f} s) {acc['mlp']:.4f}")
+
+    # the cost model: KAN1 at the paper's point against the MLP accelerator
+    kan1 = kan_cost((17, 1, 14), 5, 3, 8, TMDVConfig(8, 4), 128, 8)
+    mlp_cost = accelerator_cost(mlp_accelerator(PAPER_MLP_DIMS, PURE_PWM(8)))
+    ratios = {"area": mlp_cost["area_mm2"] / kan1["area_mm2"],
+              "energy": mlp_cost["energy_pj"] / kan1["energy_pj"],
+              "latency": mlp_cost["latency_ns"] / kan1["latency_ns"]}
+    for k, (paper, lo, hi) in PAPER_RATIOS.items():
+        require(lo < ratios[k] < hi, f"cost model: {k} ratio {ratios[k]:.2f} "
+                f"outside the reference's band ({lo}, {hi})")
+    print("cost model, MLP / KAN1 (G=5, 8 bit, TM-DV 4:4, 128 rows): "
+          + ", ".join(f"{k} {ratios[k]:.2f}x (paper {PAPER_RATIOS[k][0]}x)"
+                      for k in ratios)
+          + f"; KAN1 {kan1}, MLP {mlp_cost}")
+
+    # the search, twice under one seed
+    hc = HardwareConstraints(**CODESIGN_HC)
+    cfg = tune.SearchConfig(**CODESIGN_SEARCH)
+    before = cuda.launch_counts()
+    res = step("search", tune.pareto_search, task, tune.DesignSpace(),
+               constraints=hc, config=cfg)
+    after = cuda.launch_counts()
+    search_b1 = {k: after.get(k, 0) - before.get(k, 0)
+                 for k in ("kan_pipeline_layer", "kan_pipeline_layer.noise")}
+    require(search_b1["kan_pipeline_layer.noise"] > 0,
+            "search: no B1 launch with its noise operand")
+    res2 = step("search_again", tune.pareto_search, task, tune.DesignSpace(),
+                constraints=hc, config=cfg)
+    require(res.to_dict() == res2.to_dict(),
+            "search: two runs under one seed gave different fronts")
+    per_eval = steps["search"] / res.n_evals
+    print(f"search: {res.n_evals} candidates in {steps['search']:.2f} s "
+          f"({per_eval * 1e3:.1f} ms per evaluation), B1 launches "
+          f"{search_b1['kan_pipeline_layer']} ("
+          f"{search_b1['kan_pipeline_layer.noise']} with noise); a second "
+          f"run under seed {cfg.seed}: the same front "
+          f"({steps['search_again']:.2f} s); front ({len(res.front)}):")
+    for p in res.front:
+        m = p.metrics
+        print(f"  {p.candidate.to_dict()} | area {m['area_mm2']:.6f} mm2, "
+              f"energy {m['energy_pj']:.3f} pJ, latency "
+              f"{m['latency_ns']:.1f} ns, accuracy {m['accuracy']:.4f}")
+    b = res.baseline
+    print(f"  baseline {b.candidate.to_dict()}: energy "
+          f"{b.metrics['energy_pj']:.3f} pJ, accuracy "
+          f"{b.metrics['accuracy']:.4f}, feasible {b.feasible}; dominating "
+          f"it on (energy, accuracy): {len(res.dominating_baseline())}")
+
+    # the chosen point and B1's tiles
+    chosen = tune.select_point(res.front)
+    _, _, dep = tune.deploy_candidate(task, chosen.candidate)
+    tile = step("tune_tiles", tune.tune_tiles, dep,
+                max_candidates=CODESIGN_TILES)
+    require(tile.mode == "measured", "tiles: not in measured mode")
+    require(all(t.exact for t in tile.trials if t.valid),
+            "tiles: a kept trial is not bit-exact")
+    print(f"chosen {chosen.candidate.to_dict()}; B1 tile sweep at "
+          f"{tile.bucket} rows ({tile.mode}): overrides | row tile | "
+          "median ms | reason")
+    for t in tile.trials:
+        ms = t.score / 1e3 if np.isfinite(t.score) else float("inf")
+        print(f"  {t.overrides} | {t.row_tile} | {ms:.4f} | "
+              f"{t.reason or 'timed'}")
+    print(f"  winner: {tile.chosen_overrides or 'the heuristic'} (row tile "
+          f"{tile.chosen_plan.row_tile}), registered {tile.registered}")
+    y1, c1 = runtime.execute(dep, task.x_val, backend="fused",
+                             return_intermediates=True)
+
+    # the artifact: save, reset, load, apply, redeploy
+    out = ROOT / "reports"
+    out.mkdir(exist_ok=True)
+    path = out / "codesign_artifact.json"
+    tune.save_tuning_artifact(str(path), tune.build_tuning_artifact(
+        search=res, chosen=chosen, tile=tile, task=task.name))
+    runtime.reset_cache()
+    resolved = tune.apply_tuning_artifact(tune.load_tuning_artifact(str(path)))
+    require(resolved["candidate"] == chosen.candidate,
+            "artifact: another candidate came back")
+    require(resolved["plan"] == tile.chosen_plan,
+            "artifact: another tile plan came back")
+    _, _, dep2 = tune.deploy_candidate(task, resolved["candidate"])
+    y2, c2 = runtime.execute(dep2, task.x_val, backend="fused",
+                             return_intermediates=True)
+    require(torch.equal(y1, y2) and all(torch.equal(a, b)
+                                        for a, b in zip(c1, c2)),
+            "artifact: the reloaded deployment is not bit-identical")
+    print(f"artifact {path.name}: reloaded and redeployed, outputs and "
+          "boundary codes bit-identical")
+
+    # the full-width LM served at the chosen point
+    buf = io.StringIO()
+    argv = ["--arch", "qwen2.5-14b", "--full-width-layers", str(SERVE_LAYERS),
+            "--tuned-config", str(path), "--kan-ffn", "--requests", "2",
+            "--max-new", "4"]
+    with contextlib.redirect_stdout(buf):
+        step("serve", serve_cli.main, argv)
+    log = buf.getvalue()
+    print("tuned serve: python -m repro_torch.launch.serve " + " ".join(argv))
+    for ln in log.splitlines():
+        if ln.startswith(("serve: kan-ffn", "serve: served", "serve: steps",
+                          "serve: latency")):
+            print(f"  {ln}")
+    m = re.search(r"served requests=2 tokens=(\d+) tokens_per_s=([\d.]+)",
+                  log)
+    require(m is not None, f"tuned serve: no served line in {log[-2000:]}")
+    launches = cuda.launch_counts()
+    require(launches.get("flash_attention", 0) > 0
+            and launches.get("kan_pipeline_layer", 0) > 0,
+            "co-design path: B1 or B2 never launched")
+    steps["total"] = sum(steps.values())
+    print("phase 8 by step (s): " + ", ".join(f"{k} {v:.2f}"
+                                              for k, v in steps.items()))
+    report["codesign"] = {
+        "task": CODESIGN_TASK, "accuracy": acc, "cost_ratios": ratios,
+        "kan1_cost": kan1, "mlp_cost": mlp_cost,
+        "search": res.to_dict(), "search_b1": search_b1,
+        "s_per_eval": per_eval, "chosen": chosen.to_dict(),
+        "tiles": [{"overrides": t.overrides, "row_tile": t.row_tile,
+                   "valid": t.valid, "exact": t.exact, "score_us": t.score,
+                   "reason": t.reason} for t in tile.trials],
+        "tile_winner": tile.chosen_overrides, "serve_tokens": int(m.group(1)),
+        "serve_tokens_per_s": float(m.group(2)), "steps_s": steps,
+        "launches": launches,
+    }
+    return {"codesign": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -2091,7 +2378,9 @@ def main() -> int:
     by_path.update(timed("6", phase_serve, dev, report))
     totals["flash_attention"], ffn_full = timed("7", phase_times_lm, dev,
                                                 report)
-    print(f"[phases 3-7: {time.perf_counter() - t_all:.1f} s]")
+    torch.cuda.empty_cache()
+    by_path.update(timed("8", phase_codesign, dev, report))
+    print(f"[phases 3-8: {time.perf_counter() - t_all:.1f} s]")
     totals["cim_mac_fwd"] = b4_totals(report["times_b4"],
                                       report["acim"]["mac"])
     errs["flash_attention"] = max(
@@ -2124,10 +2413,17 @@ def main() -> int:
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
                "launches_by_path": paths}
+        if k != "cim_mac_fwd":
+            # ms is L2-cold (cold_ms); warm_ms replays a CUDA graph of
+            # launches on warm operands; event_ms times launches back to
+            # back, where the host's launch pace can exceed a short kernel
+            row["warm_ms"] = t["warm_ms"]
+            row["event_ms"] = t.get("event_ms")
         if k == "flash_attention":
             row["shapes"] = [{key: r[key] for key in (
-                "shape", "B", "S", "T", "kv_splits", "ms", "plain_ms",
-                "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+                "shape", "B", "S", "T", "kv_splits", "ms", "cold_ms",
+                "warm_ms", "event_ms", "plain_ms", "library_ms",
+                "library_warm_ms", "bound_ms", "bound_by", "max_abs_err")}
                 for r in t["shapes"]]
         if k == "cim_mac_fwd":
             # ms: L2-cold, summed over the six shapes of the MAC path (the
@@ -2147,8 +2443,10 @@ def main() -> int:
             row["mac_path_device_ms"] = mac["b4_device_ms"]
         if k == "kan_pipeline_layer":
             row["ffn_full_width"] = [{key: r[key] for key in (
-                "layer", "grid", "rows", "feature_splits", "ms", "plain_ms",
-                "bound_ms", "bound_by")} for r in ffn_full]
+                "layer", "grid", "rows", "feature_splits", "ms", "cold_ms",
+                "warm_ms", "plain_ms", "bound_ms", "bound_by")}
+                for r in ffn_full]
+            row["row_tiles"] = report["b1_row_tiles"]
         require(row["launches"] > 0, f"{k}: no launch on any main path")
         kernels.append(row)
     print(smi)

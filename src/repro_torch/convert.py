@@ -9,6 +9,8 @@ imports nothing of the reference package.
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     dep = deployed_from_reference(jdep, device="cpu")
     lm = lm_params_from_numpy(jax.tree.map(np.asarray, jlm), device="cpu")
+    task = knot_task_from_reference(jtask, device="cpu")   # tune slice
+    result = search_result_from_dict(jresult.to_dict())
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ __all__ = [
     "qparams_from_numpy",
     "deployed_from_reference",
     "lm_params_from_numpy",
+    "knot_task_from_reference",
+    "search_result_from_dict",
 ]
 
 
@@ -128,3 +132,51 @@ def lm_params_from_numpy(tree, *, device=None):
         return leaf(t)
 
     return walk(tree)
+
+
+def knot_task_from_reference(task, *, device=None):
+    """A reference ``tune.KnotTask`` as the port's: its trained base
+    parameters, validation and calibration data copied verbatim, so both
+    packages search one network (their own trainings draw different
+    permutations and never give the same one)."""
+    from .core.kan_layer import KANSpec
+    from .tune.search import KnotTask
+
+    dev = resolve_device(device)
+    kspec = KANSpec(**{f.name: getattr(task.base_kspec, f.name)
+                       for f in dataclasses.fields(KANSpec)})
+    return KnotTask(
+        dims=tuple(int(d) for d in task.dims),
+        base_kspec=kspec,
+        base_params=params_from_numpy(task.base_params, device=dev),
+        x_val=_tensor(task.x_val, dev).to(torch.float32),
+        y_val=np.asarray(task.y_val),
+        calib_x=_tensor(task.calib_x, dev).to(torch.float32),
+        ir_gamma=float(task.ir_gamma),
+        sigma_ps_ref=float(task.sigma_ps_ref),
+        name=str(task.name),
+    )
+
+
+def search_result_from_dict(d: dict):
+    """A ``tune.SearchResult`` from its ``to_dict()`` form (either
+    package's, or an artifact's fields): front, baseline and provenance;
+    the evaluation log is not part of the dict and comes back empty."""
+    from .tune.search import EvaluatedPoint, SearchResult
+    from .tune.space import candidate_from_dict
+
+    def point(p):
+        return EvaluatedPoint(candidate=candidate_from_dict(p["config"]),
+                              metrics=dict(p["metrics"]),
+                              feasible=bool(p.get("feasible", True)))
+
+    return SearchResult(
+        front=tuple(point(p) for p in d["front"]),
+        evaluated=(),
+        baseline=None if d.get("baseline") is None else point(d["baseline"]),
+        objectives=tuple(d["objectives"]),
+        seed=int(d["seed"]),
+        space_hash=str(d["space_hash"]),
+        n_evals=int(d["n_evals"]),
+        calibration=d.get("calibration"),
+    )

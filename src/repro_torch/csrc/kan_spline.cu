@@ -26,8 +26,9 @@
 // Design.  The TPU kernel builds a dense (rows, F*NB) basis with a one-hot
 // LUT matmul and runs the whole band through the MXU.  Only K+1 of the NB
 // basis entries of a (b, f) pair are non-zero, so here the band is gathered
-// directly.  The grid is (row tiles of 64, column tiles of 128, feature
-// splits).  A block streams its split's features in chunks of kf (sized
+// directly.  The grid is (row tiles, column tiles of 128, feature
+// splits); a row tile is 64 rows unless a tuned plan says otherwise (see
+// "Row tile" below).  A block streams its split's features in chunks of kf (sized
 // from NB so that a chunk's weight rows fit a ~24 KB stage: 4 for the FFN's
 // NB = 11, 1 for KAN2's 71): for each chunk it copies the band's whole
 // weight rows W[f*NB .. (f+1)*NB) and wb[f] of its column tile, with the
@@ -39,7 +40,7 @@
 // values in the same order (bit-identical).  A decode pass turns each
 // (row, feature) code of the chunk into its band start g, K+1 SH-LUT values
 // and relu residual (g = NB, out of band, contributes nothing).  Then a
-// warp owns rows (8 of the block's 64) and its 32 lanes own 4 columns each:
+// warp owns rows (8 of a 64-row tile) and its 32 lanes own 4 columns each:
 // per (row, feature) a lane reads the K+1 band rows g..g+K of its 4 columns
 // as float4 from shared memory (all lanes of a warp read one row: no bank
 // conflict) and does 4 FMAs per read; wb's float4 is read once per feature
@@ -48,6 +49,21 @@
 // feature's NB band rows in registers and running the dense basis row
 // against them, exact because off-band entries are 0, did 2.6x the FMAs
 // and measured slower at 1024 rows.)
+//
+// Row tile.  kRowsB, the batch rows of one block, is a template argument:
+// 64 (the default, every untuned plan) or 16 or 32, picked by a tile tuner
+// through PipelinePlan.row_tile (the reference's tuned batch block bb,
+// clamped to 16..64).  It is the one knob of the schedule that changes no
+// bit: every output element still sums its features in order, chunk by
+// chunk (the chunk size kf depends on NB alone), and its K+1 band terms and
+// the residual in order, whatever the row tile; only the staging of codes
+// and raw inputs (2 * kRowsB * kf floats a stage) and the rows a warp owns
+// (kRowsB / 8) change.  A smaller tile gives more blocks (a small batch
+// fills more SMs) at the price of re-staging each weight row once per row
+// tile.  The reference's other tile sizes, bo and bf, keep their meaning
+// for padding and plan validation only and do not reach this kernel: its
+// column tile is 128 and its feature chunks and splits depend on the
+// layer's widths alone.
 //
 // Feature splits.  The split count is a function of the layer's logical
 // (f, o) alone (pipeline.feature_split_plan): one split per 256 features,
@@ -86,8 +102,7 @@ namespace {
 constexpr int kCols = 128;     // output columns per block (4 per lane)
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowsB = 64;     // batch rows per block
-constexpr int kRpw = kRowsB / kWarps;  // rows per warp
+constexpr int kRowsDefault = 64;  // batch rows per block, untuned
 constexpr int kMaxF = 8;       // features per chunk, at most
 constexpr int kStageBytes = 24 * 1024;  // weight rows of one chunk, about
 constexpr int kRec = 8;        // floats of one (row, feature) record
@@ -134,9 +149,9 @@ __device__ __forceinline__ void cp_wait() {
 __host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
 
 // floats of one chunk's stage: kf*NB weight rows and kf wb rows of kCols,
-// then (kRowsB, kf) codes and raw inputs
-__host__ __device__ __forceinline__ int stage_floats(int kf, int nb) {
-  return kf * (nb + 1) * kCols + 2 * kRowsB * kf;
+// then (rows, kf) codes and raw inputs
+__host__ __device__ __forceinline__ int stage_floats(int kf, int nb, int rows) {
+  return kf * (nb + 1) * kCols + 2 * rows * kf;
 }
 
 // y and (optionally) the next layer's code of one output element
@@ -160,8 +175,9 @@ __device__ __forceinline__ void fma4(float v, const float4 w, float4& s) {
   s.w = fmaf(v, w.w, s.w);
 }
 
-template <bool kPackedW, int KK>
+template <bool kPackedW, int KK, int kRowsB>
 __global__ void __launch_bounds__(kThreads, 2) kan_layer_kernel(LayerArgs a) {
+  constexpr int kRpw = kRowsB / kWarps;  // rows per warp
   extern __shared__ __align__(16) float smem[];
   // one record per (row, feature) of the chunk, read as two broadcast
   // float4s: band start g (int bits), relu residual, K+1 <= 6 LUT values
@@ -178,7 +194,7 @@ __global__ void __launch_bounds__(kThreads, 2) kan_layer_kernel(LayerArgs a) {
   const int f_end = min(a.f_log, f_begin + a.fps);
   float* s_lut = smem;                                   // (2^LD, KK)
   float* s_stage = smem + round4(n_local * KK);          // 2 stages
-  const int st_floats = stage_floats(kf, nb);
+  const int st_floats = stage_floats(kf, nb, kRowsB);
 
   for (int i = tid; i < n_local * KK; i += kThreads) {
     float v;
@@ -366,22 +382,22 @@ __global__ void __launch_bounds__(kThreads) kan_layer_combine(LayerArgs a) {
   finish(a, i, yv);
 }
 
-template <bool kPackedW, int KK>
+template <bool kPackedW, int KK, int kRowsB>
 int launch_kk(const LayerArgs& a, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)round4((1 << a.ld) * KK) +
-                       2 * (size_t)stage_floats(a.kf, a.nb));
+                       2 * (size_t)stage_floats(a.kf, a.nb, kRowsB));
   static size_t attr = 0;  // per instance: the largest size set so far
   if (smem > attr) {       // static + dynamic over 48 KB needs the opt-in
     cudaError_t err = cudaFuncSetAttribute(
-        kan_layer_kernel<kPackedW, KK>,
+        kan_layer_kernel<kPackedW, KK, kRowsB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     attr = smem;
   }
   const dim3 grid((a.B + kRowsB - 1) / kRowsB, (a.O + kCols - 1) / kCols,
                   a.splits);
-  kan_layer_kernel<kPackedW, KK><<<grid, kThreads, smem, stream>>>(a);
+  kan_layer_kernel<kPackedW, KK, kRowsB><<<grid, kThreads, smem, stream>>>(a);
   if (a.splits > 1) {
     const long long n = (long long)a.B * a.O;
     kan_layer_combine<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
@@ -390,19 +406,29 @@ int launch_kk(const LayerArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool kPackedW>
+template <bool kPackedW, int kRowsB>
 int launch(const LayerArgs& a, int kk, cudaStream_t stream) {
   switch (kk) {
-    case 2: return launch_kk<kPackedW, 2>(a, stream);
-    case 3: return launch_kk<kPackedW, 3>(a, stream);
-    case 4: return launch_kk<kPackedW, 4>(a, stream);
-    case 5: return launch_kk<kPackedW, 5>(a, stream);
-    case 6: return launch_kk<kPackedW, 6>(a, stream);
+    case 2: return launch_kk<kPackedW, 2, kRowsB>(a, stream);
+    case 3: return launch_kk<kPackedW, 3, kRowsB>(a, stream);
+    case 4: return launch_kk<kPackedW, 4, kRowsB>(a, stream);
+    case 5: return launch_kk<kPackedW, 5, kRowsB>(a, stream);
+    case 6: return launch_kk<kPackedW, 6, kRowsB>(a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int run(LayerArgs& a, int kk, int device, void* stream) {
+template <bool kPackedW>
+int launch_rows(const LayerArgs& a, int kk, int rows, cudaStream_t stream) {
+  switch (rows) {
+    case 16: return launch<kPackedW, 16>(a, kk, stream);
+    case 32: return launch<kPackedW, 32>(a, kk, stream);
+    case 64: return launch<kPackedW, 64>(a, kk, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int run(LayerArgs& a, int kk, int rows, int device, void* stream) {
   if (a.B <= 0 || a.O <= 0 || a.F <= 0) return 0;
   if (a.f_log < 0 || a.f_log > a.F || a.o_log < 0 || a.o_log > a.O ||
       a.splits < 1 || a.fps < 1 || (a.splits > 1 && a.ws == nullptr) ||
@@ -417,7 +443,8 @@ int run(LayerArgs& a, int kk, int device, void* stream) {
   a.vec = a.wc != nullptr && a.O % 4 == 0 &&
           (uintptr_t)a.wc % 16 == 0 && (uintptr_t)a.wb % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
-  return a.wcp != nullptr ? launch<true>(a, kk, s) : launch<false>(a, kk, s);
+  return a.wcp != nullptr ? launch_rows<true>(a, kk, rows, s)
+                           : launch_rows<false>(a, kk, rows, s);
 }
 
 }  // namespace
@@ -428,14 +455,16 @@ extern "C" {
 // off: xraw (residual from codes), lut or lutp, wc or wcp+wscale, noise,
 // codes_out (last layer: no requantizer).  The band runs over f < f_log and
 // o < o_log; `splits` feature splits of `fps` features each (ws: (splits,
-// B, O) f32 when splits > 1, else null).  Returns a cudaError_t value,
-// checked after both launches.
+// B, O) f32 when splits > 1, else null); `row_tile` batch rows per block
+// (16, 32 or 64).  Returns a cudaError_t value, checked after both
+// launches.
 int kan_pipeline_layer(const int32_t* codes, const float* xraw,
                        const float* lut, const int8_t* lutp, const float* wc,
                        const int8_t* wcp, const float* wscale, const float* wb,
                        const float* noise, float* y, int32_t* codes_out,
                        float* ws, int B, int F, int O, int f_log, int o_log,
-                       int nb, int kk, int ld, int splits, int fps, float lo,
+                       int nb, int kk, int ld, int splits, int fps,
+                       int row_tile, float lo,
                        float code_step, float lut_scale, float nx_half_span,
                        float nx_mid, float nx_lo, float nx_scale,
                        int nx_num_codes, int device, void* stream) {
@@ -443,7 +472,7 @@ int kan_pipeline_layer(const int32_t* codes, const float* xraw,
               codes_out, ws, B, F, O, f_log, o_log, nb, ld, splits, fps, 0, 0,
               lo, code_step, lut_scale, nx_half_span, nx_mid, nx_lo, nx_scale,
               nx_num_codes};
-  return run(a, kk, device, stream);
+  return run(a, kk, row_tile, device, stream);
 }
 
 // B3: the single-layer kan_spline (unpacked weights, deq(codes) residual,
@@ -455,7 +484,7 @@ int kan_spline_fwd(const int32_t* codes, const float* lut, const float* wc,
   LayerArgs a{codes, nullptr, lut, nullptr, wc, nullptr, nullptr, wb,
               nullptr, y, nullptr, ws, B, F, O, F, O, nb, ld, splits, fps, 0,
               0, lo, code_step, 0.f, 0.f, 0.f, 0.f, 0.f, 0};
-  return run(a, kk, device, stream);
+  return run(a, kk, kRowsDefault, device, stream);
 }
 
 const char* kan_error_string(int err) {

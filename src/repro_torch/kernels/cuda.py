@@ -66,9 +66,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # codes xraw lut lutp wc wcp wscale wb noise y codes_out ws
-    # B F O f_log o_log nb kk ld splits fps | lo code_step lut_scale hs mid
-    # nx_lo nx_scale | nx_num_codes device stream
-    "kan_pipeline_layer": [_P] * 12 + [_I] * 10 + [_F] * 7 + [_I, _I, _P],
+    # B F O f_log o_log nb kk ld splits fps row_tile | lo code_step
+    # lut_scale hs mid nx_lo nx_scale | nx_num_codes device stream
+    "kan_pipeline_layer": [_P] * 12 + [_I] * 11 + [_F] * 7 + [_I, _I, _P],
     # codes lut wc wb y ws | B F O nb kk ld splits fps | lo code_step |
     # device stream
     "kan_spline_fwd": [_P] * 6 + [_I] * 8 + [_F] * 2 + [_I, _P],

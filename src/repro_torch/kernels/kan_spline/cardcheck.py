@@ -19,7 +19,9 @@ promises: :func:`check_b1_rows_independent` (a row's y and codes are the
 same bits at 8 rows as at 1024), ``B1_FFN_PACKED`` (packed == unpacked at a
 full-width half with feature splits > 1) and
 :func:`check_b1_padded_columns` (a noisy layer's padded columns are
-y = noise exactly and the requantized code of it).
+y = noise exactly and the requantized code of it).  A fourth holds what the
+row tile promises: :func:`check_b1_row_tiles` (the same bits at 16, 32 and
+64 rows per block).
 """
 
 from __future__ import annotations
@@ -37,8 +39,9 @@ from .ref import kan_spline_ref
 
 __all__ = ["ATOL", "RTOL", "ORDERS", "B1_GEOMETRIES", "B1_FLAGS",
            "B1_FFN_FULL", "B1_FFN_DRAFT", "B1_FFN_PACKED", "FFN_FULL_TIE_EPS", "B3_SHAPES",
+           "B1_ROW_TILE_CASES", "ROW_TILE_ROWS",
            "b1_case", "check_b1", "check_b1_rows_independent",
-           "check_b1_padded_columns", "check_b3"]
+           "check_b1_padded_columns", "check_b1_row_tiles", "check_b3"]
 
 ATOL = RTOL = 1e-5
 # every spline order the kernel library has an instance for (K+1 = 2..6)
@@ -77,6 +80,20 @@ B1_FFN_PACKED = ((8, 5120, 1280, (True, True, True, True, True), 8),
 # 128 * 1e-5 = 1.28e-3 (the default window, 1e-4, stays for every other
 # check).
 FFN_FULL_TIE_EPS = ATOL / ASPQuantSpec(grid_size=8).code_step
+# the row-tile check: both layers of KAN1 and KAN2 (codes out of the first),
+# the mixed (8, 4) KAN1's int4-packed layer (packed weights and SH-LUT),
+# and one full-width FFN half with its serving flags: (name, grid, f, o,
+# flags), each at ROW_TILE_ROWS rows (a decode bucket, a ragged batch, the
+# slice's largest request)
+B1_ROW_TILE_CASES = (
+    ("kan1.0", 5, 17, 1, (False, False, False, False, True)),
+    ("kan1.1", 5, 1, 14, (False, False, False, False, False)),
+    ("kan2.0", 68, 17, 1, (False, False, False, False, True)),
+    ("kan2.1", 68, 1, 14, (False, False, False, False, False)),
+    ("kan1_mixed.1", 5, 1, 14, (False, True, True, False, False)),
+    ("ffn_5120x1280", 8, 5120, 1280, (True, False, False, False, True)),
+)
+ROW_TILE_ROWS = (8, 1000, 65536)
 # (b, f, o, grid): ragged shapes, then KAN1's two layers at full batch
 B3_SHAPES = ((33, 17, 14, 5), (1, 1, 1, 64), (130, 300, 200, 16),
              (7, 5, 3, 8), (65536, 17, 1, 5), (65536, 1, 14, 68))
@@ -189,6 +206,27 @@ def check_b1_padded_columns(dev, gen, grid: int = 5, bp: int = 512) -> dict:
         raise AssertionError("B1: padded columns' codes are not the "
                              "requantized noise")
     return {"columns": lp.op - lp.o, "excused": int(off.sum())}
+
+
+def check_b1_row_tiles(dev, gen, grid, f, o, flags, rows) -> dict:
+    """B1 at row tiles 16 and 32 gives the bits of the default 64: y and
+    codes, on one set of operands (``flags`` as in :func:`b1_case`).
+    Returns ``{"rows", "tiles", "equal"}``; raises if any bit differs."""
+    lp, lw, _, codes, xraw, nz = b1_case(dev, gen, grid, f, o, flags, rows)
+    want_y, want_c = pl.run_pipeline_layer(codes, xraw, lw, lp, rows,
+                                           psum_noise=nz,
+                                           row_tile=pl.ROW_TILES[-1])
+    for tile in pl.ROW_TILES[:-1]:
+        y, c = pl.run_pipeline_layer(codes, xraw, lw, lp, rows, psum_noise=nz,
+                                     row_tile=tile)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, want_y)
+                and (c is None or torch.equal(c, want_c))):
+            diff = (y - want_y).abs().max().item()
+            raise AssertionError(f"B1 {grid, f, o, flags} at {rows} rows: "
+                                 f"row tile {tile} differs from 64 (max "
+                                 f"|dy| {diff:.3e})")
+    return {"rows": rows, "tiles": list(pl.ROW_TILES), "equal": True}
 
 
 def check_b3(dev, gen, b, f, o, grid, order=3) -> float:

@@ -9,7 +9,11 @@ The geometry half is ported verbatim, including the TPU tile heuristics of
 :func:`make_pipeline_plan`: they mean nothing on Hopper, but layer 0's
 ``fp = _round_up(f, bf)`` depends on them, and the port must pad exactly as
 the reference does so that converted bundles load without change.  The
-CUDA kernel ignores ``bb``/``bo``/``bf`` and picks its own tiles.
+CUDA kernel ignores ``bo``/``bf`` and picks its own column tile and feature
+chunks; the one tile it reads is the plan's ``row_tile``, its batch rows
+per block: 64 unless the plan was made with ``tile_overrides`` (a tuned
+plan), where it follows the tuned ``bb`` (:func:`row_tile_for`).  The row
+tile changes the schedule and no bit; the plain version ignores it.
 
 Kernel B1 (``csrc/kan_spline.cu::kan_pipeline_layer``) replaces
 ``repro/kernels/kan_spline/pipeline.py::_pipeline_layer_kernel``.
@@ -39,6 +43,8 @@ __all__ = [
     "LayerPlan",
     "PipelinePlan",
     "make_pipeline_plan",
+    "ROW_TILES",
+    "row_tile_for",
     "normalize_tile_overrides",
     "validate_plan",
     "weight_bits",
@@ -101,6 +107,19 @@ class PipelinePlan:
     b: int                          # logical batch
     bp: int                         # padded batch (multiple of layers[0].bb)
     layers: tuple                   # tuple[LayerPlan, ...]
+    row_tile: int = 64              # kernel B1's batch rows per block
+
+
+# kernel B1's row tiles (template instances of its kRowsB); the first is
+# the smallest, the last the untuned default
+ROW_TILES = (16, 32, 64)
+
+
+def row_tile_for(bb: int) -> int:
+    """B1's row tile for a tuned batch block ``bb``: the largest of
+    :data:`ROW_TILES` not above ``max(16, bb)``, so ``min(64, max(16, bb))``
+    for the power-of-two blocks the tile tuner proposes."""
+    return max(t for t in ROW_TILES if t <= max(ROW_TILES[0], bb))
 
 
 # The reference's VMEM ceiling for its (bB, bF, G+K) f32 basis tile; kept
@@ -145,7 +164,9 @@ def make_pipeline_plan(
     """Choose block sizes + padded dims for a whole stack from shapes alone.
 
     dims: (F0, O0=F1, O1=F2, ...); specs: per-layer ASPQuantSpec.  Overrides
-    change only the tiling, never the padded dims ``fp``/``op``.
+    change only the tiling, never the padded dims ``fp``/``op``; with them
+    the plan's ``row_tile`` follows the tuned ``bb`` (:func:`row_tile_for`),
+    without them it is 64.
     """
     n_layers = len(dims) - 1
     if len(specs) != n_layers:
@@ -200,7 +221,9 @@ def make_pipeline_plan(
                 residual_raw=residual_raw,
             )
         )
-    return PipelinePlan(b=batch, bp=bp, layers=tuple(layers))
+    return PipelinePlan(
+        b=batch, bp=bp, layers=tuple(layers),
+        row_tile=ROW_TILES[-1] if overrides is None else row_tile_for(bb))
 
 
 def validate_plan(plan: PipelinePlan) -> None:
@@ -209,6 +232,8 @@ def validate_plan(plan: PipelinePlan) -> None:
         raise ValueError("plan has no layers")
     if plan.bp < plan.b:
         raise ValueError(f"padded batch {plan.bp} < logical batch {plan.b}")
+    if plan.row_tile not in ROW_TILES:
+        raise ValueError(f"row tile {plan.row_tile} not in {ROW_TILES}")
     prev_op = None
     for li, lp in enumerate(plan.layers):
         nb = lp.spec.num_basis
@@ -469,7 +494,7 @@ def run_pipeline_layer_plain(codes, xraw, lw: dict, lp: LayerPlan, bp: int,
     return y, torch.clamp(q, 0, num_codes - 1)
 
 
-def _run_pipeline_layer_cuda(codes, xraw, lw, lp, bp, psum_noise):
+def _run_pipeline_layer_cuda(codes, xraw, lw, lp, bp, psum_noise, row_tile):
     spec = lp.spec
     cuda.check_spec(spec)
     lib = cuda.library()
@@ -493,7 +518,7 @@ def _run_pipeline_layer_cuda(codes, xraw, lw, lp, bp, psum_noise):
         cuda.ptr(lw["wb"]), cuda.ptr(psum_noise), cuda.ptr(y),
         cuda.ptr(codes_out), cuda.ptr(ws),
         bp, lp.fp, lp.op, lp.f, lp.o, spec.num_basis, spec.order + 1,
-        spec.ld, splits, fps, f32(spec.lo), f32(spec.code_step), f32(lut_scale(spec)),
+        spec.ld, splits, fps, row_tile, f32(spec.lo), f32(spec.code_step), f32(lut_scale(spec)),
         *nx, *cuda.stream_args(dev),
     )
     cuda.check(status)
@@ -504,15 +529,18 @@ def _run_pipeline_layer_cuda(codes, xraw, lw, lp, bp, psum_noise):
 
 
 def run_pipeline_layer(codes, xraw, lw: dict, lp: LayerPlan, bp: int, *,
-                       psum_noise=None):
+                       psum_noise=None, row_tile: int = ROW_TILES[-1]):
     """One fused layer on padded geometry: kernel B1 for CUDA tensors, the
     plain version for CPU tensors.
 
     codes (bp, fp) int32; xraw (bp, fp) f32 when ``lp.residual_raw``; ``lw``
     the deployed layer dict (packing follows its keys); psum_noise (bp, op)
-    f32 or None.  Returns (y (bp, op) f32, next codes (bp, op) int32 or
-    None on the last layer).
+    f32 or None; ``row_tile`` B1's batch rows per block (one of
+    :data:`ROW_TILES`; the plain version has no tiles).  Returns (y (bp, op)
+    f32, next codes (bp, op) int32 or None on the last layer).
     """
+    if row_tile not in ROW_TILES:
+        raise ValueError(f"row tile {row_tile} not in {ROW_TILES}")
     tensors = [codes, xraw, psum_noise, *lw.values()]
     devices = {t.device for t in tensors if t is not None}
     if len(devices) != 1:
@@ -524,6 +552,7 @@ def run_pipeline_layer(codes, xraw, lw: dict, lp: LayerPlan, bp: int, *,
             xraw.contiguous() if lp.residual_raw else None,
             {k: v.contiguous() for k, v in lw.items()}, lp, bp,
             None if psum_noise is None else psum_noise.contiguous(),
+            row_tile,
         )
     return run_pipeline_layer_plain(
         codes, xraw, lw, lp, bp, psum_noise=psum_noise,
@@ -567,7 +596,8 @@ def kan_pipeline_impl(codes, xraw, layers: tuple, plan: PipelinePlan, *,
             lw = gained_layer(lw, lp, row_gains[li])
         y, nxt_codes = run_pipeline_layer(
             h_codes, h_raw if lp.residual_raw else None, lw, lp, plan.bp,
-            psum_noise=None if psum_noises is None else psum_noises[li])
+            psum_noise=None if psum_noises is None else psum_noises[li],
+            row_tile=plan.row_tile)
         if nxt_codes is not None:
             boundary.append(nxt_codes[: plan.b, : lp.o])
         h_codes, h_raw = nxt_codes, y

@@ -21,18 +21,25 @@ Port of ``repro.launch.serve``.  Runs on the card unless ``--device cpu``:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
         --kan-ffn --kv-block-size 8 --spec-decode 2 --draft-spec grid=4 \\
         --trace-out trace.jsonl --metrics-dump metrics.prom --device cpu
+    # deploy a co-design point from a tuning artifact (repro_torch.tune):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
+        --kan-ffn --tuned-config TUNE_artifact.json
 
 ``--kan-ffn`` serves the paper's datapath: the FFN blocks are
 ASP-quantized and deployed at startup, and every prefill / decode step runs
 them through kernel B1 (``--backend acim``: with the paper's ACIM
 non-idealities injected); attention runs through kernel B2 ("flash")
-unless ``--attn-backend ref``.  Weights are random, drawn from a fixed seed.
+unless ``--attn-backend ref``.  Weights are random, drawn from a fixed seed;
+the model is the arch's smoke-size config, or its published widths with
+``--full-width-layers N`` layers.
 ``--spec-decode K`` (with ``--kan-ffn`` and ``--kv-block-size``) adds a
 refit KAN drafter (``--draft-spec``); ``--metrics-port`` / ``--metrics-dump``
 turn the obs registry on, ``--trace-out`` records the per-request span
 trees, ``--log-level`` and ``--stats-interval`` drive the structured
-logger.  The reference's mesh and tuning-artifact flags exit with "not
-ported yet" and their ROADMAP item.
+logger.  ``--tuned-config`` loads a tuning artifact (either package's):
+its chosen point's grid, order and bit widths become the KAN-FFN
+quantization, and its tile plan is registered with the plan cache.  The
+reference's mesh flag exits with "not ported yet" and its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ import numpy as np
 import torch
 
 from .. import obs, runtime
-from ..configs.registry import smoke_config
+from ..configs.registry import get_config, smoke_config
 from ..core.asp_quant import resolve_layer_bits
 from ..device import resolve_device
 from ..models.model import init_params
@@ -56,7 +63,6 @@ from ..serve.scheduler import QueueFull, SamplingParams, Scheduler
 # reference flags that wait for a later slice -> their ROADMAP item
 NOT_PORTED = {
     "mesh": "A10 (distribution)",
-    "tuned_config": "A9 (co-design stack)",
 }
 
 
@@ -129,6 +135,16 @@ def parse_args(argv=None):
     ap.add_argument("--stats-interval", type=float, default=None,
                     metavar="S",
                     help="a one-line scheduler stats summary every S seconds")
+    ap.add_argument("--full-width-layers", type=int, default=None,
+                    metavar="N",
+                    help="serve the arch at its published widths with its "
+                         "depth cut to N layers, instead of the smoke-size "
+                         "config (random weights either way)")
+    ap.add_argument("--tuned-config", default=None, metavar="PATH",
+                    help="tuning artifact to deploy: its chosen point "
+                         "becomes the KAN-FFN quantization (over "
+                         "--kan-bits) and its tile plan is registered "
+                         "with the runtime plan cache")
     ap.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu'")
     for flag in NOT_PORTED:
@@ -150,12 +166,32 @@ def main(argv=None) -> None:
     log = obs.get_logger("serve")
     dev = resolve_device(args.device)
 
-    cfg = smoke_config(args.arch)
+    cfg = (smoke_config(args.arch) if args.full_width_layers is None else
+           dataclasses.replace(get_config(args.arch),
+                               num_layers=args.full_width_layers))
     if args.kan_bits:
         bits = tuple(int(b) for b in args.kan_bits.split(","))
         cfg = (dataclasses.replace(cfg, kan_n_bits=bits[0], kan_layer_bits=())
                if len(bits) == 1 else
                dataclasses.replace(cfg, kan_layer_bits=bits))
+    tuned_note = ""
+    if args.tuned_config:
+        from ..tune import apply_tuning_artifact, load_tuning_artifact
+
+        art = load_tuning_artifact(args.tuned_config)
+        resolved = apply_tuning_artifact(art)
+        cand = resolved["candidate"]
+        if cand is not None:
+            # the chosen co-design point becomes the KAN-FFN quantization,
+            # its per-layer allocation included (over any --kan-bits)
+            cfg = dataclasses.replace(
+                cfg, kan_grid=cand.grid_size, kan_order=cand.order,
+                kan_n_bits=cand.n_bits, kan_layer_bits=cand.layer_bits)
+        tp = art.get("tile_plan")
+        tuned_note = (f" [artifact {args.tuned_config}: "
+                      f"task={art.get('task')}, seed={art.get('seed')}, "
+                      f"space={art.get('space_hash')}, tile mode="
+                      f"{None if not tp else tp.get('mode')}]")
     if args.kan_ffn:
         cfg = cfg.kan_variant()
         try:
@@ -210,7 +246,8 @@ def main(argv=None) -> None:
         log.info("kan-ffn", G=cfg.kan_grid, K=cfg.kan_order,
                  n_bits=cfg.kan_n_bits,
                  layer_bits=("uniform" if not cfg.kan_layer_bits
-                             else ",".join(map(str, cfg.kan_layer_bits))))
+                             else ",".join(map(str, cfg.kan_layer_bits))),
+                 plan_source=engine.kan_plan_source() + tuned_note)
     metrics_server = None
     if args.metrics_port is not None:
         metrics_server = obs.start_metrics_server(args.metrics_port)

@@ -14,8 +14,14 @@ Port of ``repro.runtime.plancache``.
     fed to the obs registry at snapshot time as ``plan_cache.hits`` /
     ``.misses`` / ``.traces`` / ``.entries``: the reference's series names,
     with ``builds`` exported as ``plan_cache.traces``.
-
-The reference's tuned-tile registry waits for the tune slice.
+  * **tuned tile plans**: ``repro_torch.tune.tiles`` registers measured
+    ``(bb, bo, bf)`` winners per ``(dims, specs, residual_raw)`` geometry
+    (:meth:`PlanCache.set_tile_overrides`); :meth:`PlanCache.plan` applies
+    them when it builds a plan, so ``DeployedKAN.replan``, the executors
+    and the serving path pick up the tuned plan (on the card: kernel B1's
+    row tile, ``PipelinePlan.row_tile``) without a change of their own.
+    Registering (or clearing) overrides drops the geometry's cached plans
+    and entries, so no consumer keeps the stale plan.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ class PlanCache:
         self.maxsize = maxsize
         self._entries: collections.OrderedDict = collections.OrderedDict()
         self._plans: collections.OrderedDict = collections.OrderedDict()
+        self._tile_overrides: dict = {}
         self._lock = threading.RLock()
         self.hits = 0
         self.misses = 0
@@ -83,21 +90,68 @@ class PlanCache:
 
     def plan(self, batch: int, dims: tuple, specs: tuple, *,
              residual_raw: bool = False):
-        """Memoized ``make_pipeline_plan``: a re-plan is a dict lookup."""
+        """Memoized ``make_pipeline_plan``: a re-plan is a dict lookup.
+
+        Applies the tuned tile overrides registered for this geometry, if
+        any."""
         from ..kernels.kan_spline.pipeline import make_pipeline_plan
 
         key = (batch, tuple(dims), tuple(specs), residual_raw)
         with self._lock:
             plan = self._plans.get(key)
             if plan is None:
+                overrides = self._tile_overrides.get(
+                    (tuple(dims), tuple(specs), residual_raw))
                 plan = make_pipeline_plan(batch, tuple(dims), tuple(specs),
-                                          residual_raw=residual_raw)
+                                          residual_raw=residual_raw,
+                                          tile_overrides=overrides)
                 self._plans[key] = plan
                 while len(self._plans) > 4 * self.maxsize:
                     self._plans.popitem(last=False)
             else:
                 self._plans.move_to_end(key)
             return plan
+
+    # -- tuned tile-plan registry (repro_torch.tune.tiles) ----------------
+
+    def set_tile_overrides(self, dims: tuple, specs: tuple,
+                           residual_raw: bool, overrides) -> None:
+        """Register (or with ``overrides=None`` clear) a tuned tile plan.
+
+        ``overrides`` is a per-layer ``((bb, bo, bf), ...)`` tuple (or one
+        broadcast triple; see ``make_pipeline_plan``).  Cached plans and
+        entries of the geometry are dropped, so the next resolution builds
+        on the tuned tiles; clearing a geometry with nothing registered
+        drops nothing.
+        """
+        from ..kernels.kan_spline.pipeline import normalize_tile_overrides
+
+        gkey = (tuple(dims), tuple(specs), bool(residual_raw))
+        with self._lock:
+            if overrides is None:
+                if gkey not in self._tile_overrides:
+                    return  # nothing registered: clearing must not invalidate
+                del self._tile_overrides[gkey]
+            else:
+                self._tile_overrides[gkey] = normalize_tile_overrides(
+                    overrides, len(dims) - 1)
+            for k in [k for k in self._plans if (k[1], k[2], k[3]) == gkey]:
+                del self._plans[k]
+            for k in [k for k in self._entries
+                      if (k.dims, k.specs, k.residual_raw) == gkey]:
+                del self._entries[k]
+
+    def get_tile_overrides(self, dims: tuple, specs: tuple,
+                           residual_raw: bool):
+        """The registered tuned tile plan for a geometry, or None."""
+        with self._lock:
+            return self._tile_overrides.get(
+                (tuple(dims), tuple(specs), bool(residual_raw)))
+
+    def tile_overrides(self) -> dict:
+        """Snapshot of every registered tuned tile plan (for reporting)."""
+        with self._lock:
+            return dict(self._tile_overrides)
 
     def stats(self) -> dict:
         with self._lock:
@@ -112,6 +166,7 @@ class PlanCache:
         with self._lock:
             self._entries.clear()
             self._plans.clear()
+            self._tile_overrides.clear()
             self.hits = self.misses = self.builds = 0
 
 

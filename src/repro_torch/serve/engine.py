@@ -490,6 +490,20 @@ class ServeEngine:
             sched.submit(req)
         return sched.run_until_idle()
 
+    def kan_plan_source(self) -> str | None:
+        """Where the KAN-FFN pipeline geometry comes from: "tuned" when a
+        ``repro_torch.tune`` tile plan is registered for this engine's FFN
+        geometry (e.g. from a ``--tuned-config`` artifact), "heuristic"
+        for the built-in plan, None when no KAN-FFN is served."""
+        if self.cfg.ffn_kind != "kan":
+            return None
+        from ..models.layers import kan_ffn_hidden, kan_ffn_specs
+
+        d = self.cfg.d_model
+        ov = runtime.PLAN_CACHE.get_tile_overrides(
+            (d, kan_ffn_hidden(self.cfg), d), kan_ffn_specs(self.cfg), True)
+        return "tuned" if ov is not None else "heuristic"
+
     def compile_stats(self) -> dict:
         """Engine counters under the reference's keys (``prefill_traces``:
         distinct prefill buckets, ``decode_traces``: decode calls,

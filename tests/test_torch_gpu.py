@@ -22,7 +22,12 @@ the slice's fused path against "ref"; the acim backend's quiet run
 against "fused" bit for bit and its noise under one generator seed; and
 one layer of the full-width qwen2.5-14b KAN-FFN model served on the card,
 also with speculative decoding (k = 2) against plain decode, and B1 at the
-drafter's G = 4 halves.  This file
+drafter's G = 4 halves.  The co-design slice: B1 at row tiles 16 and 32
+bit-identical to 64 (KAN1, KAN2, the packed layer, a full-width half; 8,
+1000 and 65536 rows), a tuned plan in the plan cache changing the row tile
+and no output bit, training and the Pareto search deterministic on the
+card (equal parameters, equal fronts under one seed), and the measured
+tile sweep timing each distinct launch once.  This file
 imports only the port, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -422,3 +427,82 @@ def test_acim_quiet_is_fused_and_noise_reproduces(dev, grid, bits):
     y_ir = runtime.execute(dep, x, backend="acim",
                            cim=CIMConfig(ir_gamma=0.06, deterministic=True))
     assert (y_ir - y_f).abs().max() > 0
+
+
+# ----------------------------------------------------------------------------
+# the co-design slice: B1's row tile, the tuned plan, the search
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows", cc.ROW_TILE_ROWS)
+@pytest.mark.parametrize("name,grid,f,o,flags", cc.B1_ROW_TILE_CASES)
+def test_b1_row_tiles_bit_identical(dev, name, grid, f, o, flags, rows):
+    """B1 at 16 and 32 rows per block gives the bits of 64: KAN1, KAN2,
+    the packed mixed-precision layer and a full-width FFN half."""
+    gen = torch.Generator(device=dev).manual_seed(rows + f + grid)
+    assert cc.check_b1_row_tiles(dev, gen, grid, f, o, flags, rows)["equal"]
+
+
+def test_tuned_plan_changes_the_row_tile_and_no_output_bit(dev):
+    from repro_torch.runtime import bucket_batch
+
+    kspec = KANSpec(dims=(17, 1, 14), grid_size=5)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    qparams = quantize_kan_network(init_kan_network(gen, kspec, device=dev),
+                                   kspec)
+    dep = deploy_kan_network(qparams, kspec, device=dev)
+    x = torch.rand(1000, 17, generator=gen, device=dev) * 2 - 1
+    geom = (tuple(dep.dims), tuple(dep.specs), dep.residual_raw)
+    y0, c0 = runtime.execute(dep, x, backend="fused",
+                             return_intermediates=True)
+    assert runtime.PLAN_CACHE.plan(bucket_batch(1000),
+                                   *geom[:2]).row_tile == 64
+    try:
+        runtime.PLAN_CACHE.set_tile_overrides(*geom, (16, 128, 32))
+        assert runtime.PLAN_CACHE.plan(bucket_batch(1000),
+                                       *geom[:2]).row_tile == 16
+        before = cuda.launch_counts().get("kan_pipeline_layer", 0)
+        y1, c1 = runtime.execute(dep, x, backend="fused",
+                                 return_intermediates=True)
+        assert cuda.launch_counts()["kan_pipeline_layer"] == before + 2
+    finally:
+        runtime.PLAN_CACHE.set_tile_overrides(*geom, None)
+    assert torch.equal(y1, y0) and all(torch.equal(a, b)
+                                       for a, b in zip(c1, c0))
+
+
+def test_training_and_search_are_deterministic_on_the_card(dev):
+    from repro_torch import tune
+
+    kw = dict(n_train=2048, n_val=256, epochs=10, calib_n=64, device=dev)
+    t1, t2 = tune.make_knot_task(**kw), tune.make_knot_task(**kw)
+    for a, b in zip(t1.base_params, t2.base_params):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    cfg = tune.SearchConfig(budget=6, n_init=4, seed=0, acim_seeds=2)
+    before = cuda.launch_counts().get("kan_pipeline_layer.noise", 0)
+    r1 = tune.pareto_search(t1, tune.DesignSpace(), config=cfg)
+    assert cuda.launch_counts()["kan_pipeline_layer.noise"] > before
+    r2 = tune.pareto_search(t1, tune.DesignSpace(), config=cfg)
+    assert r1.to_dict() == r2.to_dict()
+    assert [p.candidate for p in r1.evaluated] == \
+        [p.candidate for p in r2.evaluated]
+
+
+def test_measured_tile_tuning_times_each_launch_once(dev):
+    from repro_torch import tune
+
+    task = tune.make_knot_task(n_train=1024, n_val=1024, epochs=2,
+                               calib_n=64, device=dev)
+    _, _, dep = tune.deploy_candidate(task, tune.Candidate(grid_size=5))
+    res = tune.tune_tiles(dep, max_candidates=16, repeats=3, register=False)
+    assert res.mode == "measured" and res.bucket == 1024
+    kept = [t for t in res.trials if t.valid]
+    assert kept and all(t.exact for t in kept)
+    timed = [t for t in kept if not t.reason]
+    assert sorted(t.row_tile for t in timed) == \
+        sorted({t.row_tile for t in kept})
+    for t in kept:
+        if t.reason:
+            assert t.reason.startswith("same launch as ")
+            assert t.score == next(u.score for u in timed
+                                   if u.row_tile == t.row_tile)

@@ -252,10 +252,9 @@ def test_cli_serves_at_smoke_size_on_the_cpu(setup):
     out = buf.getvalue()
     assert "served requests=3" in out, out
     assert "attn_backend=flash" in out and "kan_backend=fused" in out, out
-    assert set(cli.NOT_PORTED) == {"mesh", "tuned_config"}
-    for flag in ("--mesh", "--tuned-config"):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            cli.main(["--arch", "qwen2.5-14b", flag, "1", "--device", "cpu"])
+    assert set(cli.NOT_PORTED) == {"mesh"}
+    with pytest.raises(SystemExit, match="not ported yet"):
+        cli.main(["--arch", "qwen2.5-14b", "--mesh", "1", "--device", "cpu"])
 
 
 def test_cli_spec_decode_trace_and_metrics_on_the_cpu(setup, tmp_path):

@@ -45,7 +45,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "core.tmdv", "core.cim", "core.sam", "kernels.cim_mac.ops",
               "kernels.cim_mac.cardcheck", "obs.metrics", "obs.trace",
               "obs.logging", "obs.exposition", "serve.spec",
-              "serve.cardcheck"):
+              "serve.cardcheck", "core.costmodel", "core.neurosim",
+              "core.mlp_baseline", "train.optimizer", "tune.space",
+              "tune.search", "tune.tiles", "tune.artifact"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
