@@ -103,7 +103,21 @@ Phases (any failure exits non-zero):
      redeployed (bit-identical outputs and codes), and ``launch.serve
      --tuned-config`` serving the full-width 4-layer LM at the chosen
      point;
-  9. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
+  9. LM training: the float KAN-FFN's custom backward (``_SplineMM``) at
+     the full-width halves against autograd of the plain forward; three
+     train steps on the card against the CPU (smoke-size KAN-FFN config,
+     f32, microbatch 2, remat); the in-place optimizer bit-equal to the
+     functional one; a bf16 restart from a step-3 checkpoint bit-equal to
+     the uninterrupted run; then the full-width ``qwen2.5-14b``
+     ``kan_variant()`` (bf16, 4 layers, microbatch 8, remat, AdamW)
+     trained 6 steps of 16 x 256 tokens through ``launch.train``: every
+     step good, the step-0 loss in [ln V, ln V + 2], s/step, tokens/s,
+     peak memory beside its reckoning, one step profiled (forward /
+     backward / optimizer device ms, idle share, top ops, waits), one
+     batch overfitted (the loss falls at every step), a second run from
+     the seed with bit-equal losses; B1 / B2 never launched and "flash"
+     never dispatched in the phase;
+ 10. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
 
 A longer report goes to ``reports/chip_smoke_report.json`` (gitignored).
 """
@@ -2317,6 +2331,280 @@ def phase_codesign(dev, report) -> dict:
     return {"codesign": launches}
 
 
+# ----------------------------------------------------------------------------
+# phase 9: LM training at full width
+# ----------------------------------------------------------------------------
+
+# the training cell: qwen2.5-14b kan_variant() at its published widths,
+# depth cut to 4 layers (the model phase 6 serves), its own microbatch = 8
+# and remat, AdamW at its learning rate; 16 x 256 tokens per step from
+# lm_data (2 rows x 256 per microbatch)
+TRAIN_LAYERS = 4
+TRAIN_STEPS = 6
+TRAIN_ARGV = ["--arch", "qwen2.5-14b", "--full-width-layers",
+              str(TRAIN_LAYERS), "--kan-ffn", "--steps", str(TRAIN_STEPS),
+              "--seq-len", "256", "--global-batch", "16",
+              "--ckpt-every", "1000"]
+OVERFIT_STEPS = 4
+TRAIN_RANGES = ("train.forward", "train.backward", "train.optimizer")
+
+
+def train_profile(prof, wall_ms: float) -> dict:
+    """One profiled train step: device ms of the kernels launched inside
+    each ``train.*`` range (a kernel belongs to the range whose host
+    interval holds the op that launched it, on any thread: the backward's
+    ops run on the autograd engine's thread while the caller waits inside
+    ``train.backward``), the host ms of each range, the device busy and
+    idle share of the wall inside the profiler, the top device ops, and
+    the host's waits on the device and copies by runtime call."""
+    import bisect
+    import collections
+
+    from torch.autograd import DeviceType
+
+    evs = prof.profiler.kineto_results.events()
+    cpu = [e for e in evs if e.device_type() == DeviceType.CPU]
+    ops = {e.correlation_id(): e for e in cpu
+           if e.linked_correlation_id() == 0 and e.correlation_id()}
+    rs = sorted((e.start_ns(), e.end_ns(), e.name()) for e in cpu
+                if e.name() in TRAIN_RANGES)
+    t0s = [r[0] for r in rs]
+    parts = {n: {"count": 0, "host_ms": 0.0, "device_ms": 0.0}
+             for n in TRAIN_RANGES + ("outside",)}
+    for a, b, n in rs:
+        parts[n]["count"] += 1
+        parts[n]["host_ms"] += (b - a) / 1e6
+    kernels = [e for e in evs if e.device_type() == DeviceType.CUDA
+               and not e.is_user_annotation()
+               and not e.name().startswith("train.")]
+    busy = 0.0
+    for e in kernels:
+        ms = (e.end_ns() - e.start_ns()) / 1e6
+        busy += ms
+        op = ops.get(e.linked_correlation_id())
+        name = "outside"
+        if op is not None:
+            i = bisect.bisect_right(t0s, op.start_ns()) - 1
+            if i >= 0 and rs[i][0] <= op.start_ns() <= rs[i][1]:
+                name = rs[i][2]
+        parts[name]["device_ms"] += ms
+    # the host's waits (and copies) by runtime call and the op that made it
+    waits = collections.Counter()
+    for e in cpu:
+        if e.name() in SYNC_CALLS:
+            op = ops.get(e.linked_correlation_id())
+            waits[f"{op.name() if op is not None else '-'} ({e.name()})"] += 1
+    # the ops (on any thread) whose own kernels took the most device time
+    top = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CPU or ev.key.startswith("train."):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us > 0:
+            top.append((us / 1e3, ev.count, ev.key))
+    top = sorted(top, reverse=True)[:12]
+    return {"parts": parts, "wall_ms": wall_ms, "device_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms, "kernels": len(kernels),
+            "waits": dict(waits), "top": top}
+
+
+def train_flops(cfg, tokens: int, seq: int) -> dict:
+    """Matmul operations of one train step with remat: 2 per weight and
+    token forward, 4 backward and 2 more for the blocks' recomputed
+    forward; the "ref" attention's f32 QK^T and PV over full S x S logits
+    (forward, recompute, backward x 2)."""
+    d, hq, hd = cfg.d_model, cfg.phys_heads, cfg.head_dim
+    hkv, h = cfg.phys_kv_heads, cfg.kan_d_hidden
+    nb = cfg.kan_grid + cfg.kan_order
+    block = d * hq * hd * 2 + d * hkv * hd * 2 + d * nb * h * 2 + d * h * 2
+    head = d * cfg.vocab_size
+    bf16 = tokens * (8 * block * cfg.num_layers + 6 * head)
+    f32 = 4 * 4 * (tokens // seq) * seq * seq * hq * hd * cfg.num_layers
+    return {"bf16": bf16, "f32": f32,
+            "bound_ms": 1e3 * (bf16 / BF16_FLOP_PER_S + f32 / F32_FLOP_PER_S)}
+
+
+def phase_train(dev, report) -> None:
+    """LM training: the float KAN-FFN's backward at the full-width halves,
+    card against CPU and the in-place optimizer at small widths, a bf16
+    restart, then the full-width 4-layer model trained through
+    ``launch.train`` twice from one seed (equal losses), one step
+    profiled, and one batch overfitted.  No phase launches B1 or B2 or
+    dispatches "flash" attention here."""
+    import contextlib
+    import dataclasses
+    import gc
+    import io
+    import math
+    import statistics
+    import tempfile
+
+    import torch
+
+    from repro_torch import obs, runtime
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.lm_data import global_batch_at_step
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import cardcheck as tc
+    from repro_torch.train.loop import batch_to_device
+    from repro_torch.train.optimizer import tree_leaves
+
+    t_phase = time.perf_counter()
+    idle = (dict(cuda.launch_counts()),
+            runtime.attn_dispatch_counts().get("flash", 0))
+    out = {}
+
+    # the float KAN-FFN's custom backward at the full-width halves
+    out["spline_mm"] = [tc.check_spline_mm(dev, f, o, tokens=64)
+                        for f, o in ((5120, 1280), (1280, 5120))]
+    for r in out["spline_mm"]:
+        print(f"_spline_mm {r['f']} -> {r['o']} at {r['tokens']} tokens, "
+              f"custom backward vs autograd of the plain forward (f32): dx "
+              f"{r['dx_max_abs_err']:.3e} (tol {r['dx_tol']:.3e}), dc "
+              f"{r['dc_max_abs_err']:.3e} (tol {r['dc_tol']:.3e})")
+
+    # card against CPU, the in-place optimizer, the bf16 restart
+    narrow = smoke_config("qwen2.5-14b").kan_variant()
+    cvc = tc.check_card_vs_cpu(dev, dataclasses.replace(
+        narrow, microbatch=2, remat=True))
+    print(f"card vs CPU, {cvc['params']} params f32, 3 steps (microbatch 2, "
+          f"remat): losses {cvc['losses']}; grad norms {cvc['grad_norms']}; "
+          f"params max |diff| {cvc['param_max_abs_err']:.3e} (tol "
+          f"{cvc['tol']}), {cvc['excused']} elements excused (|g| < "
+          f"{tc.GRAD_FLOOR})")
+    inpl = tc.check_inplace_optimizer(dev)
+    print(f"in-place optimizer == functional, bit for bit: {inpl}")
+    rst = tc.check_restart(dev, dataclasses.replace(narrow, dtype="bfloat16"))
+    print(f"bf16 restart at step 3: losses {rst['restarted']} == "
+          f"uninterrupted {rst['losses'][3:]} ({rst['dtypes']})")
+    out.update(card_vs_cpu=cvc, inplace=inpl, restart=rst)
+
+    # the full-width model through the entry point, twice from one seed
+    def train_run():
+        buf = io.StringIO()
+        with tempfile.TemporaryDirectory() as d, \
+                contextlib.redirect_stdout(buf):
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            loop, hist = train_cli.main(TRAIN_ARGV + ["--ckpt-dir", d])
+        for ln in buf.getvalue().splitlines():
+            print(f"  {ln}")
+        return loop, hist, base
+
+    print("train: python -m repro_torch.launch.train " + " ".join(TRAIN_ARGV))
+    t0 = time.perf_counter()
+    loop, hist, base = train_run()
+    run_s = time.perf_counter() - t0
+    # the run's own peak: what earlier phases left allocated is not its
+    peak = torch.cuda.max_memory_allocated() - base
+    cfg, st = loop.cfg, loop.state
+    losses = [m["loss"] for m in hist]
+    lnv = math.log(cfg.vocab_size)
+    require(int(st["good_steps"]) == TRAIN_STEPS
+            and int(st["skipped_steps"]) == 0
+            and all(math.isfinite(x) for x in losses),
+            f"train: good {int(st['good_steps'])} skipped "
+            f"{int(st['skipped_steps'])} losses {losses}")
+    require(lnv <= losses[0] <= lnv + 2,
+            f"train: step-0 loss {losses[0]} outside [ln V, ln V + 2] = "
+            f"[{lnv:.4f}, {lnv + 2:.4f}]")
+    n = sum(t.numel() for t in tree_leaves(st["params"]))
+    reckon = {"params_bf16": 2 * n, "adamw_m_v_f32": 8 * n,
+              "grad_accumulator_f32": 4 * n, "microbatch_grads_bf16": 2 * n}
+    reckon["resident"] = sum(reckon.values())
+    times = [m["time_s"] for m in hist]
+    s_step = statistics.median(times[1:])
+    tokens = 16 * 256
+    fl = train_flops(cfg, tokens, 256)
+    print(f"train: {cfg.name} d_model {cfg.d_model}, {cfg.num_layers} layers, "
+          f"vocab {cfg.vocab_size}, KAN hidden {cfg.kan_d_hidden}, "
+          f"{cfg.dtype}, microbatch {cfg.microbatch}, remat {cfg.remat}, "
+          f"{cfg.optimizer} lr {cfg.learning_rate}; {n} parameters")
+    print(f"train: losses {losses} (ln V = {lnv:.4f}); step s {times}; "
+          f"median of steps 2-{TRAIN_STEPS} {s_step:.4f} s/step, "
+          f"{tokens / s_step:.1f} tokens/s; run {run_s:.2f} s with init "
+          f"({smi_line()})")
+    print(f"train: peak device memory {peak} B (max_memory_allocated less "
+          f"the {base} B allocated before the run) "
+          f"against the reckoning " + ", ".join(
+              f"{k} {v}" for k, v in reckon.items())
+          + f"; card {torch.cuda.get_device_properties(dev).total_memory} B")
+    print(f"train: matmul operations per step {fl['bf16']:.4e} bf16 + "
+          f"{fl['f32']:.4e} f32 (attention); at peak {fl['bound_ms']:.2f} ms, "
+          f"{fl['bound_ms'] / 1e3 / s_step:.3f} of the step")
+
+    # one step profiled: the forward / backward / optimizer split
+    batch = batch_to_device(global_batch_at_step(loop.data_cfg, TRAIN_STEPS),
+                            dev)
+    obs.enable_profiler_annotations()
+    try:
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            w0 = time.perf_counter()
+            _, m = loop.step_fn(st, batch)
+            float(m["loss"])
+            wall_ms = (time.perf_counter() - w0) * 1e3
+    finally:
+        obs.disable_profiler_annotations()
+    tp = train_profile(prof, wall_ms)
+    print(f"train: profiled step {wall_ms:.2f} ms wall, device busy "
+          f"{tp['device_ms']:.2f} ms, idle share {tp['idle_share']:.4f}, "
+          f"{tp['kernels']} kernels; part | ranges | host ms | device ms: "
+          + "; ".join(f"{k} | {v['count']} | {v['host_ms']:.2f} | "
+                      f"{v['device_ms']:.2f}" for k, v in tp["parts"].items()))
+    print("train: host waits and copies in the step, by the op that made "
+          "them: " + "; ".join(f"{k} x{n}" for k, n in
+                              sorted(tp["waits"].items(), key=lambda kv:
+                                     -kv[1])))
+    print("train: top ops by the device time of their kernels (ms, calls): "
+          + "; ".join(f"{name} {ms:.2f} x{c}" for ms, c, name in tp["top"]))
+
+    # overfitting: one batch, the loss falls at every step
+    batch = batch_to_device(global_batch_at_step(loop.data_cfg,
+                                                 TRAIN_STEPS + 1), dev)
+    over = []
+    for _ in range(OVERFIT_STEPS + 1):
+        _, m = loop.step_fn(st, batch)
+        over.append(float(m["loss"]))
+    require(all(b < a for a, b in zip(over, over[1:])),
+            f"train: one repeated batch, losses {over} do not fall at every "
+            f"step")
+    print(f"train: one batch repeated, losses {over}")
+    del loop, st, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # determinism: a second run from the same seed
+    loop, hist2, _ = train_run()
+    losses2 = [m["loss"] for m in hist2]
+    require(losses2 == losses,
+            f"train: a second run from one seed gives losses {losses2} "
+            f"against {losses}")
+    print(f"train: a second run from one seed: losses bit-equal {losses2}")
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    now = (dict(cuda.launch_counts()),
+           runtime.attn_dispatch_counts().get("flash", 0))
+    require(now == idle, f"train: B1/B2 launches or flash dispatches moved: "
+            f"{idle} -> {now}")
+    wall = time.perf_counter() - t_phase
+    print(f"train: B1 / B2 launches and 'flash' dispatches unchanged over "
+          f"the phase; phase wall {wall:.1f} s")
+    report["train"] = {**out, "losses": losses, "losses_2": losses2,
+                       "time_s": times, "s_per_step": s_step,
+                       "tokens_per_s": tokens / s_step, "peak_bytes": peak,
+                       "base_bytes": base, "reckoning_bytes": reckon,
+                       "params": n, "flops": fl,
+                       "profile": tp, "overfit": over, "wall_s": wall}
+
+
 def main() -> int:
     try:
         import torch
@@ -2380,7 +2668,9 @@ def main() -> int:
                                                 report)
     torch.cuda.empty_cache()
     by_path.update(timed("8", phase_codesign, dev, report))
-    print(f"[phases 3-8: {time.perf_counter() - t_all:.1f} s]")
+    torch.cuda.empty_cache()
+    timed("9", phase_train, dev, report)
+    print(f"[phases 3-9: {time.perf_counter() - t_all:.1f} s]")
     totals["cim_mac_fwd"] = b4_totals(report["times_b4"],
                                       report["acim"]["mac"])
     errs["flash_attention"] = max(

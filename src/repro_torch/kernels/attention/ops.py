@@ -7,6 +7,10 @@ defaults.  CUDA tensors launch the hand-written kernel
 masks its ragged edges itself, so nothing is padded or sliced; CPU tensors
 take the plain version :func:`.ref.flash_attention_plain`.  There is no
 fallback between the two: a CUDA call the kernel cannot take raises.
+B2 has no backward, so a call that autograd would have to differentiate
+(grad enabled and q, k or v requiring grad) raises on either device
+instead of returning a result without a gradient; training attends on
+the ``"ref"`` backend (``runtime.use_attn_backend("ref")``).
 
 bf16 operands at a head dim in :data:`MMA_HEAD_DIMS` run the tensor-core
 instance, which splits the KV axis over blocks when the call's shapes
@@ -79,6 +83,11 @@ def flash_attention(q, k, v, *, kind: str = "causal", qpos=None, kpos=None,
     """
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r} not in {KINDS}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention (kernel B2) has no backward; attend on the "
+            "'ref' backend where gradients are needed "
+            "(runtime.use_attn_backend('ref'))")
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     if hq % hkv:

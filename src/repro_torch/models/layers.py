@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..core.asp_quant import ASPQuantSpec, resolve_layer_bits
-from ..core.bspline import bspline_basis_fast
+from ..core.bspline import _cardinal_bump_coeffs, bspline_basis_fast
 from ..kernels.attention.ref import NEG_INF
 
 __all__ = [
@@ -95,8 +95,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     d = x.shape[-1]
     half = d // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=x.device), exps)
+    # the base filled on the device: a host-made tensor would cost a
+    # host-to-device copy and a wait on every call
+    freq = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                device=x.device), exps)
     ang = positions[..., None].to(torch.float32) * freq  # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
@@ -463,15 +465,82 @@ def kan_ffn_hidden(cfg: ModelConfig) -> int:
     return cfg.kan_d_hidden or max(1, cfg.d_ff // nb)
 
 
+def _bump_basis_and_grad(z, lo: float, hi: float, grid_size: int,
+                         order: int):
+    """Cardinal-bump basis AND d(basis)/dz at z, both (..., G+K) f32.
+
+    The basis is :func:`bspline_basis_fast`'s, bit for bit; the derivative
+    is zero where the clip to the grid is active (``interior``), as the
+    reference's ``_bump_basis_and_grad`` has it."""
+    h = (hi - lo) / grid_size
+    r = (z - lo) / h
+    tau = torch.clamp(r, 0.0, grid_size * (1 - 1e-7))
+    interior = (r > 0.0) & (r < grid_size)
+    g = torch.floor(tau)
+    u = tau - g
+    g = g.to(torch.int32)
+    coeffs = _cardinal_bump_coeffs(order)
+    nb = grid_size + order
+    iota = torch.arange(nb, dtype=torch.int32, device=z.device)
+    basis = torch.zeros(z.shape + (nb,), dtype=torch.float32, device=z.device)
+    dbasis = torch.zeros_like(basis)
+    for d in range(order + 1):
+        seg = order - d
+        val = torch.zeros_like(u)
+        dval = torch.zeros_like(u)
+        for p in reversed(range(order + 1)):  # simultaneous Horner: p, p'
+            dval = dval * u + val
+            val = val * u + float(coeffs[seg, p])
+        hit = iota == (g + d)[..., None]
+        basis = basis + torch.where(hit, val[..., None], 0.0)
+        dbasis = dbasis + torch.where(hit, dval[..., None], 0.0)
+    dbasis = dbasis * (interior[..., None] / h)  # clip grad + chain rule
+    return basis, dbasis
+
+
+class _SplineMM(torch.autograd.Function):
+    """y = basis(tanh(x)) . c over (..., F) -> (..., O), with the
+    reference's custom VJP (``_spline_mm_bwd``): only x and c are saved,
+    and the backward rebuilds the basis and its derivative, contracts the
+    basis axis at once (dc, and dz per input feature) and applies the
+    tanh chain.  Autograd through :func:`bspline_basis_fast` would save
+    the (..., F, G+K) one-hot intermediates of every layer instead, and
+    its clamp would pass a gradient where a value sits on the clip edge."""
+
+    @staticmethod
+    def forward(ctx, x, c, lo, hi, grid_size, order):
+        basis = bspline_basis_fast(torch.tanh(x.to(torch.float32)), lo, hi,
+                                   grid_size, order)
+        f, nb = basis.shape[-2:]
+        y = basis.to(c.dtype).reshape(-1, f * nb) @ c.reshape(f * nb, -1)
+        ctx.save_for_backward(x, c)
+        ctx.spec = (lo, hi, grid_size, order)
+        return y.reshape(*x.shape[:-1], -1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, c = ctx.saved_tensors
+        z = torch.tanh(x.to(torch.float32))
+        basis, dbasis = _bump_basis_and_grad(z, *ctx.spec)
+        f, nb, o = c.shape
+        dy2 = dy.reshape(-1, o)
+        dx = dc = None
+        if ctx.needs_input_grad[1]:
+            dc = (basis.to(dy.dtype).reshape(-1, f * nb).T @ dy2).reshape(
+                f, nb, o).to(c.dtype)
+        if ctx.needs_input_grad[0]:
+            t = (dy2 @ c.reshape(f * nb, o).T).to(torch.float32)
+            dz = torch.sum(t.reshape(dbasis.shape) * dbasis, dim=-1)
+            dx = (dz * (1.0 - z * z)).to(x.dtype)  # tanh chain
+        return dx, dc, None, None, None, None
+
+
 def _kan_linear(c, wb, x, cfg: ModelConfig):
-    """Float KANLinear over (B, S, in), forward only: cardinal-bump basis of
-    tanh(x), banded basis matmul, plus the ReLU branch on the raw input."""
+    """Float KANLinear over (B, S, in): cardinal-bump basis of tanh(x),
+    banded basis matmul (:class:`_SplineMM`, the reference's custom VJP),
+    plus the ReLU branch on the raw input."""
     spec = kan_ffn_spec(cfg)
-    basis = bspline_basis_fast(torch.tanh(x.to(torch.float32)), spec.lo,
-                               spec.hi, spec.grid_size, spec.order)
-    b, s, f, nb = basis.shape
-    y = (basis.to(c.dtype).reshape(b * s, f * nb)
-         @ c.reshape(f * nb, -1)).reshape(b, s, -1)
+    y = _SplineMM.apply(x, c, spec.lo, spec.hi, spec.grid_size, spec.order)
     return y + torch.relu(x) @ wb
 
 

@@ -3,7 +3,9 @@ forward, prefill, decode, verify and paged-chunk entry points.
 
 Port of ``repro.models.model`` for the dense decoder family.  Encoder
 (audio) and patch (vlm) prefixes raise ``NotImplementedError`` (ROADMAP
-A7); ``loss_fn`` waits for the training slice.
+A7).
+
+  loss_fn: tokens / targets (B, S) -> mean next-token NLL (the train step's)
 
   prefill: tokens (B, S) -> (last-token logits (B, V), filled cache)
   decode:  token (B,), pos (B,) + cache -> (logits (B, V), cache)
@@ -33,6 +35,7 @@ from .transformer import (
 __all__ = [
     "init_params",
     "forward",
+    "loss_fn",
     "init_cache",
     "prefill",
     "decode_step",
@@ -72,9 +75,11 @@ def params_device(p: dict) -> torch.device:
 
 def _embed_tokens(p, tokens, cfg: ModelConfig):
     h = p["embed"][tokens]
-    # scaled in the embedding's dtype, as the reference does
-    return h * torch.tensor(math.sqrt(float(cfg.d_model)), dtype=h.dtype,
-                            device=h.device)
+    # scaled in the embedding's dtype, as the reference does; the scale is
+    # filled on the device (a host-made tensor would cost a host-to-device
+    # copy and a wait on every call)
+    return h * torch.full((), math.sqrt(float(cfg.d_model)), dtype=h.dtype,
+                          device=h.device)
 
 
 def _lm_logits(p, h, cfg: ModelConfig):
@@ -97,6 +102,21 @@ def forward(p, batch, cfg: ModelConfig):
                       positions=_positions(b, s, h.device))
     h = L.rmsnorm(p["final_norm"], h, cfg.norm_eps)
     return _lm_logits(p, h, cfg)
+
+
+def loss_fn(p, batch, cfg: ModelConfig):
+    """Mean next-token NLL of ``batch`` {"tokens", "targets": (B, S) int,
+    optional "loss_mask": (B, S) float}: log-softmax of the f32 logits,
+    the targets' entries gathered; with a mask, the masked mean (its sum
+    clamped to at least 1)."""
+    logits = forward(p, batch, cfg)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, batch["targets"].to(torch.int64)[..., None])[
+        ..., 0]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
 
 
 def init_cache(p, cfg: ModelConfig, batch: int, max_len: int):

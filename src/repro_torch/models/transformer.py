@@ -10,13 +10,20 @@ in place through those views.
 
 Only "global" attention layers are ported; other kinds raise
 ``NotImplementedError`` (ROADMAP A7).
+
+With ``cfg.remat`` (the default) and grad enabled, each block of the
+full-sequence forward runs under ``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint``: its activations are recomputed in the
+backward pass instead of kept.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..runtime.attention import resolve_attn_backend, use_attn_backend
 from . import layers as L
 
 __all__ = [
@@ -125,13 +132,34 @@ def _each_layer(groups, caches, cfg: ModelConfig):
 # ----------------------------------------------------------------------------
 
 
+def _block_forward(bp, x, cfg: ModelConfig, kinds, positions):
+    for i, kind in enumerate(kinds):
+        h = L.rmsnorm(bp[f"l{i}_ln1"], x, cfg.norm_eps)
+        h = L.attention(bp[f"l{i}_attn"], h, cfg, kind, positions)
+        x = _post_attn(bp, x, h, cfg, i)
+        x = _ffn_sublayer(bp, x, cfg, i)
+    return x
+
+
+def _remat_block(bp, x, cfg: ModelConfig, kinds, positions, attn_backend):
+    # the recomputation runs inside the backward pass, on the autograd
+    # engine's thread for a CUDA tensor, where the caller's
+    # use_attn_backend() scope is not set: pin the backend resolved at the
+    # forward so both passes dispatch alike
+    with use_attn_backend(attn_backend):
+        return _block_forward(bp, x, cfg, kinds, positions)
+
+
 def stack_forward(groups, x, cfg: ModelConfig, positions=None):
+    remat = cfg.remat and torch.is_grad_enabled()
+    backend = resolve_attn_backend() if remat else None
     for bp, _, kinds in _each_layer(groups, None, cfg):
-        for i, kind in enumerate(kinds):
-            h = L.rmsnorm(bp[f"l{i}_ln1"], x, cfg.norm_eps)
-            h = L.attention(bp[f"l{i}_attn"], h, cfg, kind, positions)
-            x = _post_attn(bp, x, h, cfg, i)
-            x = _ffn_sublayer(bp, x, cfg, i)
+        if remat:
+            x = checkpoint(_remat_block, bp, x, cfg, kinds, positions,
+                           backend, use_reentrant=False,
+                           preserve_rng_state=False)  # the block draws none
+        else:
+            x = _block_forward(bp, x, cfg, kinds, positions)
     return x
 
 

@@ -1,1 +1,2 @@
-"""Training utilities (port of ``repro.train``): the functional optimizers."""
+"""Training (port of ``repro.train``): the optimizers, the LM train state and
+step, checkpoints in the reference's layout, and the train loop."""

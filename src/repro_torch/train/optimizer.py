@@ -8,10 +8,20 @@ tree of tensors: nested dicts, lists and tuples, such as a KAN's list of
     updates, state = opt.update(grads, state, params)
     params = apply_updates(params, updates)
 
-Nothing is updated in place: ``update`` returns new state tensors and
+``update`` updates nothing in place: it returns new state tensors and
 ``apply_updates`` new parameters, so the functions mirror the reference's
-pure ones step for step.  State tensors (and the int32 step counter) live
-on the parameters' device.  Adafactor keeps factored second moments for
+pure ones step for step.  ``update_`` is the same step, leaf by leaf, in
+place: it writes the new state and parameters into the given tensors, so
+no temporary outlives its leaf (the LM train step, whose functional step
+would hold a second copy of every state and parameter tensor):
+
+    opt.update_(grads, state, params, ok)   # == update + apply_updates
+
+Every state and parameter leaf becomes ``where(ok, new, old)`` (``ok`` a
+bool tensor on the device), so a rejected step leaves them bit for bit
+as they were.  Both paths share each leaf's arithmetic, so they give
+the same bits.  State tensors (and the int32 step counter) live on the
+parameters' device.  Adafactor keeps factored second moments for
 leaves of two or more dimensions: an (n, m) matrix holds an (n,) row factor
 and an (m,) column factor.  Arithmetic is f32 throughout, in the
 reference's order; Python-float hyperparameters round to f32 as the
@@ -26,13 +36,16 @@ from typing import Any, Callable
 import torch
 
 __all__ = ["Optimizer", "adamw", "adafactor", "sgdm", "apply_updates",
-           "global_norm", "clip_by_global_norm", "tree_map", "tree_leaves"]
+           "global_norm", "clip_by_global_norm", "clip_by_global_norm_",
+           "tree_map", "tree_leaves", "tree_unflatten"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], tuple]  # (grads, state, params) -> (updates, state)
+    # (grads, state, params, ok) -> None: update + apply_updates in place
+    update_: Callable[[Any, Any, Any, Any], None]
 
 
 def tree_map(fn, tree, *rest):
@@ -57,13 +70,30 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def tree_unflatten(like, leaves):
+    """``leaves`` (in ``tree_map``'s order) in the structure of ``like``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def _device(tree) -> torch.device:
     leaves = tree_leaves(tree)
     return leaves[0].device if leaves else torch.device("cpu")
 
 
 def _f32(v, device) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=device)
+    # filled on the device: torch.tensor(v, device=) would copy from the
+    # host and wait for the device on every call
+    return torch.full((), v, dtype=torch.float32, device=device)
+
+
+def _commit(ok, old: torch.Tensor, new: torch.Tensor) -> None:
+    """``old`` <- ``where(ok, new, old)``."""
+    old.copy_(torch.where(ok, new, old))
+
+
+def _apply(p, u):
+    return (p + u).to(p.dtype)
 
 
 def _lr_at(lr, step: torch.Tensor) -> torch.Tensor:
@@ -74,7 +104,7 @@ def _lr_at(lr, step: torch.Tensor) -> torch.Tensor:
 
 
 def apply_updates(params, updates):
-    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+    return tree_map(_apply, params, updates)
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -84,9 +114,40 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def clip_by_global_norm(grads, max_norm: float):
+    """(grads * min(1, max_norm / norm), norm).  A bf16 leaf times the f32
+    scale is f32, as in the reference (JAX promotes; PyTorch keeps the
+    leaf's dtype against a 0-dim tensor, so the leaf is promoted first)."""
     norm = global_norm(grads)
-    scale = torch.clamp(_f32(max_norm, norm.device) / (norm + 1e-9), max=1.0)
-    return tree_map(lambda g: g * scale, grads), norm
+    scale = _clip_scale(norm, max_norm)
+    return tree_map(lambda g: g.to(torch.promote_types(g.dtype, scale.dtype))
+                    * scale, grads), norm
+
+
+def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
+    """:func:`clip_by_global_norm` over a list of gradient tensors, in
+    place: an f32 entry is scaled where it is, any other is replaced by its
+    f32 clipped copy (the same bits).  Returns the norm."""
+    norm = global_norm(grads)
+    scale = _clip_scale(norm, max_norm)
+    for i, g in enumerate(grads):
+        if g.dtype == torch.float32:
+            g.mul_(scale)
+        else:
+            grads[i] = g.to(torch.float32) * scale
+    return norm
+
+
+def _clip_scale(norm, max_norm: float) -> torch.Tensor:
+    return torch.clamp(_f32(max_norm, norm.device) / (norm + 1e-9), max=1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Pair:
+    """One leaf's (update, new state): a leaf to ``tree_map``, so the
+    mapped tree splits into the updates and the state by two more maps."""
+
+    update: torch.Tensor
+    state: Any
 
 
 # ----------------------------------------------------------------------------
@@ -109,27 +170,45 @@ def adamw(
             "v": tree_map(zeros, params),
         }
 
+    def coefs(step):
+        t = step.to(torch.float32)
+        dev = step.device
+        return (1 - torch.pow(_f32(b1, dev), t),
+                1 - torch.pow(_f32(b2, dev), t), _lr_at(lr, step))
+
+    def leaf(g, m_, v_, p, bc1, bc2, lr_t):
+        """One leaf's :class:`_Pair` of (update, (new m, new v))."""
+        g = g.to(torch.float32)
+        m = b1 * m_ + (1 - b1) * g
+        v = b2 * v_ + (1 - b2) * g * g
+        u = -(lr_t * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+        if weight_decay:
+            u = u - lr_t * weight_decay * p.to(torch.float32)
+        return _Pair(u, (m, v))
+
     def update(grads, state, params):
         step = state["step"] + 1
-        dev = step.device
-        gf = tree_map(lambda g: g.to(torch.float32), grads)
-        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], gf)
-        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"], gf)
-        t = step.to(torch.float32)
-        bc1 = 1 - torch.pow(_f32(b1, dev), t)
-        bc2 = 1 - torch.pow(_f32(b2, dev), t)
-        lr_t = _lr_at(lr, step)
+        c = coefs(step)
+        out = tree_map(lambda g, m_, v_, p: leaf(g, m_, v_, p, *c),
+                       grads, state["m"], state["v"], params)
+        return (tree_map(lambda pr: pr.update, out),
+                {"step": step, "m": tree_map(lambda pr: pr.state[0], out),
+                 "v": tree_map(lambda pr: pr.state[1], out)})
 
-        def upd(m_, v_, p):
-            u = -(lr_t * (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps))
-            if weight_decay:
-                u = u - lr_t * weight_decay * p.to(torch.float32)
-            return u
+    def update_(grads, state, params, ok):
+        step = state["step"] + 1
+        c = coefs(step)
 
-        updates = tree_map(upd, m, v, params)
-        return updates, {"step": step, "m": m, "v": v}
+        def one(g, m_, v_, p):
+            pr = leaf(g, m_, v_, p, *c)
+            _commit(ok, m_, pr.state[0])
+            _commit(ok, v_, pr.state[1])
+            _commit(ok, p, _apply(p, pr.update))
 
-    return Optimizer(init, update)
+        tree_map(one, grads, state["m"], state["v"], params)
+        _commit(ok, state["step"], step)
+
+    return Optimizer(init, update, update_)
 
 
 # ----------------------------------------------------------------------------
@@ -163,48 +242,54 @@ def adafactor(
             "v": tree_map(init_leaf, params),
         }
 
+    def coefs(step):
+        t = step.to(torch.float32)
+        return (1.0 - torch.pow(t, _f32(-decay, t.device)), _lr_at(lr, step),
+                _f32(eps, t.device))
+
+    def leaf(g, s, beta, lr_t, eps32):
+        """One leaf's :class:`_Pair` of (update, new state dict)."""
+        g = g.to(torch.float32)
+        g2 = g * g + eps
+        if "vr" in s:
+            vr = beta * s["vr"] + (1 - beta) * g2.mean(dim=-1)
+            vc = beta * s["vc"] + (1 - beta) * g2.mean(dim=-2)
+            denom = vr.mean(dim=-1, keepdim=True)[..., None]
+            prec = (vr[..., None] * vc[..., None, :]) \
+                / torch.maximum(denom, eps32)
+            u = g / torch.sqrt(torch.maximum(prec, eps32))
+            new_s = {"vr": vr, "vc": vc}
+        else:
+            v = beta * s["v"] + (1 - beta) * g2
+            u = g / torch.sqrt(torch.maximum(v, eps32))
+            new_s = {"v": v}
+        # update clipping (RMS <= clip_threshold)
+        rms = torch.sqrt(torch.mean(u * u) + eps)
+        u = u / torch.clamp(rms / clip_threshold, min=1.0)
+        return _Pair(-lr_t * u, new_s)
+
     def update(grads, state, params):
         step = state["step"] + 1
-        t = step.to(torch.float32)
-        beta = 1.0 - torch.pow(t, _f32(-decay, t.device))
-        lr_t = _lr_at(lr, step)
-        eps32 = _f32(eps, t.device)
-
-        def upd(g, s):
-            g = g.to(torch.float32)
-            g2 = g * g + eps
-            if "vr" in s:
-                vr = beta * s["vr"] + (1 - beta) * g2.mean(dim=-1)
-                vc = beta * s["vc"] + (1 - beta) * g2.mean(dim=-2)
-                denom = vr.mean(dim=-1, keepdim=True)[..., None]
-                prec = (vr[..., None] * vc[..., None, :]) \
-                    / torch.maximum(denom, eps32)
-                u = g / torch.sqrt(torch.maximum(prec, eps32))
-                new_s = {"vr": vr, "vc": vc}
-            else:
-                v = beta * s["v"] + (1 - beta) * g2
-                u = g / torch.sqrt(torch.maximum(v, eps32))
-                new_s = {"v": v}
-            # update clipping (RMS <= clip_threshold)
-            rms = torch.sqrt(torch.mean(u * u) + eps)
-            u = u / torch.clamp(rms / clip_threshold, min=1.0)
-            return _Pair(-lr_t * u, new_s)
-
-        pairs = tree_map(upd, grads, state["v"])
+        c = coefs(step)
+        pairs = tree_map(lambda g, s: leaf(g, s, *c), grads, state["v"])
         updates = tree_map(lambda pr: pr.update, pairs)
         new_v = tree_map(lambda pr: pr.state, pairs)
         return updates, {"step": step, "v": new_v}
 
-    return Optimizer(init, update)
+    def update_(grads, state, params, ok):
+        step = state["step"] + 1
+        c = coefs(step)
 
+        def one(g, s, p):
+            pr = leaf(g, s, *c)
+            for k, new in pr.state.items():
+                _commit(ok, s[k], new)
+            _commit(ok, p, _apply(p, pr.update))
 
-@dataclasses.dataclass(frozen=True)
-class _Pair:
-    """One leaf's (update, new state): a leaf to ``tree_map``, so the
-    mapped tree splits into the updates and the state by two more maps."""
+        tree_map(one, grads, state["v"], params)
+        _commit(ok, state["step"], step)
 
-    update: torch.Tensor
-    state: dict
+    return Optimizer(init, update, update_)
 
 
 # ----------------------------------------------------------------------------
@@ -220,11 +305,25 @@ def sgdm(lr: float, momentum: float = 0.9) -> Optimizer:
                           params),
         }
 
+    def leaf(g, m_):
+        """One leaf's :class:`_Pair` of (update, new m)."""
+        m = momentum * m_ + g.to(torch.float32)
+        return _Pair(-lr * m, m)
+
     def update(grads, state, params):
         del params
-        m = tree_map(lambda m_, g: momentum * m_ + g.to(torch.float32),
-                     state["m"], grads)
-        updates = tree_map(lambda m_: -lr * m_, m)
-        return updates, {"step": state["step"] + 1, "m": m}
+        out = tree_map(leaf, grads, state["m"])
+        return (tree_map(lambda pr: pr.update, out),
+                {"step": state["step"] + 1,
+                 "m": tree_map(lambda pr: pr.state, out)})
 
-    return Optimizer(init, update)
+    def update_(grads, state, params, ok):
+        def one(g, m_, p):
+            pr = leaf(g, m_)
+            _commit(ok, m_, pr.state)
+            _commit(ok, p, _apply(p, pr.update))
+
+        tree_map(one, grads, state["m"], params)
+        _commit(ok, state["step"], state["step"] + 1)
+
+    return Optimizer(init, update, update_)

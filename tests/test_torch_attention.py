@@ -288,3 +288,18 @@ def test_cpu_path_takes_the_kernels_split_count():
                                   window=0, softcap=0.0, scale=64 ** -0.5,
                                   kv_splits=5)
     assert torch.equal(out, plain)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_wrapper_refuses_autograd(which):
+    """B2 has no backward: with grad enabled and any of q, k, v requiring
+    grad the wrapper raises on the CPU as on the card (where the kernel's
+    output would carry no gradient); without grad it answers as before."""
+    q, k, v = _t(*_qkv(2, 5, 4, 2, 16, seed=3))
+    want = flash_attention(q, k, v)
+    args = {"q": q, "k": k, "v": v}
+    args[which] = args[which].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(**args)
+    with torch.no_grad():
+        assert torch.equal(flash_attention(**args), want)

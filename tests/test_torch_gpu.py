@@ -27,7 +27,12 @@ bit-identical to 64 (KAN1, KAN2, the packed layer, a full-width half; 8,
 1000 and 65536 rows), a tuned plan in the plan cache changing the row tile
 and no output bit, training and the Pareto search deterministic on the
 card (equal parameters, equal fronts under one seed), and the measured
-tile sweep timing each distinct launch once.  This file
+tile sweep timing each distinct launch once.  LM training
+(``repro_torch.train.cardcheck``): the float KAN-FFN's custom backward at
+the full-width halves against autograd of the plain forward, three train
+steps on the card equal to the CPU's within 1e-5 (and B1 / B2 never
+launched), the in-place optimizer bit-equal to the functional one, and a
+bf16 restart bit-equal to the uninterrupted run.  This file
 imports only the port, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -506,3 +511,52 @@ def test_measured_tile_tuning_times_each_launch_once(dev):
             assert t.reason.startswith("same launch as ")
             assert t.score == next(u.score for u in timed
                                    if u.row_tile == t.row_tile)
+
+
+# ----------------------------------------------------------------------------
+# LM training (train.cardcheck: the checks chip_smoke.py runs)
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("f,o", [(5120, 1280), (1280, 5120)])
+def test_spline_mm_backward_at_the_full_width_halves(dev, f, o):
+    from repro_torch.train import cardcheck as tc
+
+    r = tc.check_spline_mm(dev, f, o, tokens=64)
+    assert r["dx_max_abs_err"] <= r["dx_tol"]
+    assert r["dc_max_abs_err"] <= r["dc_tol"]
+
+
+def test_train_steps_on_the_card_match_the_cpu(dev):
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.train import cardcheck as tc
+
+    cfg = dataclasses.replace(smoke_config("qwen2.5-14b").kan_variant(),
+                              microbatch=2, remat=True)
+    before = (dict(cuda.launch_counts()),
+              runtime.attn_dispatch_counts().get("flash", 0))
+    r = tc.check_card_vs_cpu(dev, cfg)
+    assert r["param_max_abs_err"] <= tc.CARD_CPU_TOL
+    # the step never reaches B1 or B2
+    assert (dict(cuda.launch_counts()),
+            runtime.attn_dispatch_counts().get("flash", 0)) == before
+
+
+def test_inplace_optimizer_is_bit_equal_on_the_card(dev):
+    from repro_torch.train import cardcheck as tc
+
+    assert all(n > 0 for n in tc.check_inplace_optimizer(dev).values())
+
+
+def test_bf16_training_restarts_bit_equal_on_the_card(dev):
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.train import cardcheck as tc
+
+    cfg = dataclasses.replace(smoke_config("qwen2.5-14b").kan_variant(),
+                              dtype="bfloat16")
+    r = tc.check_restart(dev, cfg)
+    assert r["restarted"] == r["losses"][3:]

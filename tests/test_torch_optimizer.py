@@ -170,3 +170,57 @@ def test_state_lives_on_the_params_device_and_keeps_the_tree(name):
         new = topt.apply_updates(params, updates)
         for a, b in zip(topt.tree_leaves(new), topt.tree_leaves(params)):
             assert a.shape == b.shape and a.dtype == b.dtype
+
+
+@pytest.mark.parametrize("pdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(OPTS))
+def test_inplace_update_is_bit_equal_to_the_functional_one(name, pdtype):
+    """``update_`` (leaf by leaf, in place; the LM train step's) gives the
+    bits of ``update`` + ``apply_updates`` over 5 steps, on f32 and bf16
+    parameters with f32 gradients; with ``ok`` false every state and
+    parameter tensor keeps its bits."""
+    rng = np.random.default_rng(3)
+    params = topt.tree_map(lambda t: t.to(pdtype),
+                           _to_torch(_tree(SHAPES["lm"], rng)))
+    grads = [_to_torch(_tree(SHAPES["lm"], rng)) for _ in range(5)]
+    opt = OPTS[name](topt)
+    fp, fs = params, opt.init(params)
+    ip = topt.tree_map(torch.clone, params)
+    is_ = opt.init(ip)
+    yes, no = torch.tensor(True), torch.tensor(False)
+    for g in grads:
+        u, fs = opt.update(g, fs, fp)
+        fp = topt.apply_updates(fp, u)
+        opt.update_(g, is_, ip, yes)
+        for a, b in zip(topt.tree_leaves((ip, is_)),
+                        topt.tree_leaves((fp, fs))):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    before = [t.clone() for t in topt.tree_leaves((ip, is_))]
+    poisoned = topt.tree_map(lambda t: t * float("nan"), grads[0])
+    opt.update_(poisoned, is_, ip, no)
+    for a, b in zip(topt.tree_leaves((ip, is_)), before):
+        assert torch.equal(a, b)
+
+
+def test_clip_promotes_bf16_gradients_as_the_reference():
+    """A bf16 gradient times the f32 clip scale is f32 in JAX; the port
+    promotes it too (the in-place clip gives the same bits)."""
+    rng = np.random.default_rng(4)
+    g = rng.standard_normal((7, 5)).astype(np.float32) * 3
+    want, jn = jopt.clip_by_global_norm({"a": jnp.asarray(g).astype(
+        jnp.bfloat16)}, 1.0)
+    tg = torch.from_numpy(g).to(torch.bfloat16)
+    got, tn = topt.clip_by_global_norm({"a": tg}, 1.0)
+    assert got["a"].dtype == torch.float32
+    assert want["a"].dtype == jnp.float32
+    np.testing.assert_allclose(got["a"].numpy(), np.asarray(want["a"]),
+                               rtol=1e-6, atol=1e-7)
+    lst = [tg.clone()]
+    norm = topt.clip_by_global_norm_(lst, 1.0)
+    assert torch.equal(lst[0], got["a"]) and torch.equal(norm, tn)
+    g32 = torch.from_numpy(g)
+    lst = [g32]
+    topt.clip_by_global_norm_(lst, 1.0)
+    assert lst[0] is g32    # an f32 gradient is clipped where it is
+    assert torch.equal(g32, topt.clip_by_global_norm(
+        {"a": torch.from_numpy(g)}, 1.0)[0]["a"])

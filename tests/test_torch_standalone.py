@@ -47,7 +47,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "obs.logging", "obs.exposition", "serve.spec",
               "serve.cardcheck", "core.costmodel", "core.neurosim",
               "core.mlp_baseline", "train.optimizer", "tune.space",
-              "tune.search", "tune.tiles", "tune.artifact"):
+              "tune.search", "tune.tiles", "tune.artifact", "data.lm_data",
+              "train.train_state", "train.checkpoint", "train.loop",
+              "train.cardcheck", "launch.train"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -111,3 +113,25 @@ def test_lm_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
         cli.main(["--arch", "qwen2.5-14b", "--requests", "1"])
     eng = ServeEngine(params, cfg, slots=1, max_len=16, device="cpu")
     assert eng.device.type == "cpu"
+
+
+def test_train_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch,
+                                                             tmp_path):
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.lm_data import DataConfig
+    from repro_torch.launch import train as cli
+    from repro_torch.train.loop import TrainLoop
+    from repro_torch.train.train_state import init_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = smoke_config("qwen2.5-14b")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_state(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainLoop(cfg, dcfg, str(tmp_path / "a"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--arch", "qwen2.5-14b", "--smoke", "--steps", "1",
+                  "--ckpt-dir", str(tmp_path / "b")])
+    loop = TrainLoop(cfg, dcfg, str(tmp_path / "c"), device="cpu")
+    assert loop.state["params"]["embed"].device.type == "cpu"
