@@ -117,7 +117,26 @@ Phases (any failure exits non-zero):
      batch overfitted (the loss falls at every step), a second run from
      the seed with bit-equal losses; B1 / B2 never launched and "flash"
      never dispatched in the phase;
- 10. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
+ 10. the sliding-window and MoE decoders at their published widths, bf16,
+     random weights from a seed: B1 at gemma2's kan_variant() FFN halves
+     (4608 -> 3456 -> 4608, 8 and 1024 rows), B2 at gemma2's and mixtral's
+     4200-token windowed prefill (softcap 50, 4096-key window; the pairs
+     the window excludes counted), olmoe's causal prefill and decode over
+     wrapped 4096-slot rings, each against its plain version and timed
+     beside SDPA; one full-width MoE layer of mixtral and olmoe at 64 and
+     1024 tokens, card against CPU (routing equal but at router near-ties,
+     outputs within 4 bf16 ulps); then gemma2-27b kan_variant() (4
+     layers) and mixtral-8x7b (4 layers) served contiguous (4 slots,
+     max_len 4608, prompts of 5, 300, 1000 and 4200 tokens, 16 new each)
+     and olmoe-1b-7b (16 layers) contiguous and paged on phase 6's
+     prompts.  Gates: gemma2 every emitted token under LOGIT_TOL of the
+     teacher-forced "ref" logits; MoE streams under LOGIT_TOL of a
+     "ref"-attention replay of the same schedule and routing (the same
+     batches, MoE capacities and expert choices; the tokens the replay's
+     own router would have moved counted); launch counts, a profiled
+     run's idle share and waits per decode step (no op waits that phase
+     6's does not), MoE drops per step;
+ 11. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
 
 A longer report goes to ``reports/chip_smoke_report.json`` (gitignored).
 """
@@ -1125,12 +1144,15 @@ def _timed(eng, name: str, sink: list) -> None:
 
 def serve_once(params, cfg, prompts, dev, mode: str, profile: bool = False,
                kan_backend: str | None = None, spec_decode: int = 0,
-               sched_kw: dict | None = None, hook=None):
+               sched_kw: dict | None = None, hook=None,
+               engine_kw: dict | None = None):
     """One engine serves the requests through the scheduler; returns its
     streams, counters and times.  ``spec_decode``: k of a speculative
     engine (paged; ``params`` then the FLOAT tree the drafter refits);
     ``sched_kw``: Scheduler options (``trace``); ``hook(eng)`` runs after
-    the warm-up (e.g. to wrap the engine's calls)."""
+    the warm-up (e.g. to wrap the engine's calls); ``engine_kw``:
+    ServeEngine options over phase 6's (``max_len``, ``kan_deploy``,
+    ``attn_backend``)."""
     import gc
 
     import torch
@@ -1144,9 +1166,10 @@ def serve_once(params, cfg, prompts, dev, mode: str, profile: bool = False,
     before = torch.cuda.memory_allocated()
     kw = ({} if mode == "contiguous" else
           {"kv_block_size": SERVE_BLOCK, "prefill_chunk": SERVE_CHUNK})
-    eng = ServeEngine(params, cfg, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
-                      kan_deploy=True, kan_backend=kan_backend, device=dev,
-                      spec_decode=spec_decode, **kw)
+    kw = {"max_len": SERVE_MAX_LEN, "kan_deploy": True, **kw,
+          **(engine_kw or {})}
+    eng = ServeEngine(params, cfg, slots=SERVE_SLOTS, kan_backend=kan_backend,
+                      device=dev, spec_decode=spec_decode, **kw)
     # warm-up (library load, plan builds) outside the measured run
     eng.run([Request(rid=-1, prompt=[5, 6, 7, 8, 9, 10, 11, 12],
                      max_new_tokens=2)])
@@ -1207,38 +1230,58 @@ def serve_once(params, cfg, prompts, dev, mode: str, profile: bool = False,
 
 
 def check_counts(run: dict, mode: str, layers: int, backend: str = "fused",
-                 noise: bool = False) -> None:
+                 noise: bool = False, kan: bool = True,
+                 requests: int = len(SERVE_LENS), attn: str = "flash") -> None:
     """B2 once and B1 twice per layer of every prefill / decode / verify
     call of the engine and of its drafter (with ``noise``: every B1 launch
-    carried the psum-noise operand)."""
+    carried the psum-noise operand; without ``kan``: no B1; ``attn="ref"``:
+    no B2 either)."""
     calls = (run["prefill_calls"] + run["decode_calls"] + run["verify_calls"]
              + run.get("draft_prefill_calls", 0)
              + run.get("draft_decode_calls", 0))
-    want = {"flash_attention": calls * layers,
-            "kan_pipeline_layer": 2 * calls * layers}
+    want = {"flash_attention": calls * layers} if attn == "flash" else {}
+    if kan:
+        want["kan_pipeline_layer"] = 2 * calls * layers
     if noise:
         want["kan_pipeline_layer.noise"] = 2 * calls * layers
     require(run["launches"] == want,
             f"{mode}: launches {run['launches']} != {want} ({calls} calls x "
             f"{layers} layers; B1 twice per KAN-FFN)")
-    require(run["attn"] == {"flash": calls * layers},
+    require(run["attn"] == {attn: calls * layers},
             f"{mode}: attention dispatch {run['attn']}")
-    require(run["kan"] == {backend: calls * layers},
+    require(run["kan"] == ({backend: calls * layers} if kan else {}),
             f"{mode}: KAN dispatch {run['kan']}")
     require(all(v == "done" for v in run["status"].values())
-            and len(run["status"]) == len(SERVE_LENS),
+            and len(run["status"]) == requests,
             f"{mode}: requests not all served: {run['status']}")
+
+
+def forward_rows(params, cfg, seq, start: int):
+    """``models.model.forward``'s logits of rows ``start:`` only, (S -
+    start, V): the LM head runs on those rows alone (gemma2's 256000-word
+    head over a 4216-token sequence would be 4.3 GB of f32 logits)."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import stack_forward
+
+    s = seq.shape[1]
+    h = M._embed_tokens(params, seq, cfg)
+    h = stack_forward(params["decoder"], h, cfg,
+                      positions=torch.arange(s, device=seq.device)[None])
+    h = L.rmsnorm(params["final_norm"], h[:, start:], cfg.norm_eps)
+    return M._lm_logits(params, h, cfg)[0]
 
 
 def teacher_forced(params, cfg, prompts, streams, dev) -> dict:
     """Score each served stream under the "ref" backends (KAN "ref",
     attention "ref") and, for the logit error, under "fused" + "flash",
-    both as one forward over prompt + stream[:-1]; gate every emitted
-    token on the ref logits."""
+    both as one forward over prompt + stream[:-1] with the LM head on the
+    emitted rows; gate every emitted token on the ref logits."""
     import torch
 
     from repro_torch import runtime
-    from repro_torch.models import model as M
 
     steps, excused, worst_gap, max_err = 0, 0, 0.0, 0.0
     for rid, out in streams.items():
@@ -1248,8 +1291,8 @@ def teacher_forced(params, cfg, prompts, streams, dev) -> dict:
         with torch.no_grad():
             for kan, attn in (("ref", "ref"), ("fused", "flash")):
                 with runtime.use_backend(kan), runtime.use_attn_backend(attn):
-                    rows[attn] = M.forward(params, {"tokens": seq},
-                                           cfg)[0, len(prompt) - 1:]
+                    rows[attn] = forward_rows(params, cfg, seq,
+                                              len(prompt) - 1)
         ref, fl = rows["ref"], rows["flash"]
         require(ref.shape == (len(out), cfg.vocab_size)
                 and bool(torch.isfinite(ref).all())
@@ -1307,6 +1350,10 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
 SPAN_PREFIXES = ("serve.", "kan_spline.")
+# CUPTI's own overhead records (torch/profiler/_cupti_monitor.py): the
+# profiler's activity-buffer flushes show up as ops that copy and wait
+PROFILER_OVERHEAD = ("Buffer Flush", "Activity Buffer Request",
+                     "Command Buffer Full")
 
 
 def host_split(prof, wall_ms: float, decode_steps: int) -> dict:
@@ -1388,12 +1435,18 @@ def host_split(prof, wall_ms: float, decode_steps: int) -> dict:
                        and inside(serve_r, serve_t0, e.start_ns())[2]
                        == "serve.decode_step")
     waits = collections.defaultdict(lambda: [0, 0.0])
+    decode_waits = collections.Counter()
     for e in cpu:
         if e.name() in SYNC_CALLS:
             op = ops.get(e.linked_correlation_id())
-            w = waits[f"{op.name() if op is not None else '-'} ({e.name()})"]
+            key = f"{op.name() if op is not None else '-'} ({e.name()})"
+            w = waits[key]
             w[0] += 1
             w[1] += (e.end_ns() - e.start_ns()) / 1e6
+            r = inside(serve_r, serve_t0, e.start_ns())
+            if (r is not None and r[2] == "serve.decode_step"
+                    and (op is None or op.name() not in PROFILER_OVERHEAD)):
+                decode_waits[key] += 1
     rows = [ev for ev in prof.key_averages()
             if ev.device_type == DeviceType.CPU
             and not ev.key.startswith(SPAN_PREFIXES)]
@@ -1422,6 +1475,8 @@ def host_split(prof, wall_ms: float, decode_steps: int) -> dict:
             "waits": {k: {"count": n, "cpu_ms": ms}
                       for k, (n, ms) in sorted(waits.items(),
                                                key=lambda kv: -kv[1][1])},
+            "decode_waits_per_step": {k: n / steps
+                                      for k, n in decode_waits.items()},
             "host_ms_by_kind": by_kind, "top_host_ops": host_ops}
 
 
@@ -1439,6 +1494,9 @@ def print_host_split(hs: dict, label: str) -> None:
           f"{hs['kernels_per_decode_step']:.1f} kernels "
           f"({hs['library_kernels_per_decode_step']:.1f} of the kernel "
           f"library), {hs['launch_calls_per_decode_step']:.1f} launch calls")
+    print("    inside each decode step, waits and copies per step: "
+          + ("; ".join(f"{k} {v:.2f}" for k, v in
+                       hs["decode_waits_per_step"].items()) or "none"))
     print("    host waits on the device and copies (call by the op that "
           "made it): "
           + "; ".join(f"{k} x{v['count']} {v['cpu_ms']:.2f} ms"
@@ -1903,79 +1961,113 @@ def serve_acim(qparams, cfg, prompts, dev, fused_run, fused_bd,
 # ----------------------------------------------------------------------------
 
 
-def phase_times_lm(dev, report) -> tuple:
-    """B2 at the three path shapes (returned summed, with the rows) and B1
-    at the full-width FFN halves (returned as rows)."""
-    import torch
+def b2_time_row(name: str, st: dict, q, k, v, qpos, kpos, kind: str,
+                window: int = 0, softcap: float = 0.0) -> dict:
+    """B2 timed on one set of operands (already held against plain,
+    ``st``): L2-cold, warm (graph replay) and back-to-back, beside the
+    plain version, ``scaled_dot_product_attention`` with the same boolean
+    mask (none where there is a softcap: SDPA has none) and the bound."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.attention import cardcheck as ac
     from repro_torch.kernels.attention import flash_attention
     from repro_torch.kernels.attention.ref import flash_attention_plain
-    from repro_torch.kernels.kan_spline import cardcheck as cc
-    from repro_torch.kernels.kan_spline import pipeline as pl
 
-    rows = []
-    print("B2 at the serving path's shapes, and decode over a 4096-key "
-          "cache (bf16, 48 q heads / 8 kv heads, D=128), held against plain "
-          f"(bf16 tol: one bf16 ulp + {ac.F32_TOL} + rel): shape | KV splits"
-          " | kernel ms L2-cold | warm (graph) | back-to-back events | plain "
-          "ms | sdpa ms L2-cold | warm (graph) | bound ms (by) | max |err| | "
-          "err / tol")
-    for name, b, s, t, kind in ac.PATH_SHAPES + DECODE_LONG + VERIFY_SHAPES:
-        # raises if the kernel disagrees with plain beyond the gate
-        st, (q, k, v, qpos, kpos) = ac.check_b2_path(dev, name, b, s, t, kind)
-        args = dict(kind=kind, qpos=qpos, kpos=kpos)
-        ms = cuda_ms(lambda: flash_attention(q, k, v, **args), reps=20)
-        cold = cold_ms(lambda: flash_attention(q, k, v, **args))
-        warm = graph_ms(lambda: flash_attention(q, k, v, **args), 20)
-        plain = cuda_ms(lambda: flash_attention_plain(
-            q, k, v, qpos, kpos, kind=kind, window=0, softcap=0.0,
-            scale=128 ** -0.5, kv_splits=st["kv_splits"]), reps=3, warmup=1)
-        mask = (kpos[:, None, None, :] <= qpos[:, None, :, None]) \
-            & (kpos[:, None, None, :] >= 0)                  # (B, 1, S, T)
+    b, s, hq, d = q.shape
+    t = k.shape[1]
+    args = dict(kind=kind, qpos=qpos, kpos=kpos, window=window,
+                softcap=softcap)
+    ms = cuda_ms(lambda: flash_attention(q, k, v, **args), reps=20)
+    cold = cold_ms(lambda: flash_attention(q, k, v, **args))
+    warm = graph_ms(lambda: flash_attention(q, k, v, **args), 20)
+    plain = cuda_ms(lambda: flash_attention_plain(
+        q, k, v, qpos, kpos, kind=kind, window=window, softcap=softcap,
+        scale=d ** -0.5, kv_splits=st["kv_splits"]), reps=3, warmup=1)
+    mask = (kpos[:, None, None, :] <= qpos[:, None, :, None]) \
+        & (kpos[:, None, None, :] >= 0)                  # (B, 1, S, T)
+    if kind == "local":
+        mask &= kpos[:, None, None, :] > qpos[:, None, :, None] - window
+    lib = lib_warm = None
+    if not softcap:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
         def sdpa():
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                   enable_gqa=True)
 
         lib, lib_warm = cold_ms(sdpa), graph_ms(sdpa, 20)
-        pairs = int(mask.sum().item())          # admitted (q, k) per head
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        flops = 4 * 48 * 128 * pairs
-        b_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
-        rows.append({"kernel": "flash_attention", "shape": name, "B": b,
-                     "S": s, "T": t, "admitted_pairs": pairs, "ms": cold,
-                     "cold_ms": cold, "warm_ms": warm, "event_ms": ms,
-                     "plain_ms": plain, "library_ms": lib,
-                     "library_warm_ms": lib_warm, "bound_ms": b_ms,
-                     "bound_by": by, "on_path": (name, b, s, t, kind)
-                     in ac.PATH_SHAPES, **st})
-        print(f"  {name} B={b} S={s} T={t} | {st['kv_splits']} | {cold:.4f} | "
-              f"{warm:.4f} | {ms:.4f} | {plain:.4f} | {lib:.4f} | "
-              f"{lib_warm:.4f} | {b_ms:.4f} ({by}) | "
-              f"{st['max_abs_err']:.3e} | {st['max_err_over_tol']:.3f}")
+    pairs = int(mask.sum().item())          # admitted (q, k) per head
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    b_ms, by = bound(nbytes, 4 * hq * d * pairs, BF16_FLOP_PER_S)
+    row = {"kernel": "flash_attention", "shape": name, "B": b, "S": s,
+           "T": t, "Hq": hq, "Hkv": k.shape[2], "window": window,
+           "softcap": softcap, "admitted_pairs": pairs, "ms": cold,
+           "cold_ms": cold, "warm_ms": warm, "event_ms": ms,
+           "plain_ms": plain, "library_ms": lib, "library_warm_ms": lib_warm,
+           "bound_ms": b_ms, "bound_by": by, **st}
+    na = "n/a"
+    print(f"  {name} B={b} S={s} T={t} Hq/Hkv={hq}/{k.shape[2]} | "
+          f"{st['kv_splits']} | {cold:.4f} | {warm:.4f} | {ms:.4f} | "
+          f"{plain:.4f} | {na if lib is None else f'{lib:.4f}'} | "
+          f"{na if lib_warm is None else f'{lib_warm:.4f}'} | {b_ms:.4f} "
+          f"({by}) | {st['max_abs_err']:.3e} | {st['max_err_over_tol']:.3f}")
+    return row
+
+
+B2_TIME_HEADER = ("shape | KV splits | kernel ms L2-cold | warm (graph) | "
+                  "back-to-back events | plain ms | sdpa ms L2-cold | warm "
+                  "(graph) | bound ms (by) | max |err| | err / tol")
+B1_TIME_HEADER = ("G half rows | feature splits | kernel ms L2-cold | warm "
+                  "(graph) | plain ms | bound ms (by)")
+
+
+def b1_time_row(dev, gen, grid: int, f: int, o: int, flags, nrows: int) -> dict:
+    """B1 timed at one full-width FFN half: L2-cold and warm (graph
+    replay), beside the plain version and the bound."""
+    from repro_torch.kernels.kan_spline import cardcheck as cc
+    from repro_torch.kernels.kan_spline import pipeline as pl
+
+    lp, lw, _, codes, xraw, _ = cc.b1_case(dev, gen, grid, f, o, flags,
+                                           nrows)
+    a = (codes, xraw, lw, lp, nrows)
+    splits = pl.feature_split_plan(lp.f, lp.o)[0]
+    ms = graph_ms(lambda: pl.run_pipeline_layer(*a), 10)
+    cold = cold_ms(lambda: pl.run_pipeline_layer(*a), reps=10)
+    plain = cuda_ms(lambda: pl.run_pipeline_layer_plain(
+        *a, feature_splits=splits), reps=2, warmup=1)
+    b_ms, by = bound(*b1_work(lp, lw, nrows))
+    print(f"  G={grid} {f}x{o} rows={nrows} | {splits} | {cold:.4f} | "
+          f"{ms:.4f} | {plain:.4f} | {b_ms:.4f} ({by})")
+    return {"kernel": "kan_pipeline_layer", "layer": f"ffn {f}x{o}",
+            "grid": grid, "rows": nrows, "feature_splits": splits,
+            "ms": cold, "cold_ms": cold, "warm_ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": by}
+
+
+def phase_times_lm(dev, report) -> tuple:
+    """B2 at the three path shapes (returned summed, with the rows) and B1
+    at the full-width FFN halves (returned as rows)."""
+    import torch
+
+    from repro_torch.kernels.attention import cardcheck as ac
+    from repro_torch.kernels.kan_spline import cardcheck as cc
+
+    rows = []
+    print("B2 at the serving path's shapes, and decode over a 4096-key "
+          "cache (bf16, 48 q heads / 8 kv heads, D=128), held against plain "
+          f"(bf16 tol: one bf16 ulp + {ac.F32_TOL} + rel): "
+          + B2_TIME_HEADER)
+    for name, b, s, t, kind in ac.PATH_SHAPES + DECODE_LONG + VERIFY_SHAPES:
+        # raises if the kernel disagrees with plain beyond the gate
+        st, ops = ac.check_b2_path(dev, name, b, s, t, kind)
+        row = b2_time_row(name, st, *ops, kind)
+        row["on_path"] = (name, b, s, t, kind) in ac.PATH_SHAPES
+        rows.append(row)
 
     print("B1 at the full-width KAN-FFN halves (raw residual; G=8 the "
-          "target's, G=4 the drafter's): G half rows | feature splits | "
-          "kernel ms L2-cold | warm (graph) | plain ms | bound ms (by)")
+          "target's, G=4 the drafter's): " + B1_TIME_HEADER)
     gen = torch.Generator(device=dev).manual_seed(13)
     for grid, f, o, flags, nrows in cc.B1_FFN_FULL + cc.B1_FFN_DRAFT:
-        lp, lw, _, codes, xraw, _ = cc.b1_case(dev, gen, grid, f, o, flags,
-                                               nrows)
-        a = (codes, xraw, lw, lp, nrows)
-        splits = pl.feature_split_plan(lp.f, lp.o)[0]
-        ms = graph_ms(lambda: pl.run_pipeline_layer(*a), 10)
-        cold = cold_ms(lambda: pl.run_pipeline_layer(*a), reps=10)
-        plain = cuda_ms(lambda: pl.run_pipeline_layer_plain(
-            *a, feature_splits=splits), reps=2, warmup=1)
-        b_ms, by = bound(*b1_work(lp, lw, nrows))
-        rows.append({"kernel": "kan_pipeline_layer", "layer": f"ffn {f}x{o}",
-                     "grid": grid, "rows": nrows, "feature_splits": splits,
-                     "ms": cold, "cold_ms": cold, "warm_ms": ms,
-                     "plain_ms": plain, "bound_ms": b_ms, "bound_by": by})
-        print(f"  G={grid} {f}x{o} rows={nrows} | {splits} | {cold:.4f} | "
-              f"{ms:.4f} | {plain:.4f} | {b_ms:.4f} ({by})")
+        rows.append(b1_time_row(dev, gen, grid, f, o, flags, nrows))
     report["b1_row_tiles"] = b1_row_tile_times(dev)
     report["times_lm"] = rows
     report["times_b4"] = phase_times_b4(dev)
@@ -2605,6 +2697,447 @@ def phase_train(dev, report) -> None:
                        "profile": tp, "overfit": over, "wall_s": wall}
 
 
+# ----------------------------------------------------------------------------
+# phase 10: the sliding-window and MoE decoders at full width
+# ----------------------------------------------------------------------------
+
+# gemma2 / mixtral prompt lengths: the 4200-token prompt wraps the 4096-slot
+# local rings in prefill (the window excludes keys there) and in decode
+A7A_LENS = (5, 300, 1000, 4200)
+# (arch, kan_variant, layers kept, modes, max_len, prompt lengths; None:
+# phase 6's prompts): gemma2-27b's KAN variant (2 local / global pairs of
+# its 46 layers), mixtral-8x7b (4 of 32 layers), olmoe-1b-7b whole (16
+# layers), each at its published widths in bf16
+A7A_MODELS = (("gemma2-27b", True, 4, ("contiguous",), 4608, A7A_LENS),
+              ("mixtral-8x7b", False, 4, ("contiguous",), 4608, A7A_LENS),
+              ("olmoe-1b-7b", False, 16, ("contiguous", "paged"),
+               SERVE_MAX_LEN, None))
+MOE_LAYER_TOKENS = (64, 1024)
+
+
+def a7a_prompts(vocab: int, lens) -> list:
+    """Prompts of ``lens`` tokens from numpy seed 7 (None: phase 6's)."""
+    import numpy as np
+
+    if lens is None:
+        return serve_prompts(vocab)
+    rng = np.random.default_rng(7)
+    return [rng.integers(3, vocab, n).tolist() for n in lens]
+
+
+def a7a_kernel_checks(dev, report) -> dict:
+    """B1 at the gemma2 KAN-FFN halves, B2 at the windowed / MoE prefill
+    geometry and over wrapped rings, and one full-width MoE layer of
+    mixtral and olmoe, card against CPU; the kernels timed beside their
+    plain versions, SDPA and bounds.  Returns the max abs errors."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import cardcheck as ac
+    from repro_torch.kernels.kan_spline import cardcheck as cc
+    from repro_torch.models.cardcheck import check_moe_layer
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    b1_err, b1_excused = 0.0, 0
+    for grid, f, o, flags, rows in cc.B1_FFN_GEMMA2:
+        st = cc.check_b1(dev, gen, grid, f, o, flags, rows,
+                         eps=cc.FFN_FULL_TIE_EPS)
+        b1_err = max(b1_err, st["max_abs_err"])
+        b1_excused += st["excused"]
+    rows_eq = cc.check_b1_rows_independent(dev, gen, f=4608, o=3456)
+    print(f"B1 vs plain at the gemma2 kan_variant() halves (4608 -> 3456 -> "
+          f"4608, G=8, 8 and 1024 rows): max |err| {b1_err:.3e}, excused "
+          f"codes {b1_excused} (tie window {cc.FFN_FULL_TIE_EPS:.2e}); rows "
+          f"bit-identical at 8 and 1024 rows: {rows_eq['equal']}")
+
+    b2_rows, b2_err = [], 0.0
+    print("B2 vs plain at the windowed / MoE decoders' shapes (bf16, D=128), "
+          "then timed: " + B2_TIME_HEADER)
+    for case in ac.B2_A7A:
+        st, ops = ac.check_b2_case(dev, gen, **case)
+        if case["kind"] == "local":
+            require(st["window_excluded"] > 0,
+                    f"B2 {case}: the window excludes no key")
+        name = (f"prefill_{case['kind']}_g{case['hq'] // case['hkv']}"
+                + (f"_cap{case['softcap']:g}" if case.get("softcap") else ""))
+        row = b2_time_row(name, st, *ops, case["kind"],
+                          case.get("window", 0) if case["kind"] == "local"
+                          else 0, case.get("softcap", 0.0))
+        row["window_excluded"] = st["window_excluded"]
+        b2_rows.append(row)
+        b2_err = max(b2_err, st["max_abs_err"])
+        del ops
+    for name, hq, hkv, cap in ac.B2_RING:
+        st = ac.check_b2_ring(dev, name, hq, hkv, cap)
+        row = b2_time_row(name, st, *ac.ring_inputs(dev, hq, hkv), "causal",
+                          0, cap)
+        row["non_monotone_slots"] = st["non_monotone_slots"]
+        b2_rows.append(row)
+        b2_err = max(b2_err, st["max_abs_err"])
+    print("  pairs the window excludes per head (local cases): "
+          + ", ".join(f"{r['shape']} {r['window_excluded']}" for r in b2_rows
+                      if "window_excluded" in r)
+          + "; ring slots below their predecessor: "
+          + ", ".join(f"{r['shape']} {r['non_monotone_slots']}"
+                      for r in b2_rows if "non_monotone_slots" in r))
+
+    print("B1 at the gemma2 halves, timed: " + B1_TIME_HEADER)
+    b1_rows = [b1_time_row(dev, gen, *case) for case in cc.B1_FFN_GEMMA2]
+
+    moe_rows = []
+    for arch in ("mixtral-8x7b", "olmoe-1b-7b"):
+        cfg = dataclasses.replace(get_config(arch), dtype="bfloat16")
+        for tokens in MOE_LAYER_TOKENS:
+            t0 = time.perf_counter()
+            st = {"arch": arch, **check_moe_layer(dev, cfg, tokens),
+                  "s": time.perf_counter() - t0}
+            moe_rows.append(st)
+            print(f"MoE layer {arch} (E={cfg.num_experts}, top-"
+                  f"{cfg.num_experts_per_tok}, {cfg.moe_dispatch}) at "
+                  f"{tokens} tokens, card vs CPU: cap {st['cap']}, "
+                  f"{st['dropped']} assignments dropped, {st['flipped']} "
+                  f"tokens excused at a router near-tie, {st['displaced']} "
+                  f"displaced behind them; max |err| {st['max_abs_err']:.4e}"
+                  f" (tol {st['tol']:.4e}); {st['s']:.1f} s")
+            torch.cuda.empty_cache()
+    report["a7a_kernels"] = {"b1_max_abs_err": b1_err,
+                             "b1_excused_codes": b1_excused,
+                             "b1_rows_independent": rows_eq,
+                             "b2": b2_rows, "b1": b1_rows, "moe": moe_rows}
+    return {"kan_pipeline_layer": b1_err, "flash_attention": b2_err,
+            "b2_rows": b2_rows, "b1_rows": b1_rows}
+
+
+def replay_hook(rec: dict, force: dict | None = None):
+    """``hook(eng)`` for :func:`serve_once`: every emitted step's logits
+    row goes to ``rec["rows"]`` under (rid, token index), and
+    ``rec["ctx"]`` names the requests of the call in flight (for
+    :func:`logged_routes`).  With ``force`` ({rid: stream}) each step emits
+    the stream's token instead of its own argmax, so a second engine run
+    replays the first one's schedule: the same batches, chunks and idle
+    slots, and so the same MoE capacities."""
+    import numpy as np
+    import torch
+
+    def hook(eng):
+        prefill, decode = eng._prefill_step, eng.decode_active
+
+        def prefill_step(slot):
+            rid = eng._prefilling[slot]["req"].rid
+            rec["ctx"] = ("prefill", rid)
+            logits = prefill(slot)
+            rec["ctx"] = None
+            if logits is None:
+                return None
+            rec["rows"][(rid, 0)] = torch.from_numpy(logits.copy())
+            if force is not None:
+                logits = logits.copy()
+                logits[force[rid][0]] = np.inf
+            return logits
+
+        def decode_active(tokens):
+            keys = [None if r is None else (r.rid, len(r.output))
+                    for r in eng.active]
+            rec["ctx"] = ("decode", keys)
+            logits = decode(tokens)
+            rec["ctx"] = None
+            for i, key in enumerate(keys):
+                if key is not None:
+                    rec["rows"][key] = logits[i]
+            if force is not None:
+                live = [(i, force[key[0]][key[1]])
+                        for i, key in enumerate(keys) if key is not None]
+                idx = torch.tensor(live, device=logits.device)
+                logits = logits.clone()
+                logits[idx[:, 0], idx[:, 1]] = float("inf")
+            return logits
+
+        eng._prefill_step, eng.decode_active = prefill_step, decode_active
+
+    return hook
+
+
+class moe_routing:
+    """While open, ``models.layers.moe_route`` is wrapped for the engine
+    calls :func:`replay_hook` names (``rec["ctx"]``).  Recording (no
+    ``replay``): each call's (context, experts, ranks, capacity) goes to
+    ``rec["routes"]``.  Replaying (``replay``: a recording run's routes):
+    each call routes as recorded, the recorded experts and ranks with
+    gates from this run's own router logits at those experts, so the two
+    runs differ only in what precedes the router; the tokens whose experts
+    this run's own top-k would have moved are counted in ``rec["moved"]``,
+    and the largest router gap (k-th minus (k+1)-th logit) among them in
+    ``rec["moved_gap"]``.  Device tensors, read after the run."""
+
+    def __init__(self, rec: dict, replay: list | None = None):
+        self.rec, self.replay = rec, replay
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import layers as L
+
+        self.orig = orig = L.moe_route
+        rec = self.rec
+        rec.setdefault("routes", [])
+        rec.setdefault("moved", [])
+        rec.setdefault("moved_gap", [])
+        todo = None if self.replay is None else iter(self.replay)
+
+        def route(p, xt, cfg):
+            out = orig(p, xt, cfg)
+            ctx = rec["ctx"]
+            if ctx is None:
+                return out
+            flat_e, _, pos, cap = out
+            rec["routes"].append((ctx, flat_e, pos, cap))
+            if todo is None:
+                return out
+            rctx, re, rpos, rcap = next(todo)
+            require(rctx == ctx and rcap == cap,
+                    f"replayed MoE call {ctx} (cap {cap}) is not the "
+                    f"recorded {rctx} (cap {rcap})")
+            k = cfg.num_experts_per_tok
+            logits = xt.to(torch.float32) @ p["router"]
+            gates = torch.softmax(logits.gather(1, re.view(-1, k)), dim=-1)
+            # the same experts in another order route alike
+            moved = (flat_e.view(-1, k).sort(dim=-1).values
+                     != re.view(-1, k).sort(dim=-1).values).any(dim=-1)
+            srt = torch.sort(logits, dim=-1, descending=True).values
+            gap = srt[:, k - 1] - srt[:, k]
+            rec["moved"].append(moved.sum())
+            rec["moved_gap"].append(torch.where(moved, gap, 0.0).max())
+            return re, gates.reshape(-1), rpos, cap
+
+        L.moe_route = route
+        return rec
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+
+        L.moe_route = self.orig
+        return False
+
+
+def replay_gate(streams: dict, flash_rows: dict, ref_rows: dict) -> dict:
+    """Each emitted token (flash run) scored on the "ref" replay's logits
+    of the same step: its ref logit within LOGIT_TOL of the ref maximum."""
+    steps = argmax_diff = 0
+    worst, max_err = 0.0, 0.0
+    for rid, out in streams.items():
+        for idx, tok in enumerate(out):
+            ref = ref_rows[(rid, idx)].float().cpu()
+            fl = flash_rows[(rid, idx)].float().cpu()
+            steps += 1
+            worst = max(worst, float(ref.max() - ref[tok]))
+            max_err = max(max_err, float((fl - ref).abs().max()))
+            argmax_diff += int(int(ref.argmax()) != tok)
+    return {"steps": steps, "argmax_diff": argmax_diff, "worst_gap": worst,
+            "max_logit_err": max_err}
+
+
+def a7a_config(arch: str, kan: bool, layers: int):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if kan:
+        cfg = cfg.kan_variant()
+    return dataclasses.replace(cfg, num_layers=layers)
+
+
+def a7a_serve(dev, arch: str, kan: bool, layers: int, modes: tuple,
+              max_len: int, lens, qwen_waits: set) -> tuple:
+    """Serve one model: per mode a timed run (recording logits and
+    routing for a MoE model), a profiled run (contiguous) and its gate (gemma2: teacher-forced "ref" logits at the emitted
+    rows; MoE: the flash run against a "ref"-attention replay of its
+    schedule and routing).  Returns (summary, launches by path)."""
+    import gc
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.kan_ffn_deploy import quantize_kan_ffn_params_tree
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = a7a_config(arch, kan, layers)
+    moe = cfg.num_experts > 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t_model = t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    n = sum(t.numel() for t in tree_leaves(params))
+    if kan:
+        params = quantize_kan_ffn_params_tree(params, cfg)
+        gc.collect()            # the float KAN-FFN blocks
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated() - base
+    prompts = a7a_prompts(cfg.vocab_size, lens)
+    ekw = {"max_len": max_len, "kan_deploy": kan}
+    print(f"{arch}{' kan_variant()' if kan else ''}: {layers} of "
+          f"{get_config(arch).num_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.phys_heads}/{cfg.phys_kv_heads}, "
+          + (f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok} "
+             f"({cfg.moe_dispatch}, capacity {cfg.moe_capacity_factor}), "
+             if moe else f"KAN-FFN hidden {cfg.kan_d_hidden}, ")
+          + f"window {cfg.window_size} on {sorted(set(cfg.layer_kinds))}, "
+          f"vocab {cfg.vocab_size}, bf16: {n} parameters, init"
+          f"{' + quantize + deploy' if kan else ''} {setup_s:.2f} s, "
+          f"{weights} B on the card; prompts {[len(p) for p in prompts]}, "
+          f"max_len {max_len}")
+    out = {"arch": arch, "kan": kan, "layers": layers, "params": n,
+           "weights_bytes": weights, "setup_s": setup_s,
+           "prompt_lens": [len(p) for p in prompts], "modes": {}}
+    launches = {}
+    for mode in modes:
+        label = f"{arch} {mode}"
+        # the timed run; for a MoE model it also records each emitted
+        # step's logits and every routing (device tensors, no wait)
+        flash = {"rows": {}, "ctx": None}
+        with moe_routing(flash):
+            run = serve_once(params, cfg, prompts, dev, mode, engine_kw=ekw,
+                             hook=replay_hook(flash) if moe else None)
+        check_counts(run, label, layers, kan=kan, requests=len(prompts))
+        launches[f"a7a_{arch}_{mode}"] = run["launches"]
+        s = run["sched"]
+        dec = sorted(run["decode_ms"])
+        info = {"tokens": s["tokens"], "tokens_per_s": s["tokens_per_s"],
+                "ttft_s": s["ttft_s"], "decode_ms_median": dec[len(dec) // 2],
+                "prefill_ms": run["prefill_ms"],
+                "peak_bytes": run["peak_bytes"] - base,
+                "prefill_calls": run["prefill_calls"],
+                "decode_calls": run["decode_calls"],
+                "launches": run["launches"], "streams": run["streams"],
+                "kv": run["kv"]}
+        streams = run["streams"]
+        del run
+        if mode == "contiguous":
+            obs.enable_profiler_annotations()
+            try:
+                prun = serve_once(params, cfg, prompts, dev, mode,
+                                  profile=True, engine_kw=ekw)
+            finally:
+                obs.disable_profiler_annotations()
+            check_counts(prun, f"{label} (profiled)", layers, kan=kan,
+                         requests=len(prompts))
+            require(prun["streams"] == streams,
+                    f"{label}: the profiled run served other streams")
+            bd = device_breakdown(prun["prof"], prun["prof_wall_s"] * 1e3)
+            hs = host_split(prun["prof"], prun["prof_wall_s"] * 1e3,
+                            prun["decode_calls"])
+            del prun
+            info.update(idle_share=1.0 - bd["busy_share"], breakdown=bd,
+                        decode_waits_per_step=hs["decode_waits_per_step"],
+                        kernels_per_decode_step=hs["kernels_per_decode_step"])
+            new = set(hs["decode_waits_per_step"]) - qwen_waits
+            require(not new, f"{label}: decode steps wait on the device in "
+                    f"ops phase 6's qwen2.5-14b run does not: {sorted(new)}")
+        if moe:
+            ref = {"rows": {}, "ctx": None}
+            with moe_routing(ref, replay=flash["routes"]):
+                rrun = serve_once(params, cfg, prompts, dev, mode,
+                                  engine_kw={**ekw, "attn_backend": "ref"},
+                                  hook=replay_hook(ref, force=streams))
+            check_counts(rrun, f"{label} (ref replay)", layers, kan=kan,
+                         requests=len(prompts), attn="ref")
+            del rrun
+            require(len(ref["routes"]) == len(flash["routes"]),
+                    f"{label}: the replay made {len(ref['routes'])} MoE "
+                    f"calls, the flash run {len(flash['routes'])}")
+            gate = replay_gate(streams, flash["rows"], ref["rows"])
+            gate["moved_tokens"] = int(sum(ref["moved"]).item())
+            gate["moved_max_gap"] = float(max(ref["moved_gap"]).item())
+            drops = {"decode": 0, "prefill": 0}
+            for (kind, _), _, pos, cap in flash["routes"]:
+                drops[kind] += int((pos >= cap).sum())
+            info.update(gate=gate, drops_per_decode_step=drops["decode"]
+                        / max(info["decode_calls"], 1),
+                        prefill_drops=drops["prefill"],
+                        assignments_per_decode_step=SERVE_SLOTS
+                        * cfg.num_experts_per_tok * layers)
+            del ref
+        else:
+            info["gate"] = teacher_forced(params, cfg, prompts, streams, dev)
+        del flash
+        out["modes"][mode] = info
+        g = info["gate"]
+        ttft = info["ttft_s"]
+        print(f"  {mode}: {len(streams)} requests, {info['tokens']} tokens "
+              f"({info['tokens_per_s']:.1f} tokens/s); {info['prefill_calls']}"
+              f" prefill + {info['decode_calls']} decode calls; decode "
+              f"{info['decode_ms_median']:.2f} ms/step (median, "
+              f"{SERVE_SLOTS} slots); TTFT p50 {ttft['p50'] * 1e3:.1f} ms "
+              f"p95 {ttft['p95'] * 1e3:.1f} ms; peak {info['peak_bytes']} B "
+              f"over the {base} B allocated before the model;"
+              f" launches {info['launches']}"
+              + (f"; idle share {info['idle_share']:.3f}, "
+                 f"{info['kernels_per_decode_step']:.1f} kernels per decode "
+                 "step, waits per decode step " + (", ".join(
+                     f"{k} {v:.2f}" for k, v in
+                     info["decode_waits_per_step"].items()) or "none")
+                 if "idle_share" in info else "")
+              + (f"; MoE assignments dropped {info['drops_per_decode_step']:.2f}"
+                 f" per decode step (of {info['assignments_per_decode_step']}"
+                 f"), {info['prefill_drops']} in prefill" if moe else ""))
+        what = ('"ref"-attention replay of the schedule' if moe else
+                'teacher-forced "ref" backends')
+        print(f"    gate vs the {what}: {g['steps']} steps"
+              + (f" (the replay routed as the flash run; its own top-k "
+                 f"would have moved {g['moved_tokens']} tokens, at router "
+                 f"gaps of at most {g['moved_max_gap']:.3e})"
+                 if moe else "")
+              + f"; worst ref gap {g['worst_gap']:.4f} (tol {LOGIT_TOL}), "
+              f"max |flash - ref| logit {g['max_logit_err']:.4f}")
+        require(g["worst_gap"] <= LOGIT_TOL,
+                f"{label}: a served token's ref logit is {g['worst_gap']:.4f}"
+                f" below the ref maximum (tol {LOGIT_TOL})")
+    out["wall_s"] = time.perf_counter() - t_model
+    print(f"  {arch}: {out['wall_s']:.1f} s with its setup")
+    if len(modes) > 1:
+        same = (out["modes"]["contiguous"]["streams"]
+                == out["modes"]["paged"]["streams"])
+        out["contiguous_equals_paged"] = same
+        print(f"  contiguous and paged streams equal: {same} (MoE "
+              "capacities follow each mode's batches, so they may part)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_a7a(dev, report) -> tuple:
+    """Phase 10.  Returns (launches by path, kernel errors, timed rows)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 10 starts with {torch.cuda.memory_allocated()} B allocated "
+          "by earlier phases")
+    t0 = time.perf_counter()
+    checks = a7a_kernel_checks(dev, report)
+    print(f"phase 10 kernel and MoE-layer checks: "
+          f"{time.perf_counter() - t0:.1f} s")
+    qwen_waits = set(report["serve"]["host_split_contiguous"][
+        "decode_waits_per_step"])
+    by_path, models = {}, []
+    for model in A7A_MODELS:
+        info, launches = a7a_serve(dev, *model, qwen_waits)
+        models.append(info)
+        by_path.update(launches)
+    report["a7a"] = models
+    return by_path, checks
+
+
 def main() -> int:
     try:
         import torch
@@ -2670,7 +3203,15 @@ def main() -> int:
     by_path.update(timed("8", phase_codesign, dev, report))
     torch.cuda.empty_cache()
     timed("9", phase_train, dev, report)
-    print(f"[phases 3-9: {time.perf_counter() - t_all:.1f} s]")
+    a7a_paths, a7a = timed("10", phase_a7a, dev, report)
+    by_path.update(a7a_paths)
+    print(f"[phases 3-10: {time.perf_counter() - t_all:.1f} s]")
+    # phase 10's B2 and B1 shapes join the kernel line's rows (its B2 ms
+    # stays the sum over phase 7's three path shapes)
+    totals["flash_attention"]["shapes"] += a7a["b2_rows"]
+    ffn_full += a7a["b1_rows"]
+    errs["kan_pipeline_layer"] = max(errs["kan_pipeline_layer"],
+                                     a7a["kan_pipeline_layer"])
     totals["cim_mac_fwd"] = b4_totals(report["times_b4"],
                                       report["acim"]["mac"])
     errs["flash_attention"] = max(

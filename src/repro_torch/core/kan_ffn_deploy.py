@@ -132,7 +132,7 @@ def quantize_kan_ffn_params_tree(params: dict, cfg: ModelConfig) -> dict:
 
     if "encoder" in params:
         raise NotImplementedError(
-            "encoder stacks are not ported yet (ROADMAP A7)")
+            "encoder stacks are not ported yet (ROADMAP A7c)")
 
     def quantize(blk: dict) -> dict:
         if "l1" in blk:  # already quantized: kept as it is

@@ -26,7 +26,10 @@ masked in every split.
 
 :func:`check_b2` draws small cases with masked rows and keys;
 :func:`check_b2_path` holds the kernel to the same gate at the serving
-path's own shapes (``PATH_SHAPES``), with the positions the path sets.
+path's own shapes (``PATH_SHAPES``), with the positions the path sets;
+``B2_A7A`` and :func:`check_b2_ring` at the sliding-window and MoE
+decoders' prefill and decode geometry (a 4096-key window that excludes
+keys, softcap 50, rings whose slot positions are not monotone).
 """
 
 from __future__ import annotations
@@ -40,8 +43,10 @@ from .ops import call_kv_splits, flash_attention
 from .ref import flash_attention_plain
 
 __all__ = ["F32_TOL", "DTYPES", "KINDS", "GQA", "HEAD_DIMS", "B2_CASES",
-           "B2_EXTRA", "B2_SPLIT", "PATH_SHAPES", "bf16_ulp", "b2_inputs",
-           "path_inputs", "check_b2", "check_b2_path"]
+           "B2_EXTRA", "B2_SPLIT", "B2_A7A", "B2_RING", "RING_POS",
+           "PATH_SHAPES", "bf16_ulp", "b2_inputs", "path_inputs",
+           "ring_inputs", "window_excluded_pairs", "check_b2",
+           "check_b2_case", "check_b2_path", "check_b2_ring"]
 
 F32_TOL = 2e-5
 DTYPES = (torch.float32, torch.bfloat16)
@@ -88,6 +93,28 @@ PATH_SHAPES = (
     ("prefill", 1, 1000, 1000, "causal"),
     ("paged_chunk", 1, 256, 1024, "causal"),
 )
+
+
+# the sliding-window and MoE decoders' prefill geometry (bf16, D=128, one
+# prompt of S = T keys, no masked rows): gemma2's local layer (32 query
+# heads over 16 KV heads, window 4096, softcap 50) and mixtral's (32 over
+# 8, window 4096) at a 4200-token prompt, where rows 4096.. exclude keys;
+# olmoe's causal layer (16 over 16) at 1000 tokens: keyword arguments of
+# check_b2
+B2_A7A = (
+    dict(dtype=torch.bfloat16, kind="local", hq=32, hkv=16, d=128, b=1,
+         s=4200, t=4200, window=4096, softcap=50.0, masked=False),
+    dict(dtype=torch.bfloat16, kind="local", hq=32, hkv=8, d=128, b=1,
+         s=4200, t=4200, window=4096, masked=False),
+    dict(dtype=torch.bfloat16, kind="causal", hq=16, hkv=16, d=128, b=1,
+         s=1000, t=1000, masked=False),
+)
+# decode over a full rolling-window ring (4 slots, T = window = 4096, bf16,
+# D=128): (name, Hq, Hkv, softcap) of gemma2's and mixtral's local layers
+B2_RING = (("ring_gemma2", 32, 16, 50.0), ("ring_mixtral", 32, 8, 0.0))
+# the slots' positions: wrapped (non-monotone kpos) at 4215, 4300 and
+# 8191, and one slot short of the window (its upper slots never written)
+RING_POS = (4215, 4300, 8191, 100)
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -145,6 +172,49 @@ def path_inputs(dev, name: str, b: int, s: int, t: int):
     return q, k, v, qpos.contiguous(), kpos.contiguous()
 
 
+def ring_inputs(dev, hq: int, hkv: int, window: int = 4096, seed: int = 6):
+    """bf16 operands of one decode step over rolling-window rings (one per
+    slot of ``RING_POS``): slot j of a ring holds the largest position
+    <= pos with position % window == j, negative where never written (the
+    positions ``models.layers._window_positions`` gives the decode step).
+    Returns ``(q, k, v, qpos, kpos)``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, d = len(RING_POS), 128
+    q = torch.randn(b, 1, hq, d, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(b, window, hkv, d, generator=gen, device=dev).to(
+        torch.bfloat16)
+    v = torch.randn(b, window, hkv, d, generator=gen, device=dev).to(
+        torch.bfloat16)
+    pos = torch.tensor(RING_POS, device=dev, dtype=torch.int64)
+    slots = torch.arange(window, device=dev)[None, :]
+    kpos = pos[:, None] - ((pos % window)[:, None] - slots) % window
+    return (q, k, v, pos[:, None].to(torch.int32).contiguous(),
+            kpos.to(torch.int32).contiguous())
+
+
+def window_excluded_pairs(qpos, kpos, window: int) -> int:
+    """(query, key) pairs that the causal predicate admits and the window
+    excludes (kpos <= qpos - window), per head; 0 means the window never
+    masks a key on these positions."""
+    qp = qpos.to(torch.int64)[..., :, None]
+    kp = kpos.to(torch.int64)[..., None, :]
+    return int(((kp >= 0) & (kp <= qp - window)).sum().item())
+
+
+def check_b2_ring(dev, name: str, hq: int, hkv: int, softcap: float) -> dict:
+    """One ``B2_RING`` entry, kernel (the decode step's causal kind over
+    the ring's positions) against plain; returns the stats of
+    :func:`check_b2` and ``non_monotone_slots``, the slots whose kpos is
+    below the slot before it (must be > 0)."""
+    q, k, v, qpos, kpos = ring_inputs(dev, hq, hkv)
+    st = _compare((name,), q, k, v, qpos, kpos, None, kind="causal",
+                  window=0, softcap=softcap)
+    st["non_monotone_slots"] = int((kpos[:, 1:] < kpos[:, :-1]).sum().item())
+    if st["non_monotone_slots"] == 0:
+        raise AssertionError(f"B2 {name}: no ring wrapped")
+    return st
+
+
 def _compare(case, q, k, v, qpos, kpos, zero, *, kind, window, softcap):
     """Kernel against plain on one set of operands (see the module
     docstring); returns ``{"max_abs_err", "max_err_over_tol",
@@ -179,16 +249,27 @@ def _compare(case, q, k, v, qpos, kpos, zero, *, kind, window, softcap):
             "max_err_over_tol": (err / tol).max().item(), "kv_splits": splits}
 
 
-def check_b2(dev, gen, *, dtype, kind, hq, hkv, d, b=2, s=33, t=47,
-             window=7, softcap=0.0, masked=True, dead=None) -> dict:
+def check_b2_case(dev, gen, *, dtype, kind, hq, hkv, d, b=2, s=33, t=47,
+                  window=7, softcap=0.0, masked=True, dead=None) -> tuple:
     """One B2 case, kernel against plain; returns ``{"max_abs_err",
-    "max_err_over_tol", "kv_splits"}``."""
+    "max_err_over_tol", "kv_splits", "window_excluded"}`` (the last: the
+    pairs :func:`window_excluded_pairs` counts, 0 unless "local") and the
+    operands ``(q, k, v, qpos, kpos)``."""
     q, k, v, qpos, kpos, zero = b2_inputs(dev, gen, dtype=dtype, hq=hq,
                                           hkv=hkv, d=d, b=b, s=s, t=t,
                                           kind=kind, masked=masked, dead=dead)
-    return _compare((str(dtype), kind, hq, hkv, d, b, s, t), q, k, v, qpos,
-                    kpos, zero, kind=kind,
-                    window=window if kind == "local" else 0, softcap=softcap)
+    window = window if kind == "local" else 0
+    st = _compare((str(dtype), kind, hq, hkv, d, b, s, t), q, k, v, qpos,
+                  kpos, zero, kind=kind, window=window, softcap=softcap)
+    st["window_excluded"] = (window_excluded_pairs(qpos, kpos, window)
+                             if window else 0)
+    return st, (q, k, v, qpos, kpos)
+
+
+def check_b2(dev, gen, **case) -> dict:
+    """One B2 case (:func:`check_b2_case`'s arguments), kernel against
+    plain; returns its stats."""
+    return check_b2_case(dev, gen, **case)[0]
 
 
 def check_b2_path(dev, name: str, b: int, s: int, t: int, kind: str):

@@ -38,7 +38,8 @@ from .ops import kan_spline
 from .ref import kan_spline_ref
 
 __all__ = ["ATOL", "RTOL", "ORDERS", "B1_GEOMETRIES", "B1_FLAGS",
-           "B1_FFN_FULL", "B1_FFN_DRAFT", "B1_FFN_PACKED", "FFN_FULL_TIE_EPS", "B3_SHAPES",
+           "B1_FFN_FULL", "B1_FFN_GEMMA2", "B1_FFN_DRAFT", "B1_FFN_PACKED",
+           "FFN_FULL_TIE_EPS", "B3_SHAPES",
            "B1_ROW_TILE_CASES", "ROW_TILE_ROWS",
            "b1_case", "check_b1", "check_b1_rows_independent",
            "check_b1_padded_columns", "check_b1_row_tiles", "check_b3"]
@@ -58,6 +59,14 @@ B1_FLAGS = tuple(itertools.product((False, True), repeat=5))
 B1_FFN_FULL = tuple(
     (8, f, o, (True, False, False, False, emit), rows)
     for f, o, emit in ((5120, 1280, True), (1280, 5120, False))
+    for rows in (8, 1024))
+# the two halves of the full-width gemma2-27b kan_variant() KAN-FFN
+# (d_model 4608, hidden 36864 // 11 = 3351 rounded up to 3456, G=8) with
+# the same serving flags, at the decode bucket and a prefill bucket:
+# (grid, f, o, flags, rows)
+B1_FFN_GEMMA2 = tuple(
+    (8, f, o, (True, False, False, False, emit), rows)
+    for f, o, emit in ((4608, 3456, True), (3456, 4608, False))
     for rows in (8, 1024))
 # the same halves at the speculative drafter's default spec (G=4, K=3: 7
 # basis functions instead of 11), at the executor's row buckets of a

@@ -1,7 +1,8 @@
-"""Transformer layers of the dense decoder: norms, RoPE, GQA attention with
-contiguous and paged KV caches, and the SwiGLU / GeLU / KAN FFNs.
+"""Transformer layers of the attention decoders: norms, RoPE, GQA attention
+with contiguous, rolling-window and paged KV caches, the SwiGLU / GeLU /
+KAN FFNs and the top-k MoE FFN.
 
-Port of the dense-decoder subset of ``repro.models.layers``.  Params are
+Port of the attention-decoder subset of ``repro.models.layers``.  Params are
 plain nested dicts of tensors; init functions take an explicit
 ``torch.Generator`` and ``device``.  Activations are (B, S, D) in the
 config's dtype, with reductions and softmax in f32, following the
@@ -9,8 +10,8 @@ reference's casts one by one.  KV caches are updated IN PLACE (the
 reference returns new arrays; an in-place ``index_put_`` saves a copy of
 the whole cache per layer and step) and returned as the same objects.
 
-Other layer kinds (local rolling-window caches, cross attention, RG-LRU,
-Mamba-2, MoE) raise ``NotImplementedError``: ROADMAP A7 ports them.
+Cross attention raises ``NotImplementedError`` (ROADMAP A7c); RG-LRU and
+Mamba-2 have no layer here yet (A7b).
 The reference's ``_grad_safe_barrier`` is an XLA scheduling hint and has
 no counterpart here.
 """
@@ -45,6 +46,11 @@ __all__ = [
     "kan_ffn_specs",
     "kan_ffn_spec",
     "kan_ffn_hidden",
+    "init_moe",
+    "moe_capacity",
+    "moe_route",
+    "moe_combine",
+    "moe",
 ]
 
 ATTN_CHUNK = 1024  # query-chunk size of the memory-bounded "ref" attention
@@ -53,9 +59,13 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP A7: remaining architectures)")
+# the ROADMAP items that port what is still refused
+A7B = "A7b: recurrent layers (recurrentgemma, mamba2)"
+A7C = "A7c: encoder and patch prefixes (whisper, pixtral)"
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -254,7 +264,7 @@ def _sdpa(q, k, v, cfg: ModelConfig, kind: str, qpos=None, kpos=None,
 def attention(p, x, cfg: ModelConfig, kind: str, positions=None):
     """Full-sequence self-attention.  kind: global|local|bidir."""
     if kind not in ("global", "local", "bidir"):
-        raise not_ported(f"attention kind {kind!r}")
+        raise not_ported(f"attention kind {kind!r}", A7C)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -325,16 +335,22 @@ def attention_decode(p, x, cache, pos, cfg: ModelConfig, kind: str,
     """Decode-step attention.  x: (B, S, D), S=1 for one token, S=k+1 for
     the verify pass (positions pos..pos+S-1); cache {"k","v"}: (B, T, Hkv,
     D) contiguous, or with ``block_table`` ((B, nblk) int) the paged pool
-    (NB, block_size, Hkv, D).  pos: (B,) int.  Writes the new K/V into the
-    cache IN PLACE and returns (out, cache).
+    (NB, block_size, Hkv, D).  pos: (B,) int.  kind: global|local.  Writes
+    the new K/V into the cache IN PLACE and returns (out, cache).
 
     Paged: each new row goes to pool block ``block_table[b, pos // bs]`` at
     offset ``pos % bs``; positions at or past the table's coverage are
     dropped.  The table then gathers a (B, nblk*bs, Hkv, D) view equal to
     the contiguous cache at every valid position; stale lanes are masked
-    by ``kpos <= qpos``, so paged decode equals contiguous decode."""
-    if kind != "global":
-        raise not_ported(f"decode attention kind {kind!r}")
+    by ``kpos <= qpos``, so paged decode equals contiguous decode.
+
+    Local with ``0 < window <= T`` (the rolling cache, T == window): one
+    token per step, written to slot ``pos % T``; each slot's absolute
+    position comes from :func:`_window_positions`, and causal + validity
+    over the ring is the whole window predicate, since the ring holds only
+    the last ``window`` positions."""
+    if kind not in ("global", "local"):
+        raise not_ported(f"decode attention kind {kind!r}", A7C)
     b, s = x.shape[:2]
     dev = x.device
     positions = pos.to(torch.int64)[:, None] + torch.arange(s, device=dev)
@@ -358,19 +374,40 @@ def attention_decode(p, x, cache, pos, cfg: ModelConfig, kind: str,
         out = _sdpa_decode(q, gk, gv, cfg, kind, positions, kpos)
         return _out_proj(out, p["wo"]), cache
     t = cache["k"].shape[1]
-    keep = positions < t
-    _put_rows(cache["k"], (bidx, positions), keep, k)
-    _put_rows(cache["v"], (bidx, positions), keep, v)
-    kpos = torch.arange(t, device=dev)[None].expand(b, t)
+    if kind == "local" and 0 < cfg.window_size <= t:
+        if s != 1:
+            raise ValueError("the rolling-window cache decodes one token "
+                             f"per step, got {s}")
+        # every slot pos % t lies inside the ring: a plain index_put_
+        slot = positions % t
+        cache["k"].index_put_((bidx, slot), k.to(cache["k"].dtype))
+        cache["v"].index_put_((bidx, slot), v.to(cache["v"].dtype))
+        kpos = _window_positions(positions[:, 0], t, t)
+    else:
+        keep = positions < t
+        _put_rows(cache["k"], (bidx, positions), keep, k)
+        _put_rows(cache["v"], (bidx, positions), keep, v)
+        kpos = torch.arange(t, device=dev)[None].expand(b, t)
     out = _sdpa_decode(q, cache["k"], cache["v"], cfg, kind, positions, kpos)
     return _out_proj(out, p["wo"]), cache
 
 
+def _window_positions(pos, window: int, t: int):
+    """Absolute position held by each rolling-cache slot, (B, T): the
+    largest p' <= pos with p' % window == slot (negative: never written)."""
+    slots = torch.arange(t, device=pos.device)[None, :]
+    delta = ((pos % window)[:, None] - slots) % window
+    return pos[:, None] - delta
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, kind: str,
                   *, device=None) -> dict:
-    if kind != "global":
-        raise not_ported(f"KV cache of kind {kind!r}")
-    shape = (batch, max_len, cfg.phys_kv_heads, cfg.head_dim)
+    """One layer's contiguous KV cache, (B, T, Hkv, D): T = max_len, or the
+    rolling window min(max_len, window) for "local" layers."""
+    if kind not in ("global", "local"):
+        raise not_ported(f"KV cache of kind {kind!r}", A7C)
+    t = min(max_len, cfg.window_size) if kind == "local" else max_len
+    shape = (batch, t, cfg.phys_kv_heads, cfg.head_dim)
     dt = torch_dtype(cfg)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -560,3 +597,102 @@ def ffn(p, x, cfg: ModelConfig):
     if cfg.ffn_kind == "none":
         return torch.zeros_like(x)
     raise ValueError(cfg.ffn_kind)
+
+
+# ----------------------------------------------------------------------------
+# MoE: top-k routing, capacity drop, expert batches
+# ----------------------------------------------------------------------------
+
+
+def init_moe(gen, cfg: ModelConfig, *, device=None) -> dict:
+    """Router (D, E) in f32 and SwiGLU experts wi / wg (E, D, F), wo
+    (E, F, D) in the config's dtype."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    dt = torch_dtype(cfg)
+    sc_in, sc_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    return {
+        "router": _normal(gen, (d, e), sc_in, torch.float32, device),
+        "wi": _normal(gen, (e, d, f), sc_in, dt, device),
+        "wg": _normal(gen, (e, d, f), sc_in, dt, device),
+        "wo": _normal(gen, (e, f, d), sc_out, dt, device),
+    }
+
+
+def moe_capacity(t: int, cfg: ModelConfig) -> int:
+    """Slots per expert for ``t`` routed tokens, from static shapes."""
+    return int(max(1, math.ceil(t * cfg.num_experts_per_tok
+                                * cfg.moe_capacity_factor / cfg.num_experts)))
+
+
+def moe_route(p, xt, cfg: ModelConfig):
+    """Route (T, D) tokens: top-k of the f32 router logits (lower expert
+    first on ties, as ``lax.top_k``), softmax over the chosen, and each
+    assignment's rank within its expert in token order.  Returns
+    ``(flat_e, flat_g, pos, cap)``: (T*k,) expert ids, gates and ranks, and
+    the capacity; an assignment with ``pos >= cap`` is dropped.
+
+    Two lowerings of the rank (``cfg.moe_dispatch``), equal in result:
+    "sort", a stable argsort and ``searchsorted(side="left")``; "cumsum",
+    one-hot prefix sums.  Every index is computed on the device."""
+    t = xt.shape[0]
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    logits = xt.to(torch.float32) @ p["router"]
+    # a stable descending sort keeps the lower index first among equal
+    # logits; torch.topk promises no order for ties
+    topv, topi = torch.sort(logits, dim=-1, descending=True, stable=True)
+    gates = torch.softmax(topv[:, :k], dim=-1)
+    flat_e = topi[:, :k].reshape(t * k)
+    flat_g = gates.reshape(t * k)
+    if cfg.moe_dispatch == "sort":
+        order = torch.argsort(flat_e, stable=True)
+        sorted_e = flat_e[order]
+        first = torch.searchsorted(sorted_e, sorted_e, side="left")
+        ranks = torch.arange(t * k, device=xt.device) - first
+        pos = torch.empty_like(ranks).scatter_(0, order, ranks)
+    else:
+        onehot = (flat_e[:, None] == torch.arange(e, device=xt.device)).to(
+            torch.int32)                                    # (T*k, E)
+        pos = torch.cumsum(onehot, dim=0) - 1      # rank per expert, int64
+        pos = pos.gather(1, flat_e[:, None])[:, 0]
+    return flat_e, flat_g, pos, moe_capacity(t, cfg)
+
+
+def moe_combine(contrib, dtype):
+    """Sum each token's k gated expert outputs, (T, k, D) -> (T, D), in
+    index order and in ``dtype`` (each partial sum rounded to it).
+
+    The reference scatter-adds them into zeros of the activations' dtype
+    (``.at[tok_id].add`` with ``tok_id = repeat(arange(T), k)``: a token's
+    k rows are contiguous); ``index_add_`` on the card would add them in an
+    order that changes from run to run, and in bf16 the order shows."""
+    out = torch.zeros((contrib.shape[0], contrib.shape[2]), dtype=dtype,
+                      device=contrib.device)
+    for j in range(contrib.shape[1]):
+        out = out + contrib[:, j].to(dtype)
+    return out
+
+
+def moe(p, x, cfg: ModelConfig):
+    """Top-k MoE over (B, S, D): tokens scattered into (E, cap, D) expert
+    batches (dropped assignments to an extra row ``E*cap``, cut off), the
+    SwiGLU experts as batched matmuls, the gate multiplied in the experts'
+    dtype and the k outputs of a token summed by :func:`moe_combine`."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    t = b * s
+    xt = x.reshape(t, d)
+    flat_e, flat_g, pos, cap = moe_route(p, xt, cfg)
+    dest = torch.where(pos < cap, flat_e * cap + pos, e * cap)
+    # repeat(arange(T), k): a token's k assignments are contiguous
+    tok_id = torch.arange(t, device=x.device)[:, None].expand(t, k).reshape(
+        t * k)
+    # kept destinations are distinct; the dropped ones race on row e*cap
+    xe = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    xe = xe.index_put((dest,), xt[tok_id])[:e * cap].reshape(e, cap, d)
+    h = torch.bmm(xe, p["wi"])
+    g = torch.bmm(xe, p["wg"])
+    ye = torch.bmm(F.silu(g) * h, p["wo"])
+    ye_flat = torch.cat([ye.reshape(e * cap, d),
+                         torch.zeros((1, d), dtype=ye.dtype, device=x.device)])
+    contrib = ye_flat[dest] * flat_g[:, None].to(ye.dtype)
+    return moe_combine(contrib.reshape(t, k, d), x.dtype).reshape(b, s, d)

@@ -1,9 +1,9 @@
 """Model assembly for the decoder-only LM: embeddings, stack, head; the
 forward, prefill, decode, verify and paged-chunk entry points.
 
-Port of ``repro.models.model`` for the dense decoder family.  Encoder
-(audio) and patch (vlm) prefixes raise ``NotImplementedError`` (ROADMAP
-A7).
+Port of ``repro.models.model`` for the attention decoders (dense, sliding
+window, MoE).  Encoder (audio) and patch (vlm) prefixes raise
+``NotImplementedError`` (ROADMAP A7c).
 
   loss_fn: tokens / targets (B, S) -> mean next-token NLL (the train step's)
 
@@ -48,7 +48,7 @@ __all__ = [
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.encoder_layers > 0 or cfg.family in ("audio", "vlm"):
-        raise L.not_ported(f"the {cfg.family} family")
+        raise L.not_ported(f"the {cfg.family} family", L.A7C)
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, *,

@@ -1,6 +1,6 @@
 """Decoder stack: stacked per-group params, forward, prefill and decode.
 
-Port of ``repro.models.transformer`` for the dense decoder.  Layers are
+Port of ``repro.models.transformer`` for the attention decoders.  Layers are
 organized into repeating blocks given by ``cfg.attn_pattern``; params and
 caches of each group are STACKED over repeats (leading dim), as in the
 reference, so converted trees load unchanged.  The reference's
@@ -8,8 +8,9 @@ reference, so converted trees load unchanged.  The reference's
 and cache are views into the stacked tensors, and the caches are written
 in place through those views.
 
-Only "global" attention layers are ported; other kinds raise
-``NotImplementedError`` (ROADMAP A7).
+"global" and "local" (sliding-window) attention layers are ported, with a
+dense or MoE FFN; "rglru" and "ssm" layers raise ``NotImplementedError``
+(ROADMAP A7b).
 
 With ``cfg.remat`` (the default) and grad enabled, each block of the
 full-sequence forward runs under ``torch.utils.checkpoint``, the
@@ -54,8 +55,10 @@ def layer_groups(cfg: ModelConfig):
 
 def _check_kinds(kinds) -> None:
     for kind in kinds:
-        if kind != "global":
-            raise L.not_ported(f"layer kind {kind!r}")
+        if kind in ("rglru", "ssm"):
+            raise L.not_ported(f"layer kind {kind!r}", L.A7B)
+        if kind not in ("global", "local"):
+            raise ValueError(f"decoder layer kind {kind!r}")
 
 
 def tree_layer(tree, r: int):
@@ -80,9 +83,11 @@ def _init_block(gen, cfg: ModelConfig, kinds, device) -> dict:
         p[f"l{i}_attn"] = L.init_attention(gen, cfg, device=device)
         p[f"l{i}_ln1"] = L.init_rmsnorm(cfg.d_model, device=device)
         if cfg.ffn_kind != "none":
+            # MoE takes precedence over ffn_kind, as in the reference
             if cfg.num_experts > 0:
-                raise L.not_ported("MoE FFN")
-            p[f"l{i}_ffn"] = L.init_ffn(gen, cfg, device=device)
+                p[f"l{i}_moe"] = L.init_moe(gen, cfg, device=device)
+            else:
+                p[f"l{i}_ffn"] = L.init_ffn(gen, cfg, device=device)
             p[f"l{i}_ln2"] = L.init_rmsnorm(cfg.d_model, device=device)
         if cfg.post_norms:
             p[f"l{i}_pn1"] = L.init_rmsnorm(cfg.d_model, device=device)
@@ -102,10 +107,13 @@ def init_stack(gen, cfg: ModelConfig, *, device=None) -> list:
 
 
 def _ffn_sublayer(bp, x, cfg: ModelConfig, i: int):
-    if f"l{i}_ffn" not in bp:
+    if f"l{i}_ln2" not in bp:
         return x
     h = L.rmsnorm(bp[f"l{i}_ln2"], x, cfg.norm_eps)
-    h = L.ffn(bp[f"l{i}_ffn"], h, cfg)
+    if f"l{i}_moe" in bp:
+        h = L.moe(bp[f"l{i}_moe"], h, cfg)
+    else:
+        h = L.ffn(bp[f"l{i}_ffn"], h, cfg)
     if cfg.post_norms:
         h = L.rmsnorm(bp[f"l{i}_pn2"], h, cfg.norm_eps)
     return x + h
@@ -224,15 +232,22 @@ def stack_decode(groups, caches, x, pos, cfg: ModelConfig, block_table=None):
 
 def stack_prefill(groups, caches, x, cfg: ModelConfig, positions=None):
     """Whole prompt; attention over the prompt's own K/V (T = S), which is
-    also written into ``caches[:, :, :S]`` in place."""
+    also written into ``caches[:, :, :S]`` in place.  A rolling-window
+    cache shorter than the prompt (T < S) keeps the last T positions,
+    rolled by (S - T) % T so that slot = position % T."""
     s = x.shape[1]
     for bp, cache, kinds in _each_layer(groups, caches, cfg):
         for i, kind in enumerate(kinds):
             h = L.rmsnorm(bp[f"l{i}_ln1"], x, cfg.norm_eps)
             q, k, v = L._qkv(bp[f"l{i}_attn"], h, cfg, True, positions)
             kv = cache[f"l{i}_kv"]
-            kv["k"][:, :s] = k.to(kv["k"].dtype)
-            kv["v"][:, :s] = v.to(kv["v"].dtype)
+            t = kv["k"].shape[1]
+            for name, new in (("k", k), ("v", v)):
+                if kind == "local" and t < s:
+                    kv[name].copy_(torch.roll(new[:, s - t:], (s - t) % t,
+                                              dims=1))
+                else:
+                    kv[name][:, :s] = new.to(kv[name].dtype)
             h = L._sdpa(q, k, v, cfg, kind)
             h = L._out_proj(h, bp[f"l{i}_attn"]["wo"])
             x = _post_attn(bp, x, h, cfg, i)

@@ -108,8 +108,10 @@ def step_scope(kan_backend, attn_backend):
 
 def splice_slot(pool, one, slot: int, plen: int, zero_tail: bool) -> None:
     """Copy a B=1 prefill cache ``one`` into row ``slot`` of a contiguous
-    pool IN PLACE; with ``zero_tail`` the KV past the prompt (bucket
-    padding) is zeroed so no stale state enters the pool."""
+    pool IN PLACE (every layer's whole time axis: ``max_len``, or the
+    rolling window of a "local" layer); with ``zero_tail`` the KV past the
+    prompt (bucket padding, global layers only) is zeroed so no stale
+    state enters the pool."""
     for pool_g, one_g in zip(pool, one):
         for key, kv in pool_g.items():
             for name in ("k", "v"):

@@ -109,7 +109,7 @@ def refit_kan_ffn_params_tree(params: dict, cfg: ModelConfig,
 
     if "encoder" in params:
         raise NotImplementedError(
-            "encoder stacks are not ported yet (ROADMAP A7)")
+            "encoder stacks are not ported yet (ROADMAP A7c)")
     old_spec, new_spec = kan_ffn_spec(cfg), kan_ffn_spec(draft_cfg)
 
     def refit_ffn(ffn: dict) -> dict:

@@ -105,7 +105,11 @@ class TrainLoop:
         self.step_fn = make_train_step(cfg)
 
     def install_sigterm_handler(self):
-        signal.signal(signal.SIGTERM, lambda *_: self._stop.set())
+        # the handler holds the stop event alone: a handler that closed
+        # over the loop would keep its parameters and optimizer state
+        # alive for the rest of the process
+        stop = self._stop
+        signal.signal(signal.SIGTERM, lambda *_: stop.set())
 
     def run(self, num_steps: int, log_every: int = 10, log: Callable = print):
         metrics_hist = []

@@ -27,7 +27,13 @@ bit-identical to 64 (KAN1, KAN2, the packed layer, a full-width half; 8,
 1000 and 65536 rows), a tuned plan in the plan cache changing the row tile
 and no output bit, training and the Pareto search deterministic on the
 card (equal parameters, equal fronts under one seed), and the measured
-tile sweep timing each distinct launch once.  LM training
+tile sweep timing each distinct launch once.  The sliding-window and MoE
+decoders: B1 at gemma2's kan_variant() halves (4608 / 3456), B2 at the
+4200-token windowed prefill (the window excluding keys; softcap 50 at 2
+query heads per KV head), olmoe's causal prefill and decode over wrapped
+rings, and one full-width MoE layer of mixtral and olmoe against the CPU
+(``repro_torch.models.cardcheck``: routing equal but at router near-ties,
+outputs within 4 bf16 ulps).  LM training
 (``repro_torch.train.cardcheck``): the float KAN-FFN's custom backward at
 the full-width halves against autograd of the plain forward, three train
 steps on the card equal to the CPU's within 1e-5 (and B1 / B2 never
@@ -122,6 +128,38 @@ def test_b2_kernel_matches_plain_with_kv_splits(dev, case):
 def test_b2_kernel_matches_plain_at_serving_path_shapes(dev, name, b, s, t,
                                                         kind):
     ac.check_b2_path(dev, name, b, s, t, kind)
+
+
+@pytest.mark.parametrize("grid,f,o,flags,rows", cc.B1_FFN_GEMMA2)
+def test_b1_kernel_matches_plain_at_gemma2_ffn(dev, grid, f, o, flags, rows):
+    gen = torch.Generator(device=dev).manual_seed(f + rows + 1)
+    cc.check_b1(dev, gen, grid, f, o, flags, rows, eps=cc.FFN_FULL_TIE_EPS)
+
+
+@pytest.mark.parametrize("case", range(len(ac.B2_A7A)))
+def test_b2_kernel_matches_plain_at_window_and_moe_prefill(dev, case):
+    gen = torch.Generator(device=dev).manual_seed(60 + case)
+    st = ac.check_b2(dev, gen, **ac.B2_A7A[case])
+    assert (st["window_excluded"] > 0) == (ac.B2_A7A[case]["kind"] == "local")
+
+
+@pytest.mark.parametrize("name,hq,hkv,softcap", ac.B2_RING)
+def test_b2_kernel_matches_plain_over_wrapped_rings(dev, name, hq, hkv,
+                                                    softcap):
+    assert ac.check_b2_ring(dev, name, hq, hkv, softcap)[
+        "non_monotone_slots"] > 0
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "olmoe-1b-7b"])
+def test_moe_layer_on_the_card_matches_the_cpu(dev, arch):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.cardcheck import check_moe_layer
+
+    cfg = dataclasses.replace(get_config(arch), dtype="bfloat16")
+    st = check_moe_layer(dev, cfg, tokens=64)
+    assert st["max_abs_err"] <= st["tol"]
 
 
 def test_b2_wrapper_raises_instead_of_falling_back(dev):

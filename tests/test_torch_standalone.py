@@ -49,7 +49,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "core.mlp_baseline", "train.optimizer", "tune.space",
               "tune.search", "tune.tiles", "tune.artifact", "data.lm_data",
               "train.train_state", "train.checkpoint", "train.loop",
-              "train.cardcheck", "launch.train"):
+              "train.cardcheck", "launch.train", "models.cardcheck"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
