@@ -136,7 +136,21 @@ Phases (any failure exits non-zero):
      own router would have moved counted); launch counts, a profiled
      run's idle share and waits per decode step (no op waits that phase
      6's does not), MoE drops per step;
- 11. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
+ 11. the recurrent decoders at their published widths, bf16, random
+     weights from a seed: B1 at recurrentgemma's kan_variant() FFN halves
+     (4096 -> 1152 -> 4096, 8 and 4096 rows), B2 at its local layer (16
+     query heads over one KV head, D = 256: the CUDA-core instance) at a
+     2300-token prefill past the 2048-key window and at decode over
+     wrapped 2048-slot rings, each against its plain version and timed
+     beside SDPA; one full-width RG-LRU layer and one Mamba-2 block card
+     against CPU (a 1000-token prefill, then 4 decode steps); then
+     recurrentgemma-9b kan_variant() (8 layers: 2 x (rglru, rglru, local)
+     + (rglru, rglru)) served contiguous (4 slots, max_len 2432, prompts
+     of 5, 300, 1000 and 2300 tokens, 16 new each) and mamba2-370m (all
+     48 layers) on phase 6's prompts, each under phase 10's teacher-forced
+     gate, with launch counts, a profiled run's idle share and waits per
+     decode step;
+ 12. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
 
 A longer report goes to ``reports/chip_smoke_report.json`` (gitignored).
 """
@@ -1231,25 +1245,31 @@ def serve_once(params, cfg, prompts, dev, mode: str, profile: bool = False,
 
 def check_counts(run: dict, mode: str, layers: int, backend: str = "fused",
                  noise: bool = False, kan: bool = True,
-                 requests: int = len(SERVE_LENS), attn: str = "flash") -> None:
-    """B2 once and B1 twice per layer of every prefill / decode / verify
-    call of the engine and of its drafter (with ``noise``: every B1 launch
-    carried the psum-noise operand; without ``kan``: no B1; ``attn="ref"``:
-    no B2 either)."""
+                 requests: int = len(SERVE_LENS), attn: str = "flash",
+                 attn_layers: int | None = None,
+                 ffn_layers: int | None = None) -> None:
+    """B2 once per attention layer and B1 twice per KAN-FFN layer (both
+    default to every layer) of every prefill / decode / verify call of
+    the engine and of its drafter (with ``noise``: every B1 launch carried
+    the psum-noise operand; without ``kan``: no B1; ``attn="ref"``: no B2
+    either)."""
     calls = (run["prefill_calls"] + run["decode_calls"] + run["verify_calls"]
              + run.get("draft_prefill_calls", 0)
              + run.get("draft_decode_calls", 0))
-    want = {"flash_attention": calls * layers} if attn == "flash" else {}
+    na = layers if attn_layers is None else attn_layers
+    nf = layers if ffn_layers is None else ffn_layers
+    want = ({"flash_attention": calls * na} if attn == "flash" and na
+            else {})
     if kan:
-        want["kan_pipeline_layer"] = 2 * calls * layers
+        want["kan_pipeline_layer"] = 2 * calls * nf
     if noise:
-        want["kan_pipeline_layer.noise"] = 2 * calls * layers
+        want["kan_pipeline_layer.noise"] = 2 * calls * nf
     require(run["launches"] == want,
             f"{mode}: launches {run['launches']} != {want} ({calls} calls x "
-            f"{layers} layers; B1 twice per KAN-FFN)")
-    require(run["attn"] == {attn: calls * layers},
+            f"{na} attention / {nf} KAN-FFN layers; B1 twice per KAN-FFN)")
+    require(run["attn"] == ({attn: calls * na} if na else {}),
             f"{mode}: attention dispatch {run['attn']}")
-    require(run["kan"] == ({backend: calls * layers} if kan else {}),
+    require(run["kan"] == ({backend: calls * nf} if kan else {}),
             f"{mode}: KAN dispatch {run['kan']}")
     require(all(v == "done" for v in run["status"].values())
             and len(run["status"]) == requests,
@@ -1274,16 +1294,19 @@ def forward_rows(params, cfg, seq, start: int):
     return M._lm_logits(params, h, cfg)[0]
 
 
-def teacher_forced(params, cfg, prompts, streams, dev) -> dict:
+def teacher_forced(params, cfg, prompts, streams, dev,
+                   served: dict | None = None) -> dict:
     """Score each served stream under the "ref" backends (KAN "ref",
     attention "ref") and, for the logit error, under "fused" + "flash",
     both as one forward over prompt + stream[:-1] with the LM head on the
-    emitted rows; gate every emitted token on the ref logits."""
+    emitted rows; gate every emitted token on the ref logits.  With
+    ``served`` ({(rid, index): logits row} of the served run, see
+    :func:`replay_hook`) also the largest |served - ref| logit."""
     import torch
 
     from repro_torch import runtime
 
-    steps, excused, worst_gap, max_err = 0, 0, 0.0, 0.0
+    steps, excused, worst_gap, max_err, served_err = 0, 0, 0.0, 0.0, 0.0
     for rid, out in streams.items():
         prompt = prompts[rid]
         seq = torch.tensor([prompt + out[:-1]], device=dev)
@@ -1304,8 +1327,14 @@ def teacher_forced(params, cfg, prompts, streams, dev) -> dict:
         excused += int((ref.argmax(dim=-1) != tok).sum())
         worst_gap = max(worst_gap, gap.max().item())
         max_err = max(max_err, (fl - ref).abs().max().item())
+        if served is not None:
+            # the first row comes from the prefill on the host
+            rows = torch.stack([served[(rid, i)].float().to(ref.device)
+                                for i in range(len(out))])
+            served_err = max(served_err, (rows - ref).abs().max().item())
     return {"steps": steps, "excused": excused, "worst_gap": worst_gap,
-            "max_logit_err": max_err}
+            "max_logit_err": max_err,
+            "max_served_err": None if served is None else served_err}
 
 
 def device_breakdown(prof, wall_ms: float) -> dict:
@@ -2938,6 +2967,41 @@ def replay_gate(streams: dict, flash_rows: dict, ref_rows: dict) -> dict:
             "max_logit_err": max_err}
 
 
+def f32_gate(params, cfg, prompts, dev, ekw: dict, label: str, layers: int,
+             counts: dict, bf16_streams: dict) -> dict:
+    """The teacher-forced gate on an f32 copy of a bf16 model (the same
+    weights upcast, ``dtype="float32"``) served through the same engine:
+    where a model's bf16 decode and whole-sequence forward part by more
+    than ``LOGIT_TOL`` (two orders of one recurrence, rounded to bf16
+    through many layers), the gate holds the f32 pair, which computes the
+    same function.  Returns :func:`teacher_forced`'s stats with the f32
+    run's largest |decode - forward| logit and how many of its streams
+    equal the bf16 run's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.train.optimizer import tree_map
+
+    p32 = tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                   params)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rec = {"rows": {}, "ctx": None}
+    run = serve_once(p32, cfg32, prompts, dev, "contiguous", engine_kw=ekw,
+                     hook=replay_hook(rec))
+    check_counts(run, label, layers, kan=bool(ekw.get("kan_deploy")),
+                 requests=len(prompts), **counts)
+    streams = run["streams"]
+    del run
+    gate = teacher_forced(p32, cfg32, prompts, streams, dev,
+                          served=rec["rows"])
+    gate["streams_equal_bf16"] = sum(streams[r] == bf16_streams[r]
+                                     for r in streams)
+    del p32, rec
+    torch.cuda.empty_cache()
+    return gate
+
+
 def a7a_config(arch: str, kan: bool, layers: int):
     import dataclasses
 
@@ -2950,11 +3014,16 @@ def a7a_config(arch: str, kan: bool, layers: int):
 
 
 def a7a_serve(dev, arch: str, kan: bool, layers: int, modes: tuple,
-              max_len: int, lens, qwen_waits: set) -> tuple:
+              max_len: int, lens, qwen_waits: set,
+              path: str = "a7a", gate_f32: bool = False) -> tuple:
     """Serve one model: per mode a timed run (recording logits and
-    routing for a MoE model), a profiled run (contiguous) and its gate (gemma2: teacher-forced "ref" logits at the emitted
-    rows; MoE: the flash run against a "ref"-attention replay of its
-    schedule and routing).  Returns (summary, launches by path)."""
+    routing for a MoE model), a profiled run (contiguous) and its gate
+    (gemma2, the recurrent decoders: teacher-forced "ref" logits at the
+    emitted rows; MoE: the flash run against a "ref"-attention replay of
+    its schedule and routing).  With ``gate_f32`` the bf16 stream's
+    teacher-forced gaps are recorded and the gate holds an f32 copy of the
+    model served through the same engine (:func:`f32_gate`).  Returns
+    (summary, launches by path, each path named ``{path}_{arch}_{mode}``)."""
     import gc
 
     import torch
@@ -2967,6 +3036,9 @@ def a7a_serve(dev, arch: str, kan: bool, layers: int, modes: tuple,
 
     cfg = a7a_config(arch, kan, layers)
     moe = cfg.num_experts > 0
+    kinds = cfg.layer_kinds
+    counts = {"attn_layers": sum(k in ("global", "local") for k in kinds),
+              "ffn_layers": sum(k != "ssm" for k in kinds)}
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     t_model = t0 = time.perf_counter()
@@ -2982,12 +3054,19 @@ def a7a_serve(dev, arch: str, kan: bool, layers: int, modes: tuple,
     weights = torch.cuda.memory_allocated() - base
     prompts = a7a_prompts(cfg.vocab_size, lens)
     ekw = {"max_len": max_len, "kan_deploy": kan}
+    if moe:
+        ffn = (f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok} "
+               f"({cfg.moe_dispatch}, capacity {cfg.moe_capacity_factor})")
+    elif counts["ffn_layers"] == 0:
+        ffn = (f"no FFN, SSD state {cfg.ssm_state} x head dim "
+               f"{cfg.ssm_head_dim}, chunk {cfg.ssm_chunk}")
+    else:
+        ffn = (f"KAN-FFN hidden {cfg.kan_d_hidden}" if kan else
+               f"{cfg.ffn_kind} FFN {cfg.d_ff}")
     print(f"{arch}{' kan_variant()' if kan else ''}: {layers} of "
-          f"{get_config(arch).num_layers} layers, d_model {cfg.d_model}, heads "
-          f"{cfg.phys_heads}/{cfg.phys_kv_heads}, "
-          + (f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok} "
-             f"({cfg.moe_dispatch}, capacity {cfg.moe_capacity_factor}), "
-             if moe else f"KAN-FFN hidden {cfg.kan_d_hidden}, ")
+          f"{get_config(arch).num_layers} layers {list(kinds)}, d_model "
+          f"{cfg.d_model}, heads {cfg.phys_heads}/{cfg.phys_kv_heads} (D "
+          f"{cfg.head_dim}), {ffn}, "
           + f"window {cfg.window_size} on {sorted(set(cfg.layer_kinds))}, "
           f"vocab {cfg.vocab_size}, bf16: {n} parameters, init"
           f"{' + quantize + deploy' if kan else ''} {setup_s:.2f} s, "
@@ -3004,9 +3083,11 @@ def a7a_serve(dev, arch: str, kan: bool, layers: int, modes: tuple,
         flash = {"rows": {}, "ctx": None}
         with moe_routing(flash):
             run = serve_once(params, cfg, prompts, dev, mode, engine_kw=ekw,
-                             hook=replay_hook(flash) if moe else None)
-        check_counts(run, label, layers, kan=kan, requests=len(prompts))
-        launches[f"a7a_{arch}_{mode}"] = run["launches"]
+                             hook=(replay_hook(flash) if moe or gate_f32
+                                   else None))
+        check_counts(run, label, layers, kan=kan, requests=len(prompts),
+                     **counts)
+        launches[f"{path}_{arch}_{mode}"] = run["launches"]
         s = run["sched"]
         dec = sorted(run["decode_ms"])
         info = {"tokens": s["tokens"], "tokens_per_s": s["tokens_per_s"],
@@ -3027,7 +3108,7 @@ def a7a_serve(dev, arch: str, kan: bool, layers: int, modes: tuple,
             finally:
                 obs.disable_profiler_annotations()
             check_counts(prun, f"{label} (profiled)", layers, kan=kan,
-                         requests=len(prompts))
+                         requests=len(prompts), **counts)
             require(prun["streams"] == streams,
                     f"{label}: the profiled run served other streams")
             bd = device_breakdown(prun["prof"], prun["prof_wall_s"] * 1e3)
@@ -3047,7 +3128,7 @@ def a7a_serve(dev, arch: str, kan: bool, layers: int, modes: tuple,
                                   engine_kw={**ekw, "attn_backend": "ref"},
                                   hook=replay_hook(ref, force=streams))
             check_counts(rrun, f"{label} (ref replay)", layers, kan=kan,
-                         requests=len(prompts), attn="ref")
+                         requests=len(prompts), attn="ref", **counts)
             del rrun
             require(len(ref["routes"]) == len(flash["routes"]),
                     f"{label}: the replay made {len(ref['routes'])} MoE "
@@ -3064,6 +3145,15 @@ def a7a_serve(dev, arch: str, kan: bool, layers: int, modes: tuple,
                         assignments_per_decode_step=SERVE_SLOTS
                         * cfg.num_experts_per_tok * layers)
             del ref
+        elif gate_f32:
+            info["bf16_teacher_forced"] = bf = teacher_forced(
+                params, cfg, prompts, streams, dev, served=flash["rows"])
+            print(f"    bf16 stream, teacher-forced (not gated): worst ref gap "
+                  f"{bf['worst_gap']:.4f}, {bf['excused']} of {bf['steps']} "
+                  f"tokens not the forward's argmax, max |decode - forward| "
+                  f"logit {bf['max_served_err']:.4f}")
+            info["gate"] = f32_gate(params, cfg, prompts, dev, ekw,
+                                    f"{label} (f32)", layers, counts, streams)
         else:
             info["gate"] = teacher_forced(params, cfg, prompts, streams, dev)
         del flash
@@ -3088,6 +3178,7 @@ def a7a_serve(dev, arch: str, kan: bool, layers: int, modes: tuple,
                  f" per decode step (of {info['assignments_per_decode_step']}"
                  f"), {info['prefill_drops']} in prefill" if moe else ""))
         what = ('"ref"-attention replay of the schedule' if moe else
+                'teacher-forced "ref" backends, f32 copy' if gate_f32 else
                 'teacher-forced "ref" backends')
         print(f"    gate vs the {what}: {g['steps']} steps"
               + (f" (the replay routed as the flash run; its own top-k "
@@ -3095,7 +3186,10 @@ def a7a_serve(dev, arch: str, kan: bool, layers: int, modes: tuple,
                  f"gaps of at most {g['moved_max_gap']:.3e})"
                  if moe else "")
               + f"; worst ref gap {g['worst_gap']:.4f} (tol {LOGIT_TOL}), "
-              f"max |flash - ref| logit {g['max_logit_err']:.4f}")
+              f"max |flash - ref| logit {g['max_logit_err']:.4f}"
+              + (f", max |decode - forward| logit {g['max_served_err']:.3e},"
+                 f" {g['streams_equal_bf16']} of {len(streams)} streams "
+                 "equal to bf16's" if gate_f32 else ""))
         require(g["worst_gap"] <= LOGIT_TOL,
                 f"{label}: a served token's ref logit is {g['worst_gap']:.4f}"
                 f" below the ref maximum (tol {LOGIT_TOL})")
@@ -3135,6 +3229,137 @@ def phase_a7a(dev, report) -> tuple:
         models.append(info)
         by_path.update(launches)
     report["a7a"] = models
+    return by_path, checks
+
+
+# ----------------------------------------------------------------------------
+# phase 11: the recurrent decoders at full width
+# ----------------------------------------------------------------------------
+
+# recurrentgemma prompt lengths: the 2300-token prompt runs past the
+# 2048-key window of its local layers in prefill and wraps their rings
+A7B_LENS = (5, 300, 1000, 2300)
+# (arch, kan_variant, layers kept, modes, max_len, prompt lengths; None:
+# phase 6's prompts): recurrentgemma-9b's KAN variant, 8 of its 38 layers
+# (2 x (rglru, rglru, local) + (rglru, rglru), the shape of 12 x 3 + 2),
+# and mamba2-370m whole (48 "ssm" layers), at their published widths in
+# bf16; both contiguous only (recurrent states have no pages)
+A7B_MODELS = (("recurrentgemma-9b", True, 8, ("contiguous",), 2432, A7B_LENS),
+              ("mamba2-370m", False, 48, ("contiguous",), SERVE_MAX_LEN,
+               None))
+# mamba2's bf16 decode (the one-step recurrence) and its teacher-forced
+# forward (the chunked scan) round their activations differently through
+# 48 residual layers, so its gate holds an f32 copy served the same way
+# (f32_gate); the bf16 run's gaps are recorded beside it
+A7B_GATE_F32 = ("mamba2-370m",)
+A7B_LAYER_TOKENS = 1000
+A7B_LAYER_STEPS = 4
+
+
+def a7b_kernel_checks(dev, report) -> dict:
+    """B1 at the recurrentgemma KAN-FFN halves, B2 at its local layer's
+    D = 256 prefill past the window and decode over wrapped rings, then
+    one full-width RG-LRU layer and one Mamba-2 block card against CPU;
+    the kernels timed beside their plain versions, SDPA and bounds.
+    Returns the max abs errors and the timed rows."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import cardcheck as ac
+    from repro_torch.kernels.kan_spline import cardcheck as cc
+    from repro_torch.models.cardcheck import check_recurrent_layer
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    b1_err, b1_excused = 0.0, 0
+    for grid, f, o, flags, rows in cc.B1_FFN_RGEMMA:
+        st = cc.check_b1(dev, gen, grid, f, o, flags, rows,
+                         eps=cc.FFN_FULL_TIE_EPS)
+        b1_err = max(b1_err, st["max_abs_err"])
+        b1_excused += st["excused"]
+    rows_eq = cc.check_b1_rows_independent(dev, gen, f=4096, o=1152)
+    print(f"B1 vs plain at the recurrentgemma kan_variant() halves (4096 -> "
+          f"1152 -> 4096, G=8, 8 and 4096 rows): max |err| {b1_err:.3e}, "
+          f"excused codes {b1_excused} (tie window "
+          f"{cc.FFN_FULL_TIE_EPS:.2e}); rows bit-identical at 8 and 1024 "
+          f"rows: {rows_eq['equal']}")
+
+    b2_rows, b2_err = [], 0.0
+    print("B2 vs plain at recurrentgemma's local layer (bf16, D=256, 16 / 1 "
+          "heads: the CUDA-core instance), then timed: " + B2_TIME_HEADER)
+    for case in ac.B2_A7B:
+        st, ops = ac.check_b2_case(dev, gen, **case)
+        require(st["window_excluded"] > 0,
+                f"B2 {case}: the window excludes no key")
+        row = b2_time_row(f"prefill_local_g{case['hq'] // case['hkv']}_d"
+                          f"{case['d']}", st, *ops, "local", case["window"])
+        row["window_excluded"] = st["window_excluded"]
+        b2_rows.append(row)
+        b2_err = max(b2_err, st["max_abs_err"])
+        del ops
+    for name, hq, hkv, cap, d, window in ac.B2_RING_A7B:
+        st = ac.check_b2_ring(dev, name, hq, hkv, cap, d=d, window=window)
+        row = b2_time_row(name, st, *ac.ring_inputs(dev, hq, hkv,
+                                                    window=window, d=d),
+                          "causal", 0, cap)
+        row["non_monotone_slots"] = st["non_monotone_slots"]
+        b2_rows.append(row)
+        b2_err = max(b2_err, st["max_abs_err"])
+    print(f"  pairs the window excludes per head: "
+          f"{b2_rows[0]['window_excluded']}; ring slots below their "
+          f"predecessor: {b2_rows[-1]['non_monotone_slots']}")
+
+    print("B1 at the recurrentgemma halves, timed: " + B1_TIME_HEADER)
+    b1_rows = [b1_time_row(dev, gen, *case) for case in cc.B1_FFN_RGEMMA]
+
+    layer_rows = []
+    for arch, kind in (("recurrentgemma-9b", "rglru"), ("mamba2-370m", "ssm")):
+        t0 = time.perf_counter()
+        st = {"arch": arch, "kind": kind,
+              **check_recurrent_layer(dev, get_config(arch), kind,
+                                      tokens=A7B_LAYER_TOKENS,
+                                      steps=A7B_LAYER_STEPS),
+              "s": time.perf_counter() - t0}
+        layer_rows.append(st)
+        print(f"{kind} layer of {arch} at full width, card vs CPU ("
+              f"{st['tokens']}-token prefill, {st['steps']} decode steps): "
+              f"outputs within {st['out_ulps']:.3f} bf16 ulps of max|out| "
+              f"(tol 4), conv states within {st['conv_ulps']:.3f} ulps of "
+              f"max|conv| (tol 1; {st['conv_diff']} elements differ), "
+              f"f32 states within {st['state_ulps']:.3f} bf16 ulps of "
+              f"max|state| (tol 2); {st['s']:.1f} s")
+        torch.cuda.empty_cache()
+    report["a7b_kernels"] = {"b1_max_abs_err": b1_err,
+                             "b1_excused_codes": b1_excused,
+                             "b1_rows_independent": rows_eq,
+                             "b2": b2_rows, "b1": b1_rows,
+                             "layers": layer_rows}
+    return {"kan_pipeline_layer": b1_err, "flash_attention": b2_err,
+            "b2_rows": b2_rows, "b1_rows": b1_rows}
+
+
+def phase_a7b(dev, report) -> tuple:
+    """Phase 11.  Returns (launches by path, kernel errors, timed rows)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 11 starts with {torch.cuda.memory_allocated()} B allocated "
+          "by earlier phases")
+    t0 = time.perf_counter()
+    checks = a7b_kernel_checks(dev, report)
+    print(f"phase 11 kernel and layer checks: "
+          f"{time.perf_counter() - t0:.1f} s")
+    qwen_waits = set(report["serve"]["host_split_contiguous"][
+        "decode_waits_per_step"])
+    by_path, models = {}, []
+    for model in A7B_MODELS:
+        info, launches = a7a_serve(dev, *model, qwen_waits, path="a7b",
+                                   gate_f32=model[0] in A7B_GATE_F32)
+        models.append(info)
+        by_path.update(launches)
+    report["a7b"] = models
     return by_path, checks
 
 
@@ -3205,13 +3430,16 @@ def main() -> int:
     timed("9", phase_train, dev, report)
     a7a_paths, a7a = timed("10", phase_a7a, dev, report)
     by_path.update(a7a_paths)
-    print(f"[phases 3-10: {time.perf_counter() - t_all:.1f} s]")
-    # phase 10's B2 and B1 shapes join the kernel line's rows (its B2 ms
-    # stays the sum over phase 7's three path shapes)
-    totals["flash_attention"]["shapes"] += a7a["b2_rows"]
-    ffn_full += a7a["b1_rows"]
-    errs["kan_pipeline_layer"] = max(errs["kan_pipeline_layer"],
-                                     a7a["kan_pipeline_layer"])
+    a7b_paths, a7b = timed("11", phase_a7b, dev, report)
+    by_path.update(a7b_paths)
+    print(f"[phases 3-11: {time.perf_counter() - t_all:.1f} s]")
+    # phase 10's and 11's B2 and B1 shapes join the kernel line's rows (its
+    # B2 ms stays the sum over phase 7's three path shapes)
+    for extra in (a7a, a7b):
+        totals["flash_attention"]["shapes"] += extra["b2_rows"]
+        ffn_full += extra["b1_rows"]
+        errs["kan_pipeline_layer"] = max(errs["kan_pipeline_layer"],
+                                         extra["kan_pipeline_layer"])
     totals["cim_mac_fwd"] = b4_totals(report["times_b4"],
                                       report["acim"]["mac"])
     errs["flash_attention"] = max(

@@ -29,7 +29,9 @@ masked in every split.
 path's own shapes (``PATH_SHAPES``), with the positions the path sets;
 ``B2_A7A`` and :func:`check_b2_ring` at the sliding-window and MoE
 decoders' prefill and decode geometry (a 4096-key window that excludes
-keys, softcap 50, rings whose slot positions are not monotone).
+keys, softcap 50, rings whose slot positions are not monotone);
+``B2_A7B`` and ``B2_RING_A7B`` at recurrentgemma's local layer (D = 256,
+16 query heads over one KV head: the CUDA-core instance).
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ from .ops import call_kv_splits, flash_attention
 from .ref import flash_attention_plain
 
 __all__ = ["F32_TOL", "DTYPES", "KINDS", "GQA", "HEAD_DIMS", "B2_CASES",
-           "B2_EXTRA", "B2_SPLIT", "B2_A7A", "B2_RING", "RING_POS",
+           "B2_EXTRA", "B2_SPLIT", "B2_A7A", "B2_RING", "B2_A7B",
+           "B2_RING_A7B", "RING_POS",
            "PATH_SHAPES", "bf16_ulp", "b2_inputs", "path_inputs",
            "ring_inputs", "window_excluded_pairs", "check_b2",
            "check_b2_case", "check_b2_path", "check_b2_ring"]
@@ -112,6 +115,16 @@ B2_A7A = (
 # decode over a full rolling-window ring (4 slots, T = window = 4096, bf16,
 # D=128): (name, Hq, Hkv, softcap) of gemma2's and mixtral's local layers
 B2_RING = (("ring_gemma2", 32, 16, 50.0), ("ring_mixtral", 32, 8, 0.0))
+# recurrentgemma-9b's local layer (16 query heads over one KV head, D=256,
+# bf16, window 2048: the CUDA-core instance) at a 2300-token prompt, where
+# rows 2048.. exclude keys: keyword arguments of check_b2
+B2_A7B = (
+    dict(dtype=torch.bfloat16, kind="local", hq=16, hkv=1, d=256, b=1,
+         s=2300, t=2300, window=2048, masked=False),
+)
+# and its decode over full 2048-slot rings: (name, Hq, Hkv, softcap, D,
+# window) of check_b2_ring
+B2_RING_A7B = (("ring_rgemma", 16, 1, 0.0, 256, 2048),)
 # the slots' positions: wrapped (non-monotone kpos) at 4215, 4300 and
 # 8191, and one slot short of the window (its upper slots never written)
 RING_POS = (4215, 4300, 8191, 100)
@@ -172,14 +185,15 @@ def path_inputs(dev, name: str, b: int, s: int, t: int):
     return q, k, v, qpos.contiguous(), kpos.contiguous()
 
 
-def ring_inputs(dev, hq: int, hkv: int, window: int = 4096, seed: int = 6):
+def ring_inputs(dev, hq: int, hkv: int, window: int = 4096, seed: int = 6,
+                d: int = 128):
     """bf16 operands of one decode step over rolling-window rings (one per
-    slot of ``RING_POS``): slot j of a ring holds the largest position
-    <= pos with position % window == j, negative where never written (the
-    positions ``models.layers._window_positions`` gives the decode step).
-    Returns ``(q, k, v, qpos, kpos)``."""
+    slot of ``RING_POS``), head dim ``d``: slot j of a ring holds the
+    largest position <= pos with position % window == j, negative where
+    never written (the positions ``models.layers._window_positions`` gives
+    the decode step).  Returns ``(q, k, v, qpos, kpos)``."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    b, d = len(RING_POS), 128
+    b = len(RING_POS)
     q = torch.randn(b, 1, hq, d, generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn(b, window, hkv, d, generator=gen, device=dev).to(
         torch.bfloat16)
@@ -201,12 +215,13 @@ def window_excluded_pairs(qpos, kpos, window: int) -> int:
     return int(((kp >= 0) & (kp <= qp - window)).sum().item())
 
 
-def check_b2_ring(dev, name: str, hq: int, hkv: int, softcap: float) -> dict:
-    """One ``B2_RING`` entry, kernel (the decode step's causal kind over
-    the ring's positions) against plain; returns the stats of
-    :func:`check_b2` and ``non_monotone_slots``, the slots whose kpos is
-    below the slot before it (must be > 0)."""
-    q, k, v, qpos, kpos = ring_inputs(dev, hq, hkv)
+def check_b2_ring(dev, name: str, hq: int, hkv: int, softcap: float,
+                  d: int = 128, window: int = 4096) -> dict:
+    """One ``B2_RING`` (or ``B2_RING_A7B``) entry, kernel (the decode
+    step's causal kind over the ring's positions) against plain; returns
+    the stats of :func:`check_b2` and ``non_monotone_slots``, the slots
+    whose kpos is below the slot before it (must be > 0)."""
+    q, k, v, qpos, kpos = ring_inputs(dev, hq, hkv, window=window, d=d)
     st = _compare((name,), q, k, v, qpos, kpos, None, kind="causal",
                   window=0, softcap=softcap)
     st["non_monotone_slots"] = int((kpos[:, 1:] < kpos[:, :-1]).sum().item())

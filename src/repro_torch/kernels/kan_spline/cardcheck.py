@@ -38,8 +38,8 @@ from .ops import kan_spline
 from .ref import kan_spline_ref
 
 __all__ = ["ATOL", "RTOL", "ORDERS", "B1_GEOMETRIES", "B1_FLAGS",
-           "B1_FFN_FULL", "B1_FFN_GEMMA2", "B1_FFN_DRAFT", "B1_FFN_PACKED",
-           "FFN_FULL_TIE_EPS", "B3_SHAPES",
+           "B1_FFN_FULL", "B1_FFN_GEMMA2", "B1_FFN_RGEMMA", "B1_FFN_DRAFT",
+           "B1_FFN_PACKED", "FFN_FULL_TIE_EPS", "B3_SHAPES",
            "B1_ROW_TILE_CASES", "ROW_TILE_ROWS",
            "b1_case", "check_b1", "check_b1_rows_independent",
            "check_b1_padded_columns", "check_b1_row_tiles", "check_b3"]
@@ -68,6 +68,14 @@ B1_FFN_GEMMA2 = tuple(
     (8, f, o, (True, False, False, False, emit), rows)
     for f, o, emit in ((4608, 3456, True), (3456, 4608, False))
     for rows in (8, 1024))
+# the two halves of the full-width recurrentgemma-9b kan_variant() KAN-FFN
+# (d_model 4096, hidden 12288 // 11 = 1117 rounded up to 1152, G=8), every
+# layer's FFN (RG-LRU and local alike), at the decode bucket and the
+# bucket of a 2300-token prompt: (grid, f, o, flags, rows)
+B1_FFN_RGEMMA = tuple(
+    (8, f, o, (True, False, False, False, emit), rows)
+    for f, o, emit in ((4096, 1152, True), (1152, 4096, False))
+    for rows in (8, 4096))
 # the same halves at the speculative drafter's default spec (G=4, K=3: 7
 # basis functions instead of 11), at the executor's row buckets of a
 # 4-slot decode (8) and of 20 rows (32: 4 slots x k+1 = 5 verify rows, and

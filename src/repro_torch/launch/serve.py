@@ -13,6 +13,14 @@ Port of ``repro.launch.serve``.  Runs on the card unless ``--device cpu``:
         --kan-ffn --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
         --device cpu
+    # the recurrent decoders (recurrentgemma's RG-LRU + local attention,
+    # mamba2's SSD); on the card at the published widths, 8 layers:
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-9b --kan-ffn --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+        --device cpu
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --kan-ffn \\
+        --full-width-layers 8 --requests 4 --max-new 8
     # with the ACIM non-idealities (IR-drop, TM-DV and partial-sum noise):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
         --kan-ffn --backend acim
@@ -37,10 +45,11 @@ them through kernel B1 (``--backend acim``: with the paper's ACIM
 non-idealities injected); attention runs through kernel B2 ("flash")
 unless ``--attn-backend ref``.  Weights are random, drawn from a fixed seed;
 the model is the arch's smoke-size config, or its published widths with
-``--full-width-layers N`` layers.  Decoders with "local" (sliding-window)
-layers serve from contiguous caches only (no ``--kv-block-size``), as in
-the reference; "rglru" / "ssm" layers (ROADMAP A7b) and the audio / vlm
-families (A7c) exit with "not ported yet".
+``--full-width-layers N`` layers.  Decoders with "local" (sliding-window),
+"rglru" (RG-LRU) or "ssm" (Mamba-2) layers serve from contiguous caches
+only (no ``--kv-block-size``, so no ``--spec-decode``), as in the
+reference; the audio / vlm families (ROADMAP A7c) exit with "not ported
+yet".
 ``--spec-decode K`` (with ``--kan-ffn`` and ``--kv-block-size``) adds a
 refit KAN drafter (``--draft-spec``); ``--metrics-port`` / ``--metrics-dump``
 turn the obs registry on, ``--trace-out`` records the per-request span
@@ -65,7 +74,7 @@ from .. import obs, runtime
 from ..configs.registry import get_config, smoke_config
 from ..core.asp_quant import resolve_layer_bits
 from ..device import resolve_device
-from ..models.layers import A7B, A7C
+from ..models.layers import A7C
 from ..models.model import init_params
 from ..serve.engine import Request, ServeEngine
 from ..serve.scheduler import QueueFull, SamplingParams, Scheduler
@@ -212,10 +221,6 @@ def main(argv=None) -> None:
     if cfg.family in ("audio", "vlm") or cfg.encoder_layers:
         raise SystemExit(f"{args.arch}: the {cfg.family} family is not "
                          f"ported yet (ROADMAP {A7C})")
-    recurrent = sorted({"rglru", "ssm"} & set(cfg.layer_kinds))
-    if recurrent:
-        raise SystemExit(f"{args.arch}: layer kinds {recurrent} are not "
-                         f"ported yet (ROADMAP {A7B})")
     if args.prefill_chunk is not None and args.kv_block_size is None:
         raise SystemExit("--prefill-chunk requires --kv-block-size")
     if args.spec_decode:

@@ -1,9 +1,10 @@
-"""One full-width MoE layer held against the port's CPU path.
+"""One full-width MoE, RG-LRU or Mamba-2 layer held against the port's
+CPU path.
 
-The one definition of the check, shared by ``chip_smoke.py`` (phase 10)
-and ``tests/test_torch_gpu.py``.  A layer's weights are drawn on the card
-from a seeded generator, copied to the CPU, and both copies run
-:func:`.layers.moe` on the same bf16 tokens.  The f32 router matmul sums
+The one definition of each check, shared by ``chip_smoke.py`` (phases 10
+and 11) and ``tests/test_torch_gpu.py``.  :func:`check_moe_layer`: a
+layer's weights are drawn on the card from a seeded generator, copied to
+the CPU, and both copies run :func:`.layers.moe` on the same bf16 tokens.  The f32 router matmul sums
 in another order on the two devices, so:
 
   * routing (each token's set of k experts, and whether each assignment
@@ -17,6 +18,21 @@ in another order on the two devices, so:
     ``BF16_ULPS`` bf16 ulps of max|out| of the CPU output (bf16 expert
     matmuls that sum in another order, one rounding each; a token whose
     experts came in another order sums its k outputs in that order).
+
+:func:`check_recurrent_layer` runs one RG-LRU or Mamba-2 layer the same
+way over a prefill and a few decode steps.  Its bf16 projections sum in
+another order on cuBLAS, so a projected element may round to the
+neighbouring bf16 value:
+
+  * every output (prefill and each decode step) within ``BF16_ULPS``
+    bf16 ulps of max|out| of the CPU output;
+  * the conv states (copies of bf16 projections) within one bf16 ulp of
+    their max|conv|; the elements that differ are counted (a projection
+    that cancels to a small value may round many of its own ulps away,
+    since its f32 sum carries the error of its large terms);
+  * the f32 states (``h``, ``ssm``) within ``STATE_ULPS`` bf16 ulps of
+    their max|state|: an input that moved by one bf16 ulp moves the
+    recurrence by up to that much of itself.
 """
 
 from __future__ import annotations
@@ -25,12 +41,16 @@ import math
 
 import torch
 
+from ..kernels.attention.cardcheck import bf16_ulp
+from . import layers as L
 from .layers import init_moe, moe, moe_capacity, moe_route
 
-__all__ = ["TIE_REL", "BF16_ULPS", "check_moe_layer"]
+__all__ = ["TIE_REL", "BF16_ULPS", "STATE_ULPS", "check_moe_layer",
+           "check_recurrent_layer"]
 
 TIE_REL = 1e-4
 BF16_ULPS = 4
+STATE_ULPS = 2
 
 
 def _route(p, x, cfg):
@@ -88,3 +108,52 @@ def check_moe_layer(dev, cfg, tokens: int, seed: int = 0) -> dict:
             "dropped": int((~keep_dev).sum()), "flipped": int(flipped.sum()),
             "displaced": int(displaced.sum()), "max_abs_err": err,
             "tol": tol}
+
+
+def check_recurrent_layer(dev, cfg, kind: str, tokens: int = 1000,
+                          steps: int = 4, seed: int = 0) -> dict:
+    """One ``kind`` ("rglru" or "ssm") layer of ``cfg`` (bf16, its
+    published widths) on ``dev`` against a CPU copy of its weights: a
+    ``tokens``-token prefill, then ``steps`` decode steps from the prefill's
+    state, on the same bf16 inputs; raises on disagreement (module
+    docstring).  Returns ``{"tokens", "steps", "out_ulps", "conv_diff",
+    "conv_ulps", "state_ulps"}``: the largest output error in bf16 ulps of
+    max|out| over every call, the most conv-state elements that differ in
+    one call and the largest conv-state error in bf16 ulps of
+    max|conv|, and the largest f32-state error in bf16 ulps of
+    max|state|."""
+    init, fn = ((L.init_rglru, L.rglru) if kind == "rglru" else
+                (L.init_mamba2, L.mamba2))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = init(gen, cfg, device=dev)
+    x = torch.randn(1, tokens + steps, cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    pc = {k: v.cpu() for k, v in p.items()}
+    xc = x.cpu()
+    st = {"tokens": tokens, "steps": steps, "out_ulps": 0.0, "conv_diff": 0,
+          "conv_ulps": 0.0, "state_ulps": 0.0}
+    state = state_c = None
+    with torch.no_grad():
+        for i in range(steps + 1):
+            sl = (slice(0, tokens) if i == 0 else
+                  slice(tokens + i - 1, tokens + i))
+            out, state = fn(p, x[:, sl], cfg, state)
+            want, state_c = fn(pc, xc[:, sl], cfg, state_c)
+            want = want.float()
+            st["out_ulps"] = max(st["out_ulps"], (
+                (out.cpu().float() - want).abs().max()
+                / bf16_ulp(want.abs().max())).item())
+            for name, got in state.items():
+                got, ref = got.cpu().float(), state_c[name].float()
+                key = "conv_ulps" if name == "conv" else "state_ulps"
+                st[key] = max(st[key], ((got - ref).abs().max()
+                                        / bf16_ulp(ref.abs().max())).item())
+                if name == "conv":
+                    st["conv_diff"] = max(st["conv_diff"],
+                                          int((got != ref).sum()))
+    if not (st["out_ulps"] <= BF16_ULPS and st["conv_ulps"] <= 1.0
+            and st["state_ulps"] <= STATE_ULPS):
+        raise AssertionError(f"{kind} layer of {cfg.name}, card vs CPU "
+                             f"(out <= {BF16_ULPS} ulps, conv <= 1, states "
+                             f"<= {STATE_ULPS}): {st}")
+    return st

@@ -1,8 +1,9 @@
-"""Transformer layers of the attention decoders: norms, RoPE, GQA attention
-with contiguous, rolling-window and paged KV caches, the SwiGLU / GeLU /
-KAN FFNs and the top-k MoE FFN.
+"""Layers of the decoder stacks: norms, RoPE, GQA attention with
+contiguous, rolling-window and paged KV caches, the SwiGLU / GeLU / KAN
+FFNs, the top-k MoE FFN, and the recurrent blocks: RG-LRU (RecurrentGemma)
+and Mamba-2's SSD.
 
-Port of the attention-decoder subset of ``repro.models.layers``.  Params are
+Port of the decoder subset of ``repro.models.layers``.  Params are
 plain nested dicts of tensors; init functions take an explicit
 ``torch.Generator`` and ``device``.  Activations are (B, S, D) in the
 config's dtype, with reductions and softmax in f32, following the
@@ -10,8 +11,9 @@ reference's casts one by one.  KV caches are updated IN PLACE (the
 reference returns new arrays; an in-place ``index_put_`` saves a copy of
 the whole cache per layer and step) and returned as the same objects.
 
-Cross attention raises ``NotImplementedError`` (ROADMAP A7c); RG-LRU and
-Mamba-2 have no layer here yet (A7b).
+The recurrent blocks return their new state (conv rows in the config's
+dtype, the recurrence in f32) and the stack writes it into its cache in
+place.  Cross attention raises ``NotImplementedError`` (ROADMAP A7c).
 The reference's ``_grad_safe_barrier`` is an XLA scheduling hint and has
 no counterpart here.
 """
@@ -51,6 +53,14 @@ __all__ = [
     "moe_route",
     "moe_combine",
     "moe",
+    "init_rglru",
+    "rglru",
+    "rglru_prefill",
+    "init_rglru_state",
+    "init_mamba2",
+    "mamba2",
+    "mamba2_prefill",
+    "init_mamba2_state",
 ]
 
 ATTN_CHUNK = 1024  # query-chunk size of the memory-bounded "ref" attention
@@ -59,8 +69,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 
-# the ROADMAP items that port what is still refused
-A7B = "A7b: recurrent layers (recurrentgemma, mamba2)"
+# the ROADMAP item that ports what is still refused
 A7C = "A7c: encoder and patch prefixes (whisper, pixtral)"
 
 
@@ -696,3 +705,241 @@ def moe(p, x, cfg: ModelConfig):
                          torch.zeros((1, d), dtype=ye.dtype, device=x.device)])
     contrib = ye_flat[dest] * flat_g[:, None].to(ye.dtype)
     return moe_combine(contrib.reshape(t, k, d), x.dtype).reshape(b, s, d)
+
+
+# ----------------------------------------------------------------------------
+# RG-LRU recurrent block (RecurrentGemma / Griffin)
+# ----------------------------------------------------------------------------
+
+
+def init_rglru(gen, cfg: ModelConfig, *, device=None) -> dict:
+    """Input / gate projections (D, W), the depthwise conv (4, W), the
+    recurrence and input gates (W, W) and the output (W, D) in the
+    config's dtype; the decay parameter ``lam`` (W,) in f32."""
+    d = cfg.d_model
+    w = cfg.rnn_width or d
+    dt = torch_dtype(cfg)
+    sc, scw = 1.0 / math.sqrt(d), 1.0 / math.sqrt(w)
+    return {
+        "w_in": _normal(gen, (d, w), sc, dt, device),
+        "w_gate_in": _normal(gen, (d, w), sc, dt, device),
+        "conv": _normal(gen, (4, w), 0.3, dt, device),
+        "w_rg": _normal(gen, (w, w), scw, dt, device),
+        "w_ig": _normal(gen, (w, w), scw, dt, device),
+        "lam": torch.full((w,), 2.0, dtype=torch.float32, device=device),
+        "w_out": _normal(gen, (w, d), scw, dt, device),
+    }
+
+
+def _causal_conv1d(x, w, state=None):
+    """Depthwise causal conv.  x: (B, S, W), w: (K, W), state: (B, K-1, W)
+    (None: zeros).  Returns (out, new_state): the sum of K shifted
+    products in order i = 0..K-1, each product and partial sum rounded to
+    x's dtype, as the reference's Python ``sum`` (one fused conv would
+    round once); ``new_state`` is the last K-1 rows of [state, x], so a
+    prompt shorter than K-1 keeps the zeros before it."""
+    k, s = w.shape[0], x.shape[1]
+    pad = (torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                       device=x.device) if state is None else state)
+    xp = torch.cat([pad, x], dim=1)
+    out = xp[:, 0:s] * w[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + s] * w[i]
+    return out, xp[:, s:]
+
+
+def _rglru_scan(a, bx):
+    """h_t = a_t * h_{t-1} + b_t over axis 1 (h_{-1} = 0), the reference's
+    ``associative_scan`` as a log-depth doubling scan: at distance d = 1,
+    2, 4, ... every t >= d folds in the segment ending at t - d."""
+    s, d = a.shape[1], 1
+    while d < s:
+        bx = torch.cat([bx[:, :d], a[:, d:] * bx[:, :-d] + bx[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return bx
+
+
+def _sigmoid(x):
+    """``jax.nn.sigmoid`` as the reference lowers it, 1 / (1 + exp(-x)),
+    each op rounded to x's dtype: in bf16, ``torch.sigmoid`` (one rounding)
+    moves about a third of the values by one ulp, and the recurrent states
+    integrate them."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: log(exp(x) + 1) as ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def rglru(p, x, cfg: ModelConfig, state=None):
+    """RG-LRU over x (B, S, D).  ``state`` {"conv": (B, 3, W), "h": (B, W)
+    f32} decodes one step (S = 1) from it; without, the whole sequence
+    runs from zeros through :func:`_rglru_scan`.  Returns (y, new_state),
+    the state after the last position either way (the reference's
+    ``rglru_prefill`` state)."""
+    u = x @ p["w_in"]
+    gate_in = F.gelu(x @ p["w_gate_in"], approximate="tanh")
+    u, conv_state = _causal_conv1d(u, p["conv"],
+                                   None if state is None else state["conv"])
+    r = _sigmoid(u @ p["w_rg"])
+    i = _sigmoid(u @ p["w_ig"])
+    c = 8.0
+    log_a = -c * _softplus(p["lam"]) * r.to(torch.float32)
+    a = torch.exp(log_a)
+    gated = (i * u).to(torch.float32) * torch.sqrt(
+        torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6))
+    if state is None:
+        h_seq = _rglru_scan(a, gated)
+    else:
+        h_seq = (a[:, 0] * state["h"] + gated[:, 0])[:, None]
+    y = (h_seq.to(x.dtype) * gate_in) @ p["w_out"]
+    return y, {"conv": conv_state, "h": h_seq[:, -1]}
+
+
+def rglru_prefill(p, x, cfg: ModelConfig):
+    """Whole-sequence RG-LRU with the final recurrent state."""
+    return rglru(p, x, cfg)
+
+
+def init_rglru_state(cfg: ModelConfig, batch: int, *, device=None) -> dict:
+    w = cfg.rnn_width or cfg.d_model
+    return {"conv": torch.zeros((batch, 3, w), dtype=torch_dtype(cfg),
+                                device=device),
+            "h": torch.zeros((batch, w), dtype=torch.float32, device=device)}
+
+
+# ----------------------------------------------------------------------------
+# Mamba-2 SSD block
+# ----------------------------------------------------------------------------
+
+
+def _ssm_dims(cfg: ModelConfig) -> tuple:
+    """(inner width, heads, state size, head dim)."""
+    din = cfg.ssm_expand * cfg.d_model
+    return din, din // cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_head_dim
+
+
+def init_mamba2(gen, cfg: ModelConfig, *, device=None) -> dict:
+    """The fused input projection (D, 2*din + 2N + H) and the conv (K,
+    din + 2N) and output (din, D) in the config's dtype; the per-head
+    ``a_log``, ``d_skip``, ``dt_bias`` and the gated norm's scale in f32."""
+    d = cfg.d_model
+    din, nh, n, _ = _ssm_dims(cfg)
+    dt = torch_dtype(cfg)
+
+    def f32(shape, v):
+        return torch.full(shape, v, dtype=torch.float32, device=device)
+
+    return {
+        "w_in": _normal(gen, (d, 2 * din + 2 * n + nh), 1.0 / math.sqrt(d),
+                        dt, device),
+        "conv": _normal(gen, (cfg.ssm_conv, din + 2 * n), 0.3, dt, device),
+        "a_log": f32((nh,), 0.0),
+        "d_skip": f32((nh,), 1.0),
+        "dt_bias": f32((nh,), 0.0),
+        "norm": f32((din,), 0.0),
+        "w_out": _normal(gen, (din, d), 1.0 / math.sqrt(din), dt, device),
+    }
+
+
+def _ssd_chunked(x, dtv, a_log, b, c, chunk: int):
+    """SSD (state-space duality) chunked scan, all in f32.
+
+    x: (B, S, H, P) values; dtv: (B, S, H) step sizes (softplus'd); b, c:
+    (B, S, N) input / output projections (one group); S a multiple of
+    ``chunk``.  Within a chunk the output is the masked decay matrix
+    applied directly; across chunks a state (B, H, N, P) is carried in
+    order, each chunk reading the state before it.  Returns (y (B, S, H,
+    P), final state)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    nc = s // chunk
+    assert nc * chunk == s, (s, chunk)
+    da = dtv * -torch.exp(a_log)                       # (B, S, H), <= 0
+    x_c = (x * dtv[..., None]).to(torch.float32).reshape(bsz, nc, chunk, h, p)
+    b_c = b.to(torch.float32).reshape(bsz, nc, chunk, n)
+    c_c = c.to(torch.float32).reshape(bsz, nc, chunk, n)
+    cums = torch.cumsum(da.reshape(bsz, nc, chunk, h), dim=2)  # (B,NC,Q,H)
+    # intra-chunk: L[q, t] = exp(cums[q] - cums[t]) for t <= q, else 0.
+    # The reference's exp(rel) * tril overflows above the diagonal once a
+    # chunk's decay spans more than f32 exp's range (~88.7: 256 steps of
+    # dt ~0.35 at A = -1), and inf * 0 is NaN; masking before the exp
+    # gives 0 there and the same bits below
+    rel = cums[:, :, :, None, :] - cums[:, :, None, :, :]      # (B,NC,Q,Q,H)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()[:, :, None]
+    l_mat = torch.exp(torch.where(tri, rel, -math.inf))
+    cb = torch.einsum("bcqn,bctn->bcqt", c_c, b_c)
+    y_diag = torch.einsum("bcqth,bcthp->bcqhp", cb[..., None] * l_mat, x_c)
+    # each chunk's own state: sum_t exp(cums[last] - cums[t]) b_t x_t
+    decay_to_end = torch.exp(cums[:, :, -1:] - cums)           # (B,NC,Q,H)
+    states = torch.einsum("bctn,bcthp->bchnp", b_c,
+                          x_c * decay_to_end[..., None])
+    # across chunks, in order: chunk i reads the carry before it
+    chunk_decay = torch.exp(cums[:, :, -1])                    # (B,NC,H)
+    carry = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    prev = []
+    for i in range(nc):
+        prev.append(carry)
+        carry = carry * chunk_decay[:, i, :, None, None] + states[:, i]
+    prev_states = torch.stack(prev, dim=1)                     # (B,NC,H,N,P)
+    y_off = torch.einsum("bcqn,bchnp->bcqhp", c_c, prev_states) \
+        * torch.exp(cums)[..., None]
+    return (y_diag + y_off).reshape(bsz, s, h, p), carry
+
+
+def mamba2(p, x, cfg: ModelConfig, state=None):
+    """Mamba-2 block over x (B, S, D).  ``state`` {"conv": (B, K-1, din +
+    2N), "ssm": (B, H, N, P) f32} decodes one step (S = 1) from it;
+    without, the whole sequence runs through :func:`_ssd_chunked` (padded
+    to a multiple of ``min(cfg.ssm_chunk, S)``: padded steps have dt = 0,
+    so they neither decay nor add).  Returns (y, new_state)."""
+    bsz, s, _ = x.shape
+    din, nh, n, hd = _ssm_dims(cfg)
+    z, xin, bc, dtv = torch.split(x @ p["w_in"], [din, din, 2 * n, nh],
+                                  dim=-1)
+    conv_out, conv_state = _causal_conv1d(
+        torch.cat([xin, bc], dim=-1), p["conv"],
+        None if state is None else state["conv"])
+    # jax.nn.silu: x * sigmoid(x), rounded op by op (see _sigmoid)
+    xin, b, c = torch.split(conv_out * _sigmoid(conv_out), [din, n, n],
+                            dim=-1)
+    dtv = _softplus(dtv.to(torch.float32) + p["dt_bias"])      # (B, S, H)
+    xh = xin.reshape(bsz, s, nh, hd)
+    if state is not None:
+        da = torch.exp(dtv[:, 0] * -torch.exp(p["a_log"]))     # (B, H)
+        xz = (xh[:, 0] * dtv[:, 0, :, None]).to(torch.float32)
+        ssm = state["ssm"] * da[..., None, None] + torch.einsum(
+            "bn,bhp->bhnp", b[:, 0].to(torch.float32), xz)
+        y = torch.einsum("bn,bhnp->bhp", c[:, 0].to(torch.float32),
+                         ssm)[:, None]
+    else:
+        chunk = min(cfg.ssm_chunk, s)
+        pad = (-s) % chunk
+        y, ssm = _ssd_chunked(F.pad(xh, (0, 0, 0, 0, 0, pad)),
+                              F.pad(dtv, (0, 0, 0, pad)), p["a_log"],
+                              F.pad(b, (0, 0, 0, pad)),
+                              F.pad(c, (0, 0, 0, pad)), chunk)
+        y = y[:, :s]
+    y = y + xh.to(torch.float32) * p["d_skip"][:, None]
+    y = y.reshape(bsz, s, din)
+    # gated RMSNorm (mamba2 style), in f32
+    yf = y * F.silu(z.to(torch.float32))
+    var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    yf = yf * torch.rsqrt(var + 1e-6) * (1.0 + p["norm"])
+    return yf.to(x.dtype) @ p["w_out"], {"conv": conv_state, "ssm": ssm}
+
+
+def mamba2_prefill(p, x, cfg: ModelConfig):
+    """Whole-sequence Mamba-2 with the final SSD and conv states."""
+    return mamba2(p, x, cfg)
+
+
+def init_mamba2_state(cfg: ModelConfig, batch: int, *, device=None) -> dict:
+    din, nh, n, hd = _ssm_dims(cfg)
+    return {"conv": torch.zeros((batch, cfg.ssm_conv - 1, din + 2 * n),
+                                dtype=torch_dtype(cfg), device=device),
+            "ssm": torch.zeros((batch, nh, n, hd), dtype=torch.float32,
+                               device=device)}

@@ -1,8 +1,9 @@
 """Model assembly for the decoder-only LM: embeddings, stack, head; the
 forward, prefill, decode, verify and paged-chunk entry points.
 
-Port of ``repro.models.model`` for the attention decoders (dense, sliding
-window, MoE).  Encoder (audio) and patch (vlm) prefixes raise
+Port of ``repro.models.model`` for the decoder-only stacks (dense, sliding
+window, MoE, RG-LRU hybrid, Mamba-2).  Encoder (audio) and patch (vlm)
+prefixes raise
 ``NotImplementedError`` (ROADMAP A7c).
 
   loss_fn: tokens / targets (B, S) -> mean next-token NLL (the train step's)

@@ -1,6 +1,6 @@
 """Decoder stack: stacked per-group params, forward, prefill and decode.
 
-Port of ``repro.models.transformer`` for the attention decoders.  Layers are
+Port of ``repro.models.transformer`` for the decoder-only stacks.  Layers are
 organized into repeating blocks given by ``cfg.attn_pattern``; params and
 caches of each group are STACKED over repeats (leading dim), as in the
 reference, so converted trees load unchanged.  The reference's
@@ -8,9 +8,11 @@ reference, so converted trees load unchanged.  The reference's
 and cache are views into the stacked tensors, and the caches are written
 in place through those views.
 
-"global" and "local" (sliding-window) attention layers are ported, with a
-dense or MoE FFN; "rglru" and "ssm" layers raise ``NotImplementedError``
-(ROADMAP A7b).
+"global" and "local" (sliding-window) attention layers with a dense or MoE
+FFN, "rglru" (RG-LRU) layers with an FFN, and "ssm" (Mamba-2) layers
+without one.  A recurrent layer's decode state (``l{i}_rnn`` / ``l{i}_ssm``)
+is written in place like a KV cache.  Cross attention ("bidir" encoder
+layers) is refused (ROADMAP A7c).
 
 With ``cfg.remat`` (the default) and grad enabled, each block of the
 full-sequence forward runs under ``torch.utils.checkpoint``, the
@@ -53,11 +55,15 @@ def layer_groups(cfg: ModelConfig):
     return groups
 
 
+_ATTN_KINDS = ("global", "local")
+_KINDS = _ATTN_KINDS + ("rglru", "ssm")
+
+
 def _check_kinds(kinds) -> None:
     for kind in kinds:
-        if kind in ("rglru", "ssm"):
-            raise L.not_ported(f"layer kind {kind!r}", L.A7B)
-        if kind not in ("global", "local"):
+        if kind == "bidir":
+            raise L.not_ported(f"layer kind {kind!r}", L.A7C)
+        if kind not in _KINDS:
             raise ValueError(f"decoder layer kind {kind!r}")
 
 
@@ -80,9 +86,16 @@ def _init_block(gen, cfg: ModelConfig, kinds, device) -> dict:
     """One block = len(kinds) layers; params keyed l{i}_*."""
     p = {}
     for i, kind in enumerate(kinds):
-        p[f"l{i}_attn"] = L.init_attention(gen, cfg, device=device)
+        if kind == "rglru":
+            p[f"l{i}_rnn"] = L.init_rglru(gen, cfg, device=device)
+        elif kind == "ssm":
+            p[f"l{i}_ssm"] = L.init_mamba2(gen, cfg, device=device)
+        else:
+            p[f"l{i}_attn"] = L.init_attention(gen, cfg, device=device)
         p[f"l{i}_ln1"] = L.init_rmsnorm(cfg.d_model, device=device)
-        if cfg.ffn_kind != "none":
+        # an "ssm" layer has no FFN sublayer (nor its norms)
+        ffn = kind != "ssm" and cfg.ffn_kind != "none"
+        if ffn:
             # MoE takes precedence over ffn_kind, as in the reference
             if cfg.num_experts > 0:
                 p[f"l{i}_moe"] = L.init_moe(gen, cfg, device=device)
@@ -91,7 +104,7 @@ def _init_block(gen, cfg: ModelConfig, kinds, device) -> dict:
             p[f"l{i}_ln2"] = L.init_rmsnorm(cfg.d_model, device=device)
         if cfg.post_norms:
             p[f"l{i}_pn1"] = L.init_rmsnorm(cfg.d_model, device=device)
-            if cfg.ffn_kind != "none":
+            if ffn:
                 p[f"l{i}_pn2"] = L.init_rmsnorm(cfg.d_model, device=device)
     return p
 
@@ -140,10 +153,32 @@ def _each_layer(groups, caches, cfg: ModelConfig):
 # ----------------------------------------------------------------------------
 
 
+# a recurrent layer kind -> the key suffix of its params and cache state,
+# and its block
+_RECURRENT = {"rglru": ("rnn", L.rglru), "ssm": ("ssm", L.mamba2)}
+
+
+def _recurrent(bp, h, cfg: ModelConfig, i: int, kind: str, cache=None,
+               decode: bool = False):
+    """Layer ``i``, an "rglru" or "ssm" layer, over h: from its state in
+    ``cache`` with ``decode``, else from zeros.  With ``cache`` its new
+    state is written there in place."""
+    name, block = _RECURRENT[kind]
+    key = f"l{i}_{name}"
+    h, new = block(bp[key], h, cfg, cache[key] if decode else None)
+    if cache is not None:
+        for leaf, t in new.items():
+            cache[key][leaf].copy_(t)
+    return h
+
+
 def _block_forward(bp, x, cfg: ModelConfig, kinds, positions):
     for i, kind in enumerate(kinds):
         h = L.rmsnorm(bp[f"l{i}_ln1"], x, cfg.norm_eps)
-        h = L.attention(bp[f"l{i}_attn"], h, cfg, kind, positions)
+        if kind in _ATTN_KINDS:
+            h = L.attention(bp[f"l{i}_attn"], h, cfg, kind, positions)
+        else:
+            h = _recurrent(bp, h, cfg, i, kind)
         x = _post_attn(bp, x, h, cfg, i)
         x = _ffn_sublayer(bp, x, cfg, i)
     return x
@@ -178,15 +213,23 @@ def stack_forward(groups, x, cfg: ModelConfig, positions=None):
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                      device=None) -> list:
-    """Contiguous KV caches mirroring the groups: each l{i}_kv leaf is
-    (repeats, B, max_len, Hkv, D)."""
+    """Contiguous caches mirroring the groups: each l{i}_kv leaf is
+    (repeats, B, T, Hkv, D); a recurrent layer's l{i}_rnn / l{i}_ssm
+    state leaves have the same leading (repeats, B)."""
+    def one(i, kind):
+        if kind == "rglru":
+            return f"l{i}_rnn", L.init_rglru_state(cfg, batch, device=device)
+        if kind == "ssm":
+            return f"l{i}_ssm", L.init_mamba2_state(cfg, batch,
+                                                    device=device)
+        return f"l{i}_kv", L.init_kv_cache(cfg, batch, max_len, kind,
+                                           device=device)
+
     caches = []
     for kinds, repeats in layer_groups(cfg):
         _check_kinds(kinds)
         caches.append(stack_trees([
-            {f"l{i}_kv": L.init_kv_cache(cfg, batch, max_len, kind,
-                                         device=device)
-             for i, kind in enumerate(kinds)}
+            dict(one(i, kind) for i, kind in enumerate(kinds))
             for _ in range(repeats)]))
     return caches
 
@@ -218,8 +261,12 @@ def stack_decode(groups, caches, x, pos, cfg: ModelConfig, block_table=None):
     for bp, cache, kinds in _each_layer(groups, caches, cfg):
         for i, kind in enumerate(kinds):
             h = L.rmsnorm(bp[f"l{i}_ln1"], x, cfg.norm_eps)
-            h, _ = L.attention_decode(bp[f"l{i}_attn"], h, cache[f"l{i}_kv"],
-                                      pos, cfg, kind, block_table=block_table)
+            if kind in _ATTN_KINDS:
+                h, _ = L.attention_decode(bp[f"l{i}_attn"], h,
+                                          cache[f"l{i}_kv"], pos, cfg, kind,
+                                          block_table=block_table)
+            else:
+                h = _recurrent(bp, h, cfg, i, kind, cache, decode=True)
             x = _post_attn(bp, x, h, cfg, i)
             x = _ffn_sublayer(bp, x, cfg, i)
     return x, caches
@@ -234,11 +281,18 @@ def stack_prefill(groups, caches, x, cfg: ModelConfig, positions=None):
     """Whole prompt; attention over the prompt's own K/V (T = S), which is
     also written into ``caches[:, :, :S]`` in place.  A rolling-window
     cache shorter than the prompt (T < S) keeps the last T positions,
-    rolled by (S - T) % T so that slot = position % T."""
+    rolled by (S - T) % T so that slot = position % T.  A recurrent
+    layer runs the whole prompt and keeps its state after the last
+    position."""
     s = x.shape[1]
     for bp, cache, kinds in _each_layer(groups, caches, cfg):
         for i, kind in enumerate(kinds):
             h = L.rmsnorm(bp[f"l{i}_ln1"], x, cfg.norm_eps)
+            if kind not in _ATTN_KINDS:
+                h = _recurrent(bp, h, cfg, i, kind, cache)
+                x = _post_attn(bp, x, h, cfg, i)
+                x = _ffn_sublayer(bp, x, cfg, i)
+                continue
             q, k, v = L._qkv(bp[f"l{i}_attn"], h, cfg, True, positions)
             kv = cache[f"l{i}_kv"]
             t = kv["k"].shape[1]

@@ -108,16 +108,17 @@ def step_scope(kan_backend, attn_backend):
 
 def splice_slot(pool, one, slot: int, plen: int, zero_tail: bool) -> None:
     """Copy a B=1 prefill cache ``one`` into row ``slot`` of a contiguous
-    pool IN PLACE (every layer's whole time axis: ``max_len``, or the
-    rolling window of a "local" layer); with ``zero_tail`` the KV past the
-    prompt (bucket padding, global layers only) is zeroed so no stale
-    state enters the pool."""
+    pool IN PLACE: every leaf of every layer (a KV cache's whole time axis,
+    ``max_len`` or the rolling window of a "local" layer; a recurrent
+    layer's conv and f32 states).  With ``zero_tail`` the KV past the
+    prompt (bucket padding, pure global-attention stacks only) is zeroed
+    so no stale state enters the pool."""
     for pool_g, one_g in zip(pool, one):
-        for key, kv in pool_g.items():
-            for name in ("k", "v"):
-                dst = kv[name][:, slot]          # (repeats, T, H, D)
+        for key, layer in pool_g.items():
+            for name, leaf in layer.items():
+                dst = leaf[:, slot]              # (repeats, ...)
                 dst.copy_(one_g[key][name][:, 0])
-                if zero_tail:
+                if zero_tail and key.endswith("_kv"):
                     dst[:, plen:] = 0
 
 

@@ -33,7 +33,12 @@ decoders: B1 at gemma2's kan_variant() halves (4608 / 3456), B2 at the
 query heads per KV head), olmoe's causal prefill and decode over wrapped
 rings, and one full-width MoE layer of mixtral and olmoe against the CPU
 (``repro_torch.models.cardcheck``: routing equal but at router near-ties,
-outputs within 4 bf16 ulps).  LM training
+outputs within 4 bf16 ulps).  The recurrent decoders: B1 at
+recurrentgemma's kan_variant() halves (4096 / 1152), B2 at its D = 256
+local layer (16 query heads over one KV head) at a 2300-token prefill and
+over wrapped 2048-slot rings, and one full-width RG-LRU layer and Mamba-2
+block against the CPU (outputs within 4 bf16 ulps of max|out|, conv
+states within one of max|conv|, f32 states within 2 of max|state|).  LM training
 (``repro_torch.train.cardcheck``): the float KAN-FFN's custom backward at
 the full-width halves against autograd of the plain forward, three train
 steps on the card equal to the CPU's within 1e-5 (and B1 / B2 never
@@ -160,6 +165,35 @@ def test_moe_layer_on_the_card_matches_the_cpu(dev, arch):
     cfg = dataclasses.replace(get_config(arch), dtype="bfloat16")
     st = check_moe_layer(dev, cfg, tokens=64)
     assert st["max_abs_err"] <= st["tol"]
+
+
+@pytest.mark.parametrize("grid,f,o,flags,rows", cc.B1_FFN_RGEMMA)
+def test_b1_kernel_matches_plain_at_recurrentgemma_ffn(dev, grid, f, o, flags,
+                                                       rows):
+    gen = torch.Generator(device=dev).manual_seed(f + rows + 2)
+    cc.check_b1(dev, gen, grid, f, o, flags, rows, eps=cc.FFN_FULL_TIE_EPS)
+
+
+@pytest.mark.parametrize("case", range(len(ac.B2_A7B)))
+def test_b2_kernel_matches_plain_at_d256_local_prefill(dev, case):
+    gen = torch.Generator(device=dev).manual_seed(70 + case)
+    assert ac.check_b2(dev, gen, **ac.B2_A7B[case])["window_excluded"] > 0
+
+
+@pytest.mark.parametrize("name,hq,hkv,softcap,d,window", ac.B2_RING_A7B)
+def test_b2_kernel_matches_plain_over_d256_rings(dev, name, hq, hkv, softcap,
+                                                 d, window):
+    assert ac.check_b2_ring(dev, name, hq, hkv, softcap, d=d,
+                            window=window)["non_monotone_slots"] > 0
+
+
+@pytest.mark.parametrize("arch,kind", [("recurrentgemma-9b", "rglru"),
+                                       ("mamba2-370m", "ssm")])
+def test_recurrent_layer_on_the_card_matches_the_cpu(dev, arch, kind):
+    from repro_torch.configs import get_config
+    from repro_torch.models.cardcheck import check_recurrent_layer
+
+    check_recurrent_layer(dev, get_config(arch), kind, tokens=1000, steps=4)
 
 
 def test_b2_wrapper_raises_instead_of_falling_back(dev):
