@@ -89,16 +89,15 @@ def kan_ffn_apply_quantized(qffn: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _map_ffn_blocks(params: dict, fn) -> dict:
-    """Apply ``fn`` to every stacked ``l{i}_ffn`` block of the decoder."""
+    """Apply ``fn`` to every stacked ``l{i}_ffn`` block of the decoder and,
+    where the tree has one, of the encoder."""
+    def group(gp: dict) -> dict:
+        return {k: fn(v) if k.endswith("_ffn") else v for k, v in gp.items()}
+
     p = dict(params)
-    groups = []
-    for gp in p["decoder"]:
-        out = dict(gp)
-        for k, v in gp.items():
-            if k.endswith("_ffn"):
-                out[k] = fn(v)
-        groups.append(out)
-    p["decoder"] = groups
+    for stack_key in ("decoder", "encoder"):
+        if stack_key in p:
+            p[stack_key] = [group(g) for g in p[stack_key]]
     return p
 
 
@@ -121,7 +120,8 @@ def deploy_kan_ffn_params_tree(params: dict, cfg: ModelConfig) -> dict:
 
 
 def quantize_kan_ffn_params_tree(params: dict, cfg: ModelConfig) -> dict:
-    """Swap every KAN-FFN block of a model param tree for its quantized form.
+    """Swap every KAN-FFN block of a model param tree (decoder and encoder)
+    for its quantized form.
 
     Each stacked ``l{i}_ffn`` float dict (leading dim = repeats) becomes
     the stacked ``{"l1","l2"}`` qparams dict (equal to the reference's
@@ -129,10 +129,6 @@ def quantize_kan_ffn_params_tree(params: dict, cfg: ModelConfig) -> dict:
     here (see the module docstring).  Run once at deploy time; a block that
     is already quantized is kept (and deployed if it is not yet)."""
     from ..models.transformer import stack_trees, tree_layer
-
-    if "encoder" in params:
-        raise NotImplementedError(
-            "encoder stacks are not ported yet (ROADMAP A7c)")
 
     def quantize(blk: dict) -> dict:
         if "l1" in blk:  # already quantized: kept as it is

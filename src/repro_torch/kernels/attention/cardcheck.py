@@ -31,7 +31,9 @@ path's own shapes (``PATH_SHAPES``), with the positions the path sets;
 decoders' prefill and decode geometry (a 4096-key window that excludes
 keys, softcap 50, rings whose slot positions are not monotone);
 ``B2_A7B`` and ``B2_RING_A7B`` at recurrentgemma's local layer (D = 256,
-16 query heads over one KV head: the CUDA-core instance).
+16 query heads over one KV head: the CUDA-core instance); ``B2_A7C`` at
+whisper-base's encoder and cross attention and pixtral-12b's prefill over
+its patch prefix, with a "full" case of more queries than keys.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from .ref import flash_attention_plain
 
 __all__ = ["F32_TOL", "DTYPES", "KINDS", "GQA", "HEAD_DIMS", "B2_CASES",
            "B2_EXTRA", "B2_SPLIT", "B2_A7A", "B2_RING", "B2_A7B",
-           "B2_RING_A7B", "RING_POS",
+           "B2_RING_A7B", "B2_A7C", "RING_POS",
            "PATH_SHAPES", "bf16_ulp", "b2_inputs", "path_inputs",
            "ring_inputs", "window_excluded_pairs", "check_b2",
            "check_b2_case", "check_b2_path", "check_b2_ring"]
@@ -125,6 +127,31 @@ B2_A7B = (
 # and its decode over full 2048-slot rings: (name, Hq, Hkv, softcap, D,
 # window) of check_b2_ring
 B2_RING_A7B = (("ring_rgemma", 16, 1, 0.0, 256, 2048),)
+# whisper-base (8 query heads over 8 KV heads, D=64) and pixtral-12b (32
+# over 8, D=128), bf16: (name, keyword arguments of check_b2).  The
+# encoder's bidirectional layer over 4 clips of 1500 frames ("full": the
+# tensor-core instance with tail tiles at 1500); cross attention of the
+# decoder's longest context (448 tokens) and of one decode step (the KV
+# split) over the 1500 encoder keys; pixtral's causal prefill of 256
+# patches and a 1000-token prompt; and "full" with more queries than keys,
+# where the right-aligned default qpos runs negative and every valid key is
+# still admitted (masked: every fifth key of batch 0 invalid, the last
+# batch row all invalid)
+B2_A7C = (
+    ("whisper_encoder", dict(dtype=torch.bfloat16, kind="full", hq=8, hkv=8,
+                             d=64, b=4, s=1500, t=1500, masked=False)),
+    ("whisper_cross_prefill", dict(dtype=torch.bfloat16, kind="full", hq=8,
+                                   hkv=8, d=64, b=4, s=448, t=1500,
+                                   masked=False)),
+    ("whisper_cross_decode", dict(dtype=torch.bfloat16, kind="full", hq=8,
+                                  hkv=8, d=64, b=4, s=1, t=1500,
+                                  masked=False)),
+    ("pixtral_prefill", dict(dtype=torch.bfloat16, kind="causal", hq=32,
+                             hkv=8, d=128, b=1, s=1256, t=1256,
+                             masked=False)),
+    ("full_s_gt_t", dict(dtype=torch.bfloat16, kind="full", hq=8, hkv=8,
+                         d=64, b=2, s=100, t=60)),
+)
 # the slots' positions: wrapped (non-monotone kpos) at 4215, 4300 and
 # 8191, and one slot short of the window (its upper slots never written)
 RING_POS = (4215, 4300, 8191, 100)

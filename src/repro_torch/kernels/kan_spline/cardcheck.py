@@ -38,7 +38,8 @@ from .ops import kan_spline
 from .ref import kan_spline_ref
 
 __all__ = ["ATOL", "RTOL", "ORDERS", "B1_GEOMETRIES", "B1_FLAGS",
-           "B1_FFN_FULL", "B1_FFN_GEMMA2", "B1_FFN_RGEMMA", "B1_FFN_DRAFT",
+           "B1_FFN_FULL", "B1_FFN_GEMMA2", "B1_FFN_RGEMMA", "B1_FFN_WHISPER",
+           "B1_FFN_PIXTRAL", "B1_FFN_DRAFT",
            "B1_FFN_PACKED", "FFN_FULL_TIE_EPS", "B3_SHAPES",
            "B1_ROW_TILE_CASES", "ROW_TILE_ROWS",
            "b1_case", "check_b1", "check_b1_rows_independent",
@@ -76,6 +77,21 @@ B1_FFN_RGEMMA = tuple(
     (8, f, o, (True, False, False, False, emit), rows)
     for f, o, emit in ((4096, 1152, True), (1152, 4096, False))
     for rows in (8, 4096))
+# the two halves of the full-width whisper-base kan_variant() KAN-FFN
+# (d_model 512, hidden 2048 // 11 = 186 rounded up to 256, G=8), in the
+# encoder and the decoder, at the bucket of a 4-clip decode step (4 rows:
+# 8) and of the encoder's 4 x 1500 frames (8192): (grid, f, o, flags, rows)
+B1_FFN_WHISPER = tuple(
+    (8, f, o, (True, False, False, False, emit), rows)
+    for f, o, emit in ((512, 256, True), (256, 512, False))
+    for rows in (8, 8192))
+# and of pixtral-12b's (d_model 5120, hidden 14336 // 11 = 1303 rounded up
+# to 1408), at the decode bucket and that of a 1256-row prefill (256
+# patches and a 1000-token prompt: 2048)
+B1_FFN_PIXTRAL = tuple(
+    (8, f, o, (True, False, False, False, emit), rows)
+    for f, o, emit in ((5120, 1408, True), (1408, 5120, False))
+    for rows in (8, 2048))
 # the same halves at the speculative drafter's default spec (G=4, K=3: 7
 # basis functions instead of 11), at the executor's row buckets of a
 # 4-slot decode (8) and of 20 rows (32: 4 slots x k+1 = 5 verify rows, and

@@ -48,8 +48,8 @@ the model is the arch's smoke-size config, or its published widths with
 ``--full-width-layers N`` layers.  Decoders with "local" (sliding-window),
 "rglru" (RG-LRU) or "ssm" (Mamba-2) layers serve from contiguous caches
 only (no ``--kv-block-size``, so no ``--spec-decode``), as in the
-reference; the audio / vlm families (ROADMAP A7c) exit with "not ported
-yet".
+reference; the audio / vlm families exit, as the engine cannot feed
+their stub embeddings (the reference raises ``KeyError`` there).
 ``--spec-decode K`` (with ``--kan-ffn`` and ``--kv-block-size``) adds a
 refit KAN drafter (``--draft-spec``); ``--metrics-port`` / ``--metrics-dump``
 turn the obs registry on, ``--trace-out`` records the per-request span
@@ -74,8 +74,7 @@ from .. import obs, runtime
 from ..configs.registry import get_config, smoke_config
 from ..core.asp_quant import resolve_layer_bits
 from ..device import resolve_device
-from ..models.layers import A7C
-from ..models.model import init_params
+from ..models.model import init_params, tokens_only_refusal
 from ..serve.engine import Request, ServeEngine
 from ..serve.scheduler import QueueFull, SamplingParams, Scheduler
 
@@ -218,9 +217,9 @@ def main(argv=None) -> None:
                                cfg.kan_grid)
         except ValueError as e:
             raise SystemExit(f"invalid KAN bit allocation: {e}")
-    if cfg.family in ("audio", "vlm") or cfg.encoder_layers:
-        raise SystemExit(f"{args.arch}: the {cfg.family} family is not "
-                         f"ported yet (ROADMAP {A7C})")
+    refusal = tokens_only_refusal(cfg, "the serving engine")
+    if refusal:
+        raise SystemExit(refusal)
     if args.prefill_chunk is not None and args.kv_block_size is None:
         raise SystemExit("--prefill-chunk requires --kv-block-size")
     if args.spec_decode:

@@ -16,6 +16,8 @@ restart from ``--ckpt-dir``, NaN guards, straggler watchdog, SIGTERM-safe
 preemption) is active either way.  ``--smoke`` trains the arch's
 smoke-size config without microbatches; ``--full-width-layers N`` its
 published config (its own ``microbatch`` and ``remat``) cut to N layers.
+The audio / vlm families exit: the stream has no stub embeddings for
+them (the reference raises ``KeyError`` there).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from ..configs.registry import get_config, smoke_config
 from ..data.lm_data import DataConfig
 from ..device import resolve_device
+from ..models.model import tokens_only_refusal
 from ..train.loop import TrainLoop
 
 
@@ -70,6 +73,9 @@ def main(argv=None):
         cfg = cfg.kan_variant()
     if args.smoke:
         cfg = dataclasses.replace(cfg, microbatch=0)
+    refusal = tokens_only_refusal(cfg, "the lm_data training stream")
+    if refusal:
+        raise SystemExit(refusal)
 
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                       global_batch=args.global_batch)

@@ -1,8 +1,8 @@
-"""One full-width MoE, RG-LRU or Mamba-2 layer held against the port's
-CPU path.
+"""One full-width MoE, RG-LRU, Mamba-2, encoder or cross-attention decoder
+layer held against the port's CPU path.
 
-The one definition of each check, shared by ``chip_smoke.py`` (phases 10
-and 11) and ``tests/test_torch_gpu.py``.  :func:`check_moe_layer`: a
+The one definition of each check, shared by ``chip_smoke.py`` (phases 10,
+11 and 12) and ``tests/test_torch_gpu.py``.  :func:`check_moe_layer`: a
 layer's weights are drawn on the card from a seeded generator, copied to
 the CPU, and both copies run :func:`.layers.moe` on the same bf16 tokens.  The f32 router matmul sums
 in another order on the two devices, so:
@@ -33,20 +33,43 @@ neighbouring bf16 value:
   * the f32 states (``h``, ``ssm``) within ``STATE_ULPS`` bf16 ulps of
     their max|state|: an input that moved by one bf16 ulp moves the
     recurrence by up to that much of itself.
+
+:func:`check_encdec_layers` runs one encoder layer ("bidir" attention over
+the stub frames) and one decoder layer with its cross-attention sublayer
+(a prefill that writes the cross K/V, then decode steps that read it) on
+"flash" attention (kernel B2 on the card, its plain version on the CPU).
+The decoder gets the card's encoder output on both devices, so each layer
+is held alone:
+
+  * every output within ``BF16_ULPS`` bf16 ulps of max|out|;
+  * the cross K/V (one bf16 projection of the encoder output each) within
+    one bf16 ulp of max|kv|;
+  * the decode steps leave the cross K/V as the prefill wrote them, bit
+    for bit.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from ..kernels.attention.cardcheck import bf16_ulp
+from ..runtime.attention import use_attn_backend
+from ..train.optimizer import tree_map
 from . import layers as L
 from .layers import init_moe, moe, moe_capacity, moe_route
+from .transformer import (
+    init_stack,
+    init_stack_cache,
+    stack_decode,
+    stack_forward,
+    stack_prefill,
+)
 
 __all__ = ["TIE_REL", "BF16_ULPS", "STATE_ULPS", "check_moe_layer",
-           "check_recurrent_layer"]
+           "check_recurrent_layer", "check_encdec_layers"]
 
 TIE_REL = 1e-4
 BF16_ULPS = 4
@@ -156,4 +179,74 @@ def check_recurrent_layer(dev, cfg, kind: str, tokens: int = 1000,
         raise AssertionError(f"{kind} layer of {cfg.name}, card vs CPU "
                              f"(out <= {BF16_ULPS} ulps, conv <= 1, states "
                              f"<= {STATE_ULPS}): {st}")
+    return st
+
+
+def _ulps(got, want) -> float:
+    """max |got - want| in bf16 ulps of max|want| (both moved to the CPU)."""
+    want = want.float().cpu()
+    return ((got.float().cpu() - want).abs().max()
+            / bf16_ulp(want.abs().max())).item()
+
+
+def check_encdec_layers(dev, cfg, batch: int = 4, prompt: int = 4,
+                        steps: int = 4, seed: int = 0) -> dict:
+    """One encoder layer and one cross-attention decoder layer of ``cfg``
+    (an encoder-decoder config: bf16, its published widths; the encoder
+    over ``cfg.enc_seq`` frames) on ``dev`` against CPU copies of their
+    weights: the encoder over ``batch`` clips of frames, then the decoder
+    layer's ``prompt``-token prefill and ``steps`` decode steps on the same
+    bf16 inputs; raises on disagreement (module docstring).  Returns
+    ``{"frames", "batch", "prompt", "steps", "enc_ulps", "dec_ulps",
+    "xkv_ulps", "xkv_unchanged"}``: the encoder's output error and the
+    largest decoder output error (prefill and each step) in bf16 ulps of
+    max|out|, the cross K/V error in bf16 ulps of max|kv|, and whether the
+    decode steps left the card's cross K/V bit-equal."""
+    enc_cfg = dataclasses.replace(cfg, num_layers=1, attn_pattern=("bidir",),
+                                  num_experts=0)
+    dec_cfg = dataclasses.replace(cfg, num_layers=1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    enc_p = init_stack(gen, enc_cfg, device=dev)
+    dec_p = init_stack(gen, dec_cfg, cross=True, device=dev)
+    frames = torch.randn(batch, cfg.enc_seq, cfg.d_model, generator=gen,
+                         device=dev).to(torch.bfloat16)
+    x = torch.randn(batch, prompt + steps, cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+
+    def cpu(tree):
+        return tree_map(lambda t: t.cpu(), tree)
+
+    st = {"frames": cfg.enc_seq, "batch": batch, "prompt": prompt,
+          "steps": steps}
+    with torch.no_grad(), use_attn_backend("flash"):
+        enc = stack_forward(enc_p, frames, enc_cfg)
+        st["enc_ulps"] = _ulps(enc, stack_forward(cpu(enc_p), frames.cpu(),
+                                                  enc_cfg))
+        runs = {}
+        for name, p, e, xs, d in (("card", dec_p, enc, x, dev),
+                                  ("cpu", cpu(dec_p), enc.cpu(), x.cpu(),
+                                   torch.device("cpu"))):
+            cache = init_stack_cache(dec_cfg, batch, prompt + steps,
+                                     enc_len=cfg.enc_seq, device=d)
+            pos = torch.arange(prompt, device=d)[None].expand(batch, prompt)
+            h, _ = stack_prefill(p, cache, xs[:, :prompt], dec_cfg,
+                                 positions=pos, enc_out=e)
+            xkv = {n: t.clone() for n, t in cache[0]["l0_xkv"].items()}
+            outs = [h]
+            for i in range(prompt, prompt + steps):
+                step = torch.full((batch,), i, device=d)
+                h, _ = stack_decode(p, cache, xs[:, i:i + 1], step, dec_cfg)
+                outs.append(h)
+            runs[name] = (outs, xkv, cache[0]["l0_xkv"])
+    (outs, xkv, after), (outs_c, xkv_c, _) = runs["card"], runs["cpu"]
+    st["dec_ulps"] = max(_ulps(o, w) for o, w in zip(outs, outs_c))
+    st["xkv_ulps"] = max(_ulps(xkv[n][0], xkv_c[n][0]) for n in ("k", "v"))
+    st["xkv_unchanged"] = all(torch.equal(xkv[n], after[n])
+                              for n in ("k", "v"))
+    if not (st["enc_ulps"] <= BF16_ULPS and st["dec_ulps"] <= BF16_ULPS
+            and st["xkv_ulps"] <= 1.0 and st["xkv_unchanged"]):
+        raise AssertionError(f"encoder / cross-attention decoder layers of "
+                             f"{cfg.name}, card vs CPU (outputs <= "
+                             f"{BF16_ULPS} ulps, cross K/V <= 1, cross K/V "
+                             f"unchanged by decode): {st}")
     return st

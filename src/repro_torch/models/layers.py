@@ -1,9 +1,10 @@
-"""Layers of the decoder stacks: norms, RoPE, GQA attention with
+"""Layers of the transformer stacks: norms, RoPE and sinusoidal positions,
+GQA attention (causal, sliding-window, bidirectional and cross) with
 contiguous, rolling-window and paged KV caches, the SwiGLU / GeLU / KAN
 FFNs, the top-k MoE FFN, and the recurrent blocks: RG-LRU (RecurrentGemma)
 and Mamba-2's SSD.
 
-Port of the decoder subset of ``repro.models.layers``.  Params are
+Port of ``repro.models.layers``.  Params are
 plain nested dicts of tensors; init functions take an explicit
 ``torch.Generator`` and ``device``.  Activations are (B, S, D) in the
 config's dtype, with reductions and softmax in f32, following the
@@ -13,8 +14,9 @@ the whole cache per layer and step) and returned as the same objects.
 
 The recurrent blocks return their new state (conv rows in the config's
 dtype, the recurrence in f32) and the stack writes it into its cache in
-place.  Cross attention raises ``NotImplementedError`` (ROADMAP A7c).
-The reference's ``_grad_safe_barrier`` is an XLA scheduling hint and has
+place.  Cross attention reads its K/V from the encoder output (full
+sequence) or from the cross cache the prefill wrote (decode).  The
+reference's ``_grad_safe_barrier`` is an XLA scheduling hint and has
 no counterpart here.
 """
 
@@ -37,6 +39,7 @@ __all__ = [
     "rmsnorm",
     "softcap",
     "rope",
+    "sinusoidal_positions",
     "init_attention",
     "attention",
     "attention_decode",
@@ -67,14 +70,6 @@ ATTN_CHUNK = 1024  # query-chunk size of the memory-bounded "ref" attention
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
-
-
-# the ROADMAP item that ports what is still refused
-A7C = "A7c: encoder and patch prefixes (whisper, pixtral)"
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -126,14 +121,26 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """(seq, d) f32 position table: sin of pos / 10000^(2i/d) over the first
+    half of the features, cos over the second (the encoder's)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    base = torch.full((), 10000.0, dtype=torch.float32, device=device)
+    ang = pos / torch.pow(base, 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ----------------------------------------------------------------------------
-# Attention (GQA, causal; contiguous and paged KV caches)
+# Attention (GQA; causal / local / bidirectional / cross; KV caches)
 # ----------------------------------------------------------------------------
 
 
-def init_attention(gen, cfg: ModelConfig, *, device=None) -> dict:
+def init_attention(gen, cfg: ModelConfig, *, cross: bool = False,
+                   device=None) -> dict:
     """Physical head counts may be PADDED (cfg.phys_heads); padded wo rows
-    start at zero, so the logical function is the published one."""
+    start at zero, so the logical function is the published one.  A
+    ``cross`` attention has no QKV bias."""
     d, hd = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.phys_heads, cfg.phys_kv_heads
     dt = torch_dtype(cfg)
@@ -147,7 +154,7 @@ def init_attention(gen, cfg: ModelConfig, *, device=None) -> dict:
     if hq != cfg.num_heads:  # zero the padded heads' output rows
         wo[cfg.num_heads:] = 0
     p["wo"] = wo
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((hq, hd), dtype=dt, device=device)
         p["bk"] = torch.zeros((hkv, hd), dtype=dt, device=device)
         p["bv"] = torch.zeros((hkv, hd), dtype=dt, device=device)
@@ -270,14 +277,19 @@ def _sdpa(q, k, v, cfg: ModelConfig, kind: str, qpos=None, kpos=None,
     return _sdpa_ref(q, k, v, cfg, kind, qpos, kpos)
 
 
-def attention(p, x, cfg: ModelConfig, kind: str, positions=None):
-    """Full-sequence self-attention.  kind: global|local|bidir."""
-    if kind not in ("global", "local", "bidir"):
-        raise not_ported(f"attention kind {kind!r}", A7C)
+def attention(p, x, cfg: ModelConfig, kind: str, positions=None,
+              enc_out=None):
+    """Full-sequence attention.  kind: global|local|bidir|cross; "cross"
+    takes q from ``x`` and k / v from ``enc_out`` (B, T, D), without RoPE,
+    and "bidir" has no RoPE either."""
     b, s, _ = x.shape
-    if positions is None:
-        positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    q, k, v = _qkv(p, x, cfg, kind in ("global", "local"), positions)
+    if kind == "cross":
+        q = _proj(x, p["wq"])
+        k, v = _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+    else:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        q, k, v = _qkv(p, x, cfg, kind in ("global", "local"), positions)
     out = _sdpa(q, k, v, cfg, kind)
     return _out_proj(out, p["wo"])
 
@@ -311,7 +323,8 @@ def _sdpa_decode(q, k, v, cfg: ModelConfig, kind: str, qpos, kpos,
     (B, T, Hkv, D); qpos: (B, S); kpos: (B, T), -1 for unwritten slots.
     "ref" materializes the mask ((B, T) at S=1, (B, S, T) otherwise);
     "flash" hands the positions to kernel B2.  Both mask non-causal and
-    unwritten slots."""
+    unwritten slots; kind "bidir" / "cross" (qpos and kpos None) admits
+    every key of the cache (B2's "full" mask)."""
     from ..runtime.attention import ATTN_DISPATCH_COUNTS, resolve_attn_backend
 
     name = resolve_attn_backend(backend)
@@ -344,8 +357,12 @@ def attention_decode(p, x, cache, pos, cfg: ModelConfig, kind: str,
     """Decode-step attention.  x: (B, S, D), S=1 for one token, S=k+1 for
     the verify pass (positions pos..pos+S-1); cache {"k","v"}: (B, T, Hkv,
     D) contiguous, or with ``block_table`` ((B, nblk) int) the paged pool
-    (NB, block_size, Hkv, D).  pos: (B,) int.  kind: global|local.  Writes
-    the new K/V into the cache IN PLACE and returns (out, cache).
+    (NB, block_size, Hkv, D).  pos: (B,) int.  kind: global|local|cross.
+    Writes the new K/V into the cache IN PLACE and returns (out, cache).
+
+    Cross: q from ``x`` against the cross cache's K/V, which the prefill
+    computed from the encoder output; the cache is only read, and every
+    key is admitted.
 
     Paged: each new row goes to pool block ``block_table[b, pos // bs]`` at
     offset ``pos % bs``; positions at or past the table's coverage are
@@ -358,8 +375,11 @@ def attention_decode(p, x, cache, pos, cfg: ModelConfig, kind: str,
     position comes from :func:`_window_positions`, and causal + validity
     over the ring is the whole window predicate, since the ring holds only
     the last ``window`` positions."""
-    if kind not in ("global", "local"):
-        raise not_ported(f"decode attention kind {kind!r}", A7C)
+    if kind == "cross":
+        q = _proj(x, p["wq"])
+        out = _sdpa_decode(q, cache["k"], cache["v"], cfg, "cross", None,
+                           None)
+        return _out_proj(out, p["wo"]), cache
     b, s = x.shape[:2]
     dev = x.device
     positions = pos.to(torch.int64)[:, None] + torch.arange(s, device=dev)
@@ -413,8 +433,6 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, kind: str,
                   *, device=None) -> dict:
     """One layer's contiguous KV cache, (B, T, Hkv, D): T = max_len, or the
     rolling window min(max_len, window) for "local" layers."""
-    if kind not in ("global", "local"):
-        raise not_ported(f"KV cache of kind {kind!r}", A7C)
     t = min(max_len, cfg.window_size) if kind == "local" else max_len
     shape = (batch, t, cfg.phys_kv_heads, cfg.head_dim)
     dt = torch_dtype(cfg)

@@ -1,21 +1,31 @@
-"""Model assembly for the decoder-only LM: embeddings, stack, head; the
-forward, prefill, decode, verify and paged-chunk entry points.
+"""Model assembly: embeddings, stacks, head; the forward, prefill, decode,
+verify and paged-chunk entry points.
 
-Port of ``repro.models.model`` for the decoder-only stacks (dense, sliding
-window, MoE, RG-LRU hybrid, Mamba-2).  Encoder (audio) and patch (vlm)
-prefixes raise
-``NotImplementedError`` (ROADMAP A7c).
+Port of ``repro.models.model``.  Families:
 
-  loss_fn: tokens / targets (B, S) -> mean next-token NLL (the train step's)
+  * dense / moe / ssm / hybrid: a decoder-only LM over tokens;
+  * audio (whisper): an encoder over STUB frame embeddings (the conv
+    frontend is out of scope; the batch supplies precomputed
+    ``"enc_embeds"`` (B, enc_seq, d_model)) plus sinusoidal positions,
+    and a decoder whose layers cross-attend to the encoder's output;
+  * vlm (pixtral): STUB patch embeddings ``"patch_embeds"`` (B,
+    num_patches, patch_embed_dim), projected and prepended to the tokens;
+    logits are returned for the token rows only.
 
-  prefill: tokens (B, S) -> (last-token logits (B, V), filled cache)
-  decode:  token (B,), pos (B,) + cache -> (logits (B, V), cache)
+  loss_fn: tokens / targets (B, S) (+ stub embeddings) -> mean next-token
+           NLL (the train step's)
+  prefill: tokens (B, S) (+ stub embeddings) -> (last-token logits (B, V),
+           filled cache)
+  decode:  token (B,), pos (B,) + cache -> (logits (B, V), cache); a vlm's
+           positions count its patch rows (the first token at
+           ``num_patches``)
 
 Caches are written in place and returned.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -44,30 +54,63 @@ __all__ = [
     "init_paged_cache",
     "prefill_chunk",
     "params_device",
+    "prefix_batch_key",
+    "tokens_only_refusal",
 ]
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.encoder_layers > 0 or cfg.family in ("audio", "vlm"):
-        raise L.not_ported(f"the {cfg.family} family", L.A7C)
+def prefix_batch_key(cfg: ModelConfig) -> str | None:
+    """The stub-embedding batch key that ``forward`` / ``prefill`` need
+    beside the tokens: "enc_embeds" for an encoder prefix, "patch_embeds"
+    for a patch prefix, None for a decoder-only model."""
+    if cfg.encoder_layers > 0 or cfg.family == "audio":
+        return "enc_embeds"
+    if cfg.family == "vlm":
+        return "patch_embeds"
+    return None
+
+
+def tokens_only_refusal(cfg: ModelConfig, who: str) -> str | None:
+    """Why ``who``, which feeds the model tokens alone, cannot run ``cfg``
+    (None where it can).  The reference's engine and training stream feed
+    tokens alone too, and raise ``KeyError`` on the missing key."""
+    key = prefix_batch_key(cfg)
+    if key is None:
+        return None
+    return (f"{cfg.name}: the {cfg.family} family needs {key!r} beside the "
+            f"tokens, and {who} supplies tokens alone (the reference raises "
+            f"KeyError: {key!r} there); drive models.model's prefill / "
+            "decode_step / loss_fn with the stub embeddings instead")
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, *,
                 device=None) -> dict:
     """Random weights on ``device`` (the card unless ``device="cpu"``),
     drawn from ``gen`` (a generator on that device)."""
-    _check_family(cfg)
     dev = resolve_device(device)
     dt = L.torch_dtype(cfg)
     p = {
         "embed": L._normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt, dev),
         "final_norm": L.init_rmsnorm(cfg.d_model, device=dev),
-        "decoder": init_stack(gen, cfg, device=dev),
+        "decoder": init_stack(gen, cfg, cross=cfg.encoder_layers > 0,
+                              device=dev),
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = L._normal(gen, (cfg.d_model, cfg.vocab_size), 0.02,
                                  dt, dev)
+    if cfg.encoder_layers > 0:
+        p["encoder"] = init_stack(gen, _encoder_cfg(cfg), device=dev)
+        p["enc_norm"] = L.init_rmsnorm(cfg.d_model, device=dev)
+    if cfg.family == "vlm":
+        p["patch_proj"] = L._normal(
+            gen, (cfg.patch_embed_dim, cfg.d_model),
+            1.0 / math.sqrt(cfg.patch_embed_dim), dt, dev)
     return p
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, num_layers=cfg.encoder_layers,
+                               attn_pattern=("bidir",), num_experts=0)
 
 
 def params_device(p: dict) -> torch.device:
@@ -93,16 +136,42 @@ def _positions(b: int, s: int, device, start=0):
     return (start + torch.arange(s, device=device))[None].expand(b, s)
 
 
-def forward(p, batch, cfg: ModelConfig):
-    """Logits (B, S, V) of a whole token batch {"tokens": (B, S)}."""
-    _check_family(cfg)
+def _encode(p, batch, cfg: ModelConfig):
+    """The encoder over the stub frame embeddings plus sinusoidal positions
+    (computed in f32, then cast), then ``enc_norm``: (B, enc_seq, D)."""
+    frames = batch["enc_embeds"].to(L.torch_dtype(cfg))
+    pos = L.sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                 device=frames.device).to(frames.dtype)
+    h = stack_forward(p["encoder"], frames + pos[None], _encoder_cfg(cfg))
+    return L.rmsnorm(p["enc_norm"], h, cfg.norm_eps)
+
+
+def _prepend_patches(p, h_tokens, batch, cfg: ModelConfig):
+    patches = batch["patch_embeds"].to(L.torch_dtype(cfg)) @ p["patch_proj"]
+    return torch.cat([patches, h_tokens], dim=1)
+
+
+def _embed_with_prefix(p, batch, cfg: ModelConfig):
+    """The decoder's input rows and the encoder output: (h (B, P + S, D),
+    enc_out or None, P), P the patch rows prepended (0 unless vlm)."""
     tokens = batch["tokens"]
-    b, s = tokens.shape
     h = _embed_tokens(p, tokens, cfg)
+    enc_out = _encode(p, batch, cfg) if cfg.encoder_layers > 0 else None
+    if cfg.family == "vlm":
+        h = _prepend_patches(p, h, batch, cfg)
+    return h, enc_out, h.shape[1] - tokens.shape[1]
+
+
+def forward(p, batch, cfg: ModelConfig):
+    """Logits (B, S, V) of a whole token batch {"tokens": (B, S)} (+ its
+    stub embeddings: :func:`prefix_batch_key`); a vlm's patch rows are
+    attended to but get no logits."""
+    h, enc_out, n_prefix = _embed_with_prefix(p, batch, cfg)
+    b, s = h.shape[:2]
     h = stack_forward(p["decoder"], h, cfg,
-                      positions=_positions(b, s, h.device))
+                      positions=_positions(b, s, h.device), enc_out=enc_out)
     h = L.rmsnorm(p["final_norm"], h, cfg.norm_eps)
-    return _lm_logits(p, h, cfg)
+    return _lm_logits(p, h[:, n_prefix:], cfg)
 
 
 def loss_fn(p, batch, cfg: ModelConfig):
@@ -121,8 +190,11 @@ def loss_fn(p, batch, cfg: ModelConfig):
 
 
 def init_cache(p, cfg: ModelConfig, batch: int, max_len: int):
-    _check_family(cfg)
-    return init_stack_cache(cfg, batch, max_len, device=params_device(p))
+    """Contiguous caches of ``max_len`` positions (a vlm's patch rows
+    count), and with an encoder the cross K/V of ``cfg.enc_seq`` rows."""
+    enc_len = cfg.enc_seq if cfg.encoder_layers > 0 else 0
+    return init_stack_cache(cfg, batch, max_len, enc_len=enc_len,
+                            device=params_device(p))
 
 
 @torch.no_grad()
@@ -131,19 +203,20 @@ def prefill(p, batch, cfg: ModelConfig, max_len: int, last_index=None):
 
     ``last_index``: optional (B,) index of the last REAL token per row (the
     engine pads prompts to power-of-two buckets and reads the first-token
-    logits at the true prompt end)."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    h = _embed_tokens(p, tokens, cfg)
+    logits at the true prompt end), counted in tokens: a vlm's patch rows
+    are added to it."""
+    h, enc_out, n_prefix = _embed_with_prefix(p, batch, cfg)
+    b, s = h.shape[:2]
     cache = init_cache(p, cfg, b, max_len)
     h, cache = stack_prefill(p["decoder"], cache, h, cfg,
-                             positions=_positions(b, s, h.device))
+                             positions=_positions(b, s, h.device),
+                             enc_out=enc_out)
     h = L.rmsnorm(p["final_norm"], h, cfg.norm_eps)
     if last_index is None:
         sel = h[:, -1:, :]
     else:
         idx = torch.as_tensor(last_index, device=h.device).to(torch.int64)
-        sel = h[torch.arange(b, device=h.device), idx][:, None]
+        sel = h[torch.arange(b, device=h.device), n_prefix + idx][:, None]
     return _lm_logits(p, sel, cfg)[:, 0], cache
 
 

@@ -1,6 +1,6 @@
-"""Decoder stack: stacked per-group params, forward, prefill and decode.
+"""Transformer stack: stacked per-group params, forward, prefill and decode.
 
-Port of ``repro.models.transformer`` for the decoder-only stacks.  Layers are
+Port of ``repro.models.transformer``.  Layers are
 organized into repeating blocks given by ``cfg.attn_pattern``; params and
 caches of each group are STACKED over repeats (leading dim), as in the
 reference, so converted trees load unchanged.  The reference's
@@ -8,11 +8,14 @@ reference, so converted trees load unchanged.  The reference's
 and cache are views into the stacked tensors, and the caches are written
 in place through those views.
 
-"global" and "local" (sliding-window) attention layers with a dense or MoE
-FFN, "rglru" (RG-LRU) layers with an FFN, and "ssm" (Mamba-2) layers
-without one.  A recurrent layer's decode state (``l{i}_rnn`` / ``l{i}_ssm``)
-is written in place like a KV cache.  Cross attention ("bidir" encoder
-layers) is refused (ROADMAP A7c).
+"global", "local" (sliding-window) and "bidir" (the encoder's) attention
+layers with a dense or MoE FFN, "rglru" (RG-LRU) layers with an FFN, and
+"ssm" (Mamba-2) layers without one.  A recurrent layer's decode state
+(``l{i}_rnn`` / ``l{i}_ssm``) is written in place like a KV cache.  A
+decoder stack built with ``cross`` has a cross-attention sublayer after
+each layer's mixer (``l{i}_xattn`` / ``l{i}_lnx``): q from the residual
+stream, k / v from the encoder output ``enc_out``.  Its K/V are written
+once, at prefill, into the ``l{i}_xkv`` cache leaves, which decode reads.
 
 With ``cfg.remat`` (the default) and grad enabled, each block of the
 full-sequence forward runs under ``torch.utils.checkpoint``, the
@@ -55,16 +58,14 @@ def layer_groups(cfg: ModelConfig):
     return groups
 
 
-_ATTN_KINDS = ("global", "local")
+_ATTN_KINDS = ("global", "local", "bidir")
 _KINDS = _ATTN_KINDS + ("rglru", "ssm")
 
 
 def _check_kinds(kinds) -> None:
     for kind in kinds:
-        if kind == "bidir":
-            raise L.not_ported(f"layer kind {kind!r}", L.A7C)
         if kind not in _KINDS:
-            raise ValueError(f"decoder layer kind {kind!r}")
+            raise ValueError(f"layer kind {kind!r}")
 
 
 def tree_layer(tree, r: int):
@@ -82,7 +83,7 @@ def stack_trees(trees: list):
     return torch.stack(trees)
 
 
-def _init_block(gen, cfg: ModelConfig, kinds, device) -> dict:
+def _init_block(gen, cfg: ModelConfig, kinds, cross: bool, device) -> dict:
     """One block = len(kinds) layers; params keyed l{i}_*."""
     p = {}
     for i, kind in enumerate(kinds):
@@ -93,6 +94,10 @@ def _init_block(gen, cfg: ModelConfig, kinds, device) -> dict:
         else:
             p[f"l{i}_attn"] = L.init_attention(gen, cfg, device=device)
         p[f"l{i}_ln1"] = L.init_rmsnorm(cfg.d_model, device=device)
+        if cross and kind != "ssm":
+            p[f"l{i}_xattn"] = L.init_attention(gen, cfg, cross=True,
+                                                device=device)
+            p[f"l{i}_lnx"] = L.init_rmsnorm(cfg.d_model, device=device)
         # an "ssm" layer has no FFN sublayer (nor its norms)
         ffn = kind != "ssm" and cfg.ffn_kind != "none"
         if ffn:
@@ -109,13 +114,15 @@ def _init_block(gen, cfg: ModelConfig, kinds, device) -> dict:
     return p
 
 
-def init_stack(gen, cfg: ModelConfig, *, device=None) -> list:
-    """Stacked params per group (leading dim = repeats)."""
+def init_stack(gen, cfg: ModelConfig, *, cross: bool = False,
+               device=None) -> list:
+    """Stacked params per group (leading dim = repeats); ``cross`` adds a
+    cross-attention sublayer to every layer but "ssm"."""
     groups = []
     for kinds, repeats in layer_groups(cfg):
         _check_kinds(kinds)
-        groups.append(stack_trees([_init_block(gen, cfg, kinds, device)
-                              for _ in range(repeats)]))
+        groups.append(stack_trees([_init_block(gen, cfg, kinds, cross, device)
+                                   for _ in range(repeats)]))
     return groups
 
 
@@ -135,6 +142,21 @@ def _ffn_sublayer(bp, x, cfg: ModelConfig, i: int):
 def _post_attn(bp, x, h, cfg: ModelConfig, i: int):
     if cfg.post_norms:
         h = L.rmsnorm(bp[f"l{i}_pn1"], h, cfg.norm_eps)
+    return x + h
+
+
+def _cross_sublayer(bp, x, cfg: ModelConfig, i: int, enc_out=None,
+                    xkv=None):
+    """Layer ``i``'s cross attention, where the block has one: over
+    ``enc_out``, or (decode) over the cross cache ``xkv``."""
+    if f"l{i}_xattn" not in bp:
+        return x
+    h = L.rmsnorm(bp[f"l{i}_lnx"], x, cfg.norm_eps)
+    if xkv is None:
+        h = L.attention(bp[f"l{i}_xattn"], h, cfg, "cross", enc_out=enc_out)
+    else:
+        h, _ = L.attention_decode(bp[f"l{i}_xattn"], h, xkv, None, cfg,
+                                  "cross")
     return x + h
 
 
@@ -172,7 +194,7 @@ def _recurrent(bp, h, cfg: ModelConfig, i: int, kind: str, cache=None,
     return h
 
 
-def _block_forward(bp, x, cfg: ModelConfig, kinds, positions):
+def _block_forward(bp, x, cfg: ModelConfig, kinds, positions, enc_out=None):
     for i, kind in enumerate(kinds):
         h = L.rmsnorm(bp[f"l{i}_ln1"], x, cfg.norm_eps)
         if kind in _ATTN_KINDS:
@@ -180,29 +202,35 @@ def _block_forward(bp, x, cfg: ModelConfig, kinds, positions):
         else:
             h = _recurrent(bp, h, cfg, i, kind)
         x = _post_attn(bp, x, h, cfg, i)
+        x = _cross_sublayer(bp, x, cfg, i, enc_out=enc_out)
         x = _ffn_sublayer(bp, x, cfg, i)
     return x
 
 
-def _remat_block(bp, x, cfg: ModelConfig, kinds, positions, attn_backend):
+def _remat_block(bp, x, cfg: ModelConfig, kinds, positions, attn_backend,
+                 enc_out):
     # the recomputation runs inside the backward pass, on the autograd
     # engine's thread for a CUDA tensor, where the caller's
     # use_attn_backend() scope is not set: pin the backend resolved at the
     # forward so both passes dispatch alike
     with use_attn_backend(attn_backend):
-        return _block_forward(bp, x, cfg, kinds, positions)
+        return _block_forward(bp, x, cfg, kinds, positions, enc_out)
 
 
-def stack_forward(groups, x, cfg: ModelConfig, positions=None):
+def stack_forward(groups, x, cfg: ModelConfig, positions=None, enc_out=None):
+    """The whole sequence through every layer; ``enc_out`` (B, T, D) is
+    what the cross-attention sublayers attend to.  Under remat it is an
+    explicit input of each block's checkpoint, so its gradient reaches the
+    encoder."""
     remat = cfg.remat and torch.is_grad_enabled()
     backend = resolve_attn_backend() if remat else None
     for bp, _, kinds in _each_layer(groups, None, cfg):
         if remat:
             x = checkpoint(_remat_block, bp, x, cfg, kinds, positions,
-                           backend, use_reentrant=False,
+                           backend, enc_out, use_reentrant=False,
                            preserve_rng_state=False)  # the block draws none
         else:
-            x = _block_forward(bp, x, cfg, kinds, positions)
+            x = _block_forward(bp, x, cfg, kinds, positions, enc_out)
     return x
 
 
@@ -212,24 +240,29 @@ def stack_forward(groups, x, cfg: ModelConfig, positions=None):
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-                     device=None) -> list:
+                     enc_len: int = 0, device=None) -> list:
     """Contiguous caches mirroring the groups: each l{i}_kv leaf is
     (repeats, B, T, Hkv, D); a recurrent layer's l{i}_rnn / l{i}_ssm
-    state leaves have the same leading (repeats, B)."""
+    state leaves have the same leading (repeats, B).  With ``enc_len`` > 0
+    every layer but "ssm" also has its cross-attention K/V, l{i}_xkv:
+    (repeats, B, enc_len, Hkv, D)."""
     def one(i, kind):
         if kind == "rglru":
-            return f"l{i}_rnn", L.init_rglru_state(cfg, batch, device=device)
-        if kind == "ssm":
-            return f"l{i}_ssm", L.init_mamba2_state(cfg, batch,
-                                                    device=device)
-        return f"l{i}_kv", L.init_kv_cache(cfg, batch, max_len, kind,
-                                           device=device)
+            yield f"l{i}_rnn", L.init_rglru_state(cfg, batch, device=device)
+        elif kind == "ssm":
+            yield f"l{i}_ssm", L.init_mamba2_state(cfg, batch, device=device)
+        else:
+            yield f"l{i}_kv", L.init_kv_cache(cfg, batch, max_len, kind,
+                                              device=device)
+        if enc_len > 0 and kind != "ssm":
+            yield f"l{i}_xkv", L.init_kv_cache(cfg, batch, enc_len, "cross",
+                                               device=device)
 
     caches = []
     for kinds, repeats in layer_groups(cfg):
         _check_kinds(kinds)
         caches.append(stack_trees([
-            dict(one(i, kind) for i, kind in enumerate(kinds))
+            dict(kv for i, kind in enumerate(kinds) for kv in one(i, kind))
             for _ in range(repeats)]))
     return caches
 
@@ -258,16 +291,20 @@ def init_stack_cache_paged(cfg: ModelConfig, num_blocks: int,
 
 
 def stack_decode(groups, caches, x, pos, cfg: ModelConfig, block_table=None):
+    """A decode (or verify) step; a cross-attention sublayer reads its
+    l{i}_xkv cache and leaves it as it is."""
     for bp, cache, kinds in _each_layer(groups, caches, cfg):
         for i, kind in enumerate(kinds):
             h = L.rmsnorm(bp[f"l{i}_ln1"], x, cfg.norm_eps)
             if kind in _ATTN_KINDS:
-                h, _ = L.attention_decode(bp[f"l{i}_attn"], h,
-                                          cache[f"l{i}_kv"], pos, cfg, kind,
-                                          block_table=block_table)
+                h, _ = L.attention_decode(
+                    bp[f"l{i}_attn"], h, cache[f"l{i}_kv"], pos, cfg,
+                    "local" if kind == "local" else "global",
+                    block_table=block_table)
             else:
                 h = _recurrent(bp, h, cfg, i, kind, cache, decode=True)
             x = _post_attn(bp, x, h, cfg, i)
+            x = _cross_sublayer(bp, x, cfg, i, xkv=cache.get(f"l{i}_xkv"))
             x = _ffn_sublayer(bp, x, cfg, i)
     return x, caches
 
@@ -277,13 +314,28 @@ def stack_decode(groups, caches, x, pos, cfg: ModelConfig, block_table=None):
 # ----------------------------------------------------------------------------
 
 
-def stack_prefill(groups, caches, x, cfg: ModelConfig, positions=None):
+def _prefill_cross(bp, x, cfg: ModelConfig, i: int, cache, enc_out):
+    """Layer ``i``'s cross sublayer at prefill: its K/V of ``enc_out``
+    written into the l{i}_xkv cache in place, and attended to."""
+    if f"l{i}_xattn" not in bp:
+        return x
+    xp, xkv = bp[f"l{i}_xattn"], cache[f"l{i}_xkv"]
+    for name in ("k", "v"):
+        xkv[name].copy_(L._proj(enc_out, xp[f"w{name}"]))
+    h = L.rmsnorm(bp[f"l{i}_lnx"], x, cfg.norm_eps)
+    h = L._sdpa(L._proj(h, xp["wq"]), xkv["k"], xkv["v"], cfg, "cross")
+    return x + L._out_proj(h, xp["wo"])
+
+
+def stack_prefill(groups, caches, x, cfg: ModelConfig, positions=None,
+                  enc_out=None):
     """Whole prompt; attention over the prompt's own K/V (T = S), which is
     also written into ``caches[:, :, :S]`` in place.  A rolling-window
     cache shorter than the prompt (T < S) keeps the last T positions,
     rolled by (S - T) % T so that slot = position % T.  A recurrent
     layer runs the whole prompt and keeps its state after the last
-    position."""
+    position.  A cross-attention sublayer writes its K/V of ``enc_out``
+    into its l{i}_xkv cache."""
     s = x.shape[1]
     for bp, cache, kinds in _each_layer(groups, caches, cfg):
         for i, kind in enumerate(kinds):
@@ -291,9 +343,11 @@ def stack_prefill(groups, caches, x, cfg: ModelConfig, positions=None):
             if kind not in _ATTN_KINDS:
                 h = _recurrent(bp, h, cfg, i, kind, cache)
                 x = _post_attn(bp, x, h, cfg, i)
+                x = _prefill_cross(bp, x, cfg, i, cache, enc_out)
                 x = _ffn_sublayer(bp, x, cfg, i)
                 continue
-            q, k, v = L._qkv(bp[f"l{i}_attn"], h, cfg, True, positions)
+            q, k, v = L._qkv(bp[f"l{i}_attn"], h, cfg, kind != "bidir",
+                             positions)
             kv = cache[f"l{i}_kv"]
             t = kv["k"].shape[1]
             for name, new in (("k", k), ("v", v)):
@@ -305,6 +359,7 @@ def stack_prefill(groups, caches, x, cfg: ModelConfig, positions=None):
             h = L._sdpa(q, k, v, cfg, kind)
             h = L._out_proj(h, bp[f"l{i}_attn"]["wo"])
             x = _post_attn(bp, x, h, cfg, i)
+            x = _prefill_cross(bp, x, cfg, i, cache, enc_out)
             x = _ffn_sublayer(bp, x, cfg, i)
     return x, caches
 

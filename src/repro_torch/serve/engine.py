@@ -38,7 +38,9 @@ decode and verify call runs under ``obs.profile_scope`` (``serve.prefill``,
 ``serve.prefill_chunk``, ``serve.decode_step``, ``serve.verify``): a
 ``torch.profiler`` range while annotations are on, nothing otherwise.
 
-Not ported yet: ``mesh=`` (ROADMAP A10).
+Not ported yet: ``mesh=`` (ROADMAP A10).  An audio or vlm model is
+refused: its prefill needs stub embeddings beside the tokens, which the
+engine does not carry (the reference's engine raises ``KeyError`` there).
 """
 
 from __future__ import annotations
@@ -151,6 +153,9 @@ class ServeEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh serving is not ported yet (ROADMAP A10)")
+        refusal = M.tokens_only_refusal(cfg, "the serving engine")
+        if refusal:
+            raise ValueError(refusal)
         self.device = resolve_device(device)
         params = _to_device(params, self.device)
         # the drafter refits from the FLOAT weights: keep them before the

@@ -98,8 +98,8 @@ class DraftSpec:
 
 def refit_kan_ffn_params_tree(params: dict, cfg: ModelConfig,
                               draft_cfg: ModelConfig) -> dict:
-    """Refit every KAN-FFN block of a FLOAT param tree onto the drafter's
-    (G, K) basis (``refit_layer_spec``).  Edge counts and the hidden width
+    """Refit every KAN-FFN block of a FLOAT param tree (decoder and encoder)
+    onto the drafter's (G, K) basis (``refit_layer_spec``).  Edge counts and the hidden width
     are unchanged (``draft_cfg`` must pin ``kan_d_hidden``); only the
     per-edge basis shrinks from G+K to G'+K' columns (f32, as the
     reference's).  Every other leaf is the target's own tensor."""
@@ -107,9 +107,6 @@ def refit_kan_ffn_params_tree(params: dict, cfg: ModelConfig,
     from ..models.layers import kan_ffn_spec
     from ..models.transformer import stack_trees, tree_layer
 
-    if "encoder" in params:
-        raise NotImplementedError(
-            "encoder stacks are not ported yet (ROADMAP A7c)")
     old_spec, new_spec = kan_ffn_spec(cfg), kan_ffn_spec(draft_cfg)
 
     def refit_ffn(ffn: dict) -> dict:
@@ -133,7 +130,9 @@ def refit_kan_ffn_params_tree(params: dict, cfg: ModelConfig,
         return out
 
     p = dict(params)
-    p["decoder"] = [refit_group(g) for g in p["decoder"]]
+    for stack_key in ("decoder", "encoder"):
+        if stack_key in p:
+            p[stack_key] = [refit_group(g) for g in p[stack_key]]
     return p
 
 

@@ -537,18 +537,29 @@ def test_train_cli_trains_a_moe_decoder_on_the_cpu(tmp_path):
 
 
 # ----------------------------------------------------------------------------
-# what stays refused, and its label
+# what stays refused: serving and training an audio / vlm model
 # ----------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch,item", [("whisper-base", "A7c"),
-                                       ("pixtral-12b", "A7c")])
-def test_refusals_cite_their_roadmap_items(arch, item):
+# the ids keep the names these cases had while the models themselves were
+# refused (ROADMAP A7c); the second value is now the batch key each needs
+@pytest.mark.parametrize("arch,key", [
+    pytest.param("whisper-base", "enc_embeds", id="whisper-base-A7c"),
+    pytest.param("pixtral-12b", "patch_embeds", id="pixtral-12b-A7c")])
+def test_refusals_cite_their_roadmap_items(arch, key, tmp_path):
+    """The model runs (``tests/test_torch_encdec.py``), but the engine, the
+    serve CLI and the train CLI feed tokens alone, where the reference
+    raises ``KeyError`` on the missing stub embeddings: each refuses with a
+    message naming that KeyError."""
     cfg = smoke_config(arch)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        M.init_params(gen, cfg, device="cpu")
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+    params = M.init_params(gen, cfg, device="cpu")
+    assert M.prefix_batch_key(cfg) == key
+    why = f"KeyError: '{key}'"
+    with pytest.raises(ValueError, match=why):
+        ServeEngine(params, cfg, device="cpu")
+    with pytest.raises(SystemExit, match=why):
         serve_cli.main(["--arch", arch, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        L.init_kv_cache(cfg, 1, 8, "cross")
+    with pytest.raises(SystemExit, match=why):
+        train_cli.main(["--arch", arch, "--smoke", "--steps", "1",
+                        "--device", "cpu", "--ckpt-dir", str(tmp_path)])

@@ -38,7 +38,14 @@ recurrentgemma's kan_variant() halves (4096 / 1152), B2 at its D = 256
 local layer (16 query heads over one KV head) at a 2300-token prefill and
 over wrapped 2048-slot rings, and one full-width RG-LRU layer and Mamba-2
 block against the CPU (outputs within 4 bf16 ulps of max|out|, conv
-states within one of max|conv|, f32 states within 2 of max|state|).  LM training
+states within one of max|conv|, f32 states within 2 of max|state|).  The
+encoder and patch prefixes: B1 at whisper-base's and pixtral-12b's
+kan_variant() halves (512 / 256, 5120 / 1408), B2 at whisper's encoder
+("full", 4 x 1500 frames), cross prefill and cross decode over 1500 keys,
+pixtral's 1256-row causal prefill and "full" with more queries than keys,
+and one full-width whisper encoder layer and cross-attention decoder layer
+against the CPU (outputs within 4 bf16 ulps, cross K/V within one, and
+left bit-equal by decode).  LM training
 (``repro_torch.train.cardcheck``): the float KAN-FFN's custom backward at
 the full-width halves against autograd of the plain forward, three train
 steps on the card equal to the CPU's within 1e-5 (and B1 / B2 never
@@ -194,6 +201,31 @@ def test_recurrent_layer_on_the_card_matches_the_cpu(dev, arch, kind):
     from repro_torch.models.cardcheck import check_recurrent_layer
 
     check_recurrent_layer(dev, get_config(arch), kind, tokens=1000, steps=4)
+
+
+@pytest.mark.parametrize("grid,f,o,flags,rows",
+                         cc.B1_FFN_WHISPER + cc.B1_FFN_PIXTRAL)
+def test_b1_kernel_matches_plain_at_whisper_and_pixtral_ffn(dev, grid, f, o,
+                                                           flags, rows):
+    gen = torch.Generator(device=dev).manual_seed(f + rows + 3)
+    cc.check_b1(dev, gen, grid, f, o, flags, rows, eps=cc.FFN_FULL_TIE_EPS)
+
+
+@pytest.mark.parametrize("name,case", ac.B2_A7C)
+def test_b2_kernel_matches_plain_at_encoder_cross_and_patch_shapes(dev, name,
+                                                                    case):
+    gen = torch.Generator(device=dev).manual_seed(80)
+    st = ac.check_b2(dev, gen, **case)
+    if name == "whisper_cross_decode":
+        assert st["kv_splits"] > 1
+
+
+def test_encoder_and_cross_decoder_layers_on_the_card_match_the_cpu(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models.cardcheck import check_encdec_layers
+
+    st = check_encdec_layers(dev, get_config("whisper-base"))
+    assert st["xkv_unchanged"]
 
 
 def test_b2_wrapper_raises_instead_of_falling_back(dev):
