@@ -12,7 +12,8 @@ Phases (any failure exits non-zero):
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (seconds, ptxas)
      and, where the toolkit has ``cuobjdump``, count the tensor-core
      instructions (HMMA/HGMMA) of each kernel in the library's SASS (B2's
-     bf16 instance must have some);
+     bf16 instance must have some); ptxas must report no spill for B2's
+     D = 256 tensor-core instance (``flash_kernel_mma<256>``);
   3. each kernel against its plain PyTorch version on the card
      (``repro_torch.kernels.kan_spline.cardcheck``): B1 in every flag
      combination at the KAN1 / KAN2 / FFN layer geometries (packed and
@@ -25,7 +26,9 @@ Phases (any failure exits non-zero):
      attention, ``repro_torch.kernels.attention.cardcheck``) in f32 and bf16
      x kinds x GQA groups x head dims at odd lengths with fully masked rows,
      and its bf16 tensor-core instance with the KV axis split (decode,
-     verify at S = 3 and 5, a masked split, rows masked in every split);
+     verify at S = 3 and 5, a masked split, rows masked in every split;
+     recurrentgemma's D = 256 decode over 2048 and a ragged 2047 keys and
+     a local window that masks most splits);
      B4 (the
      ACIM MAC, ``repro_torch.kernels.cim_mac.cardcheck``) on the reference's
      cases and ragged shapes under the reference's ADC contract, its
@@ -139,10 +142,11 @@ Phases (any failure exits non-zero):
  11. the recurrent decoders at their published widths, bf16, random
      weights from a seed: B1 at recurrentgemma's kan_variant() FFN halves
      (4096 -> 1152 -> 4096, 8 and 4096 rows), B2 at its local layer (16
-     query heads over one KV head, D = 256: the CUDA-core instance) at a
-     2300-token prefill past the 2048-key window and at decode over
-     wrapped 2048-slot rings, each against its plain version and timed
-     beside SDPA; one full-width RG-LRU layer and one Mamba-2 block card
+     query heads over one KV head, D = 256: the tensor-core instance, its
+     KV axis split at decode) at a 2300-token prefill past the 2048-key
+     window and at decode over wrapped 2048-slot rings, each against its
+     plain version and timed beside SDPA, the instance and splits
+     recorded; one full-width RG-LRU layer and one Mamba-2 block card
      against CPU (a 1000-token prefill, then 4 decode steps); then
      recurrentgemma-9b kan_variant() (8 layers: 2 x (rglru, rglru, local)
      + (rglru, rglru)) served contiguous (4 slots, max_len 2432, prompts
@@ -364,6 +368,16 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
+def require_no_spill(summary: list, name: str) -> str:
+    """``name``'s line of :func:`ptxas_summary`; raises unless ptxas
+    reported 0 bytes of spill stores and loads for it."""
+    lines = [ln for ln in summary if ln.startswith(name + ":")]
+    require(len(lines) == 1, f"ptxas: no single line for {name}: {lines}")
+    require("0 bytes spill stores, 0 bytes spill loads" in lines[0],
+            f"ptxas: {name} spills: {lines[0]}")
+    return lines[0]
+
+
 def sass_mma_counts(lib_path: str) -> dict | None:
     """Tensor-core instructions (HMMA, HGMMA) per kernel in the built
     library's SASS, from ``cuobjdump -sass``; None where the toolkit has no
@@ -471,7 +485,8 @@ def phase_kernels(dev, report) -> dict:
           f"geometry, softcap and D=32) and {len(split_cases)} with the KV "
           f"axis split ({[c['kv_splits'] for c in split_cases]} splits: "
           f"decode T=1023/4096, verify S=3/5, a masked split, local, full "
-          f"D=64), fully masked rows exact 0; max |err| "
+          f"D=64; D=256 decode T=2048/2047, local), fully masked rows "
+          f"exact 0; max |err| "
           f"{b2_err:.3e}, worst err / tol {b2_ratio:.3f} (f32 tol "
           f"{ac.F32_TOL} + rel, bf16 + one bf16 ulp)")
 
@@ -2126,15 +2141,17 @@ def b2_time_row(name: str, st: dict, q, k, v, qpos, kpos, kind: str,
            "plain_ms": plain, "library_ms": lib, "library_warm_ms": lib_warm,
            "bound_ms": b_ms, "bound_by": by, **st}
     na = "n/a"
-    print(f"  {name} B={b} S={s} T={t} Hq/Hkv={hq}/{k.shape[2]} | "
-          f"{st['kv_splits']} | {cold:.4f} | {warm:.4f} | {ms:.4f} | "
+    print(f"  {name} B={b} S={s} T={t} Hq/Hkv={hq}/{k.shape[2]} D={d} | "
+          f"{st['instance']} | {st['kv_splits']} | {cold:.4f} | {warm:.4f} "
+          f"| {ms:.4f} | "
           f"{plain:.4f} | {na if lib is None else f'{lib:.4f}'} | "
           f"{na if lib_warm is None else f'{lib_warm:.4f}'} | {b_ms:.4f} "
           f"({by}) | {st['max_abs_err']:.3e} | {st['max_err_over_tol']:.3f}")
     return row
 
 
-B2_TIME_HEADER = ("shape | KV splits | kernel ms L2-cold | warm (graph) | "
+B2_TIME_HEADER = ("shape | instance | KV splits | kernel ms L2-cold | "
+                  "warm (graph) | "
                   "back-to-back events | plain ms | sdpa ms L2-cold | warm "
                   "(graph) | bound ms (by) | max |err| | err / tol")
 B1_TIME_HEADER = ("G half rows | feature splits | kernel ms L2-cold | warm "
@@ -3384,11 +3401,13 @@ def a7b_kernel_checks(dev, report) -> dict:
 
     b2_rows, b2_err = [], 0.0
     print("B2 vs plain at recurrentgemma's local layer (bf16, D=256, 16 / 1 "
-          "heads: the CUDA-core instance), then timed: " + B2_TIME_HEADER)
+          "heads: the tensor-core instance), then timed: " + B2_TIME_HEADER)
     for case in ac.B2_A7B:
         st, ops = ac.check_b2_case(dev, gen, **case)
         require(st["window_excluded"] > 0,
                 f"B2 {case}: the window excludes no key")
+        require(st["instance"] == "mma",
+                f"B2 {case}: the {st['instance']} instance ran")
         row = b2_time_row(f"prefill_local_g{case['hq'] // case['hkv']}_d"
                           f"{case['d']}", st, *ops, "local", case["window"])
         row["window_excluded"] = st["window_excluded"]
@@ -3397,6 +3416,9 @@ def a7b_kernel_checks(dev, report) -> dict:
         del ops
     for name, hq, hkv, cap, d, window in ac.B2_RING_A7B:
         st = ac.check_b2_ring(dev, name, hq, hkv, cap, d=d, window=window)
+        require(st["instance"] == "mma" and st["kv_splits"] > 1,
+                f"B2 {name}: {st['instance']} instance, "
+                f"{st['kv_splits']} KV splits")
         row = b2_time_row(name, st, *ac.ring_inputs(dev, hq, hkv,
                                                     window=window, d=d),
                           "causal", 0, cap)
@@ -3948,6 +3970,9 @@ def main() -> int:
           f" {len(summary)} kernel instances from {info['sources']}")
     for ln in summary:
         print(f"  ptxas: {ln}")
+    # B2's D = 256 tensor-core instance: 128 f32 output registers a thread
+    print("B2 flash_kernel_mma<256> (ptxas): "
+          + require_no_spill(summary, "flash_kernel_mma<Li256E>"))
     mma = sass_mma_counts(info["path"])
     if mma is None:
         print("SASS: no cuobjdump in this toolkit; tensor-core count not read")
@@ -4036,7 +4061,8 @@ def main() -> int:
             row["event_ms"] = t.get("event_ms")
         if k == "flash_attention":
             row["shapes"] = [{key: r[key] for key in (
-                "shape", "B", "S", "T", "kv_splits", "ms", "cold_ms",
+                "shape", "B", "S", "T", "instance", "kv_splits", "ms",
+                "cold_ms",
                 "warm_ms", "event_ms", "plain_ms", "library_ms",
                 "library_warm_ms", "bound_ms", "bound_by", "max_abs_err")}
                 for r in t["shapes"]]

@@ -23,59 +23,76 @@
 // and the causal mask is taken per row from that row's query position.
 // Two instances:
 //
-//  * bf16 operands at D = 64 or 128 (the serving path) run on the tensor
-//    cores (flash_kernel_mma).  A block owns 64 rows: 4 warps of 16.  K/V
-//    tiles of 64 keys are staged with cp.async, double-buffered, rows
-//    padded by 16 bytes so ldmatrix reads hit distinct banks.  S = Q.K^T is
-//    mma.sync.m16n8k16 bf16 -> f32 (ldmatrix fragments; V through
-//    ldmatrix.trans); scale, softcap, mask and the online softmax run in
-//    f32 on the accumulator fragments (in the log2 domain, exp2f), with
-//    quad shuffles for the row max and a per-thread partial of the row
-//    sum.  A tile whose every key is admitted for every row of the block
-//    (the interior of a causal prefill) skips the mask.  P.V keeps P at f32
-//    precision: each probability is split into hi = bf16(p) and
-//    lo = bf16(p - hi), and P.V = hi.V + lo.V is two bf16 MMAs into f32.
-//    Rounding P to bf16 alone (as FlashAttention and SDPA do) puts about
-//    2^-9 * sum(p |v|) into every output, several bf16 ulps of an output
-//    near zero at T ~ 1000; the hi/lo split leaves about 2^-17, so the
-//    kernel holds the card check's one-ulp bf16 gate.  The denominator is
-//    summed from the f32 p.
-//  * f32 operands (and bf16 at other head dims) keep the CUDA-core kernel
+//  * bf16 operands at D = 64, 128 or 256 (every bf16 call of the serving
+//    paths) run on the tensor cores (flash_kernel_mma).  A block owns 64
+//    rows: 4 warps of 16.  K/V tiles of 64 keys (32 at D = 256, below) are
+//    staged with cp.async, double-buffered, rows padded by 16 bytes so
+//    ldmatrix reads hit distinct banks.  S = Q.K^T is mma.sync.m16n8k16
+//    bf16 -> f32 (ldmatrix fragments; V through ldmatrix.trans); scale,
+//    softcap, mask and the online softmax run in f32 on the accumulator
+//    fragments (in the log2 domain, exp2f), with quad shuffles for the row
+//    max and a per-thread partial of the row sum.  A tile whose every key
+//    is admitted for every row of the block (the interior of a causal
+//    prefill) skips the mask.  P.V keeps P at f32 precision: each
+//    probability is split into hi = bf16(p) and lo = bf16(p - hi), and
+//    P.V = hi.V + lo.V is two bf16 MMAs into f32.  Rounding P to bf16
+//    alone (as FlashAttention and SDPA do) puts about 2^-9 * sum(p |v|)
+//    into every output, several bf16 ulps of an output near zero at
+//    T ~ 1000; the hi/lo split leaves about 2^-17, so the kernel holds the
+//    card check's one-ulp bf16 gate.  The denominator is summed from the
+//    f32 p.  A warp whose 16 rows all lie past S*G (a decode block at
+//    G = 16 has one live warp of four) still stages tiles and votes, but
+//    skips its MMAs and softmax.
+//
+//    At D = 256 (recurrentgemma's local layers, G = 16) a warp's 16 x 256
+//    f32 output fragments are 128 registers a thread; a 64-key score tile
+//    would add 32 more, so the instance takes 32-key tiles (16).  That
+//    also halves the staged K/V: Q 33.8 KB + 2 stages of K and V 67.6 KB,
+//    about 101.9 KB, so two blocks (8 warps) share an SM, where 64-key
+//    tiles (169.7 KB) would leave one.  ptxas must report no spill for
+//    flash_kernel_mma<256> (chip_smoke.py checks it).
+//  * f32 operands (and bf16 at D = 16 / 32) keep the CUDA-core kernel
 //    (flash_kernel): TF32 is off by rule, so f32 has no exact tensor-core
 //    path.  One block owns 16 rows; a warp owns four; in a 32-key tile each
 //    lane scores one key (float4 reads of the staged rows), the warp reduces
 //    max and sum by shuffles, and P goes through shared memory to P.V.
 //
 // Split KV axis.  When B * Hkv * ceil(S*G/64) blocks leave the card
-// under-filled (decode: 4 * 8 * 1 = 32 blocks on 132 SMs; verify, S = k+1)
-// the wrapper picks a split count from the call's shapes alone (never from
-// the data) and the tensor-core kernel splits the KV tiles over blocks.
+// under-filled (decode: 4 * 8 * 1 = 32 blocks on 132 SMs; verify, S = k+1;
+// recurrentgemma's decode: 4 * 1 * 1 = 4) the wrapper picks a split count
+// from the call's shapes alone (never from the data) and the tensor-core
+// kernel splits the KV tiles over blocks.
 // Each split writes its unnormalised (m, l, acc) to a workspace the wrapper
 // allocates; flash_kernel_combine then merges the splits of each row in
 // split order (deterministic): M = max m_s, w_s = exp(m_s - M) where
 // l_s > 0 and 0 where it is not, out = sum w_s acc_s / sum w_s l_s, or
 // exact zeros when no split admitted a key.  A split whose tiles are all
-// masked writes m = -1e30, l = 0 and contributes nothing.
+// masked writes m = -1e30, l = 0 and contributes nothing.  The splits cut
+// at whole tiles of the instance (ref.py::mma_block_k mirrors kKeys).
 //
 // Both kernels skip a tile that is masked for every row of the block (keys
-// past the causal frontier, unwritten paged slots) before loading it; that
-// is exact, because a fully masked tile leaves m, l and the accumulator as
-// they were.  The ragged edges (T not a multiple of the tile, S*G not a
-// multiple of the block's rows) are masked in the kernel; staged K/V rows
-// past T are zero-filled, so nothing is padded.
+// past the causal frontier or outside the window, unwritten paged slots)
+// before loading it; that is exact, because a fully masked tile leaves m, l
+// and the accumulator as they were.  The ragged edges (T not a multiple of
+// the tile, S*G not a multiple of the block's rows) are masked in the
+// kernel; staged K/V rows past T are zero-filled, so nothing is padded.
 //
 // What bounds it.  Per admitted (query, key) pair the work is 4*D FLOPs per
 // query head (score and P.V); the bytes are q, k, v and out once.  At the
 // serving path's shapes (PERF.md) decode (4 x 1 x 1024) is bound by bytes,
 // 0.0050 ms; causal prefill (1000 x 1000) by operations, 0.0124 ms at the
 // bf16 tensor-core peak; the paged chunk (256 over a 1024-key view) by
-// operations, 0.0041 ms.  The hi/lo split adds a third to the MMAs.  Not
-// yet used: wgmma, TMA and a persistent schedule.
+// operations, 0.0041 ms; recurrentgemma's windowed prefill (2300 x 2300,
+// D = 256, window 2048) by operations, 0.0433 ms, and its ring decode
+// (4 x 1 x 2048) by bytes, 0.0025 ms.  The hi/lo split adds a third to the
+// MMAs.  Not yet used: wgmma, TMA and a persistent schedule.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -308,16 +325,18 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kTcWarps = 4;
 constexpr int kTcRows = 16 * kTcWarps;  // (query, group) rows per block
-constexpr int kTcKeys = 64;             // keys per KV tile
 
 template <int D>
 struct TcShape {
+  // keys per KV tile: 64, or 32 at D = 256 (registers and shared memory,
+  // see the header); ref.py::mma_block_k gives the same
+  static constexpr int kKeys = D > 128 ? 32 : 64;
   static constexpr int kLd = D + 8;  // bf16 per staged row: 16 B of padding
   static constexpr int kQ = kTcRows * kLd;
-  static constexpr int kKV = kTcKeys * kLd;
+  static constexpr int kKV = kKeys * kLd;
   static constexpr size_t kBytes =
       sizeof(bf16) * (size_t)(kQ + 4 * kKV) +
-      sizeof(int) * (size_t)(2 * kTcKeys + kTcRows);
+      sizeof(int) * (size_t)(2 * kKeys + kTcRows);
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -392,15 +411,16 @@ __global__ void __launch_bounds__(kTcWarps * 32)
     flash_kernel_mma(Args a) {
   using Sh = TcShape<D>;
   constexpr int kLd = Sh::kLd;
+  constexpr int kKeys = Sh::kKeys;
   constexpr int kChunks = D / 8;     // 16-byte chunks of one staged row
-  constexpr int kNT = kTcKeys / 8;   // 8-key score tiles of a warp's rows
+  constexpr int kNT = kKeys / 8;     // 8-key score tiles of a warp's rows
   constexpr int kDT = D / 8;         // 8-dim output tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // (kTcRows, kLd)
-  bf16* k_s = q_s + Sh::kQ;                        // 2 x (kTcKeys, kLd)
-  bf16* v_s = k_s + 2 * Sh::kKV;                   // 2 x (kTcKeys, kLd)
-  int* kp_s = reinterpret_cast<int*>(v_s + 2 * Sh::kKV);  // 2 x kTcKeys
-  int* qp_s = kp_s + 2 * kTcKeys;                          // kTcRows
+  bf16* k_s = q_s + Sh::kQ;                        // 2 x (kKeys, kLd)
+  bf16* v_s = k_s + 2 * Sh::kKV;                   // 2 x (kKeys, kLd)
+  int* kp_s = reinterpret_cast<int*>(v_s + 2 * Sh::kKV);  // 2 x kKeys
+  int* qp_s = kp_s + 2 * kKeys;                            // kTcRows
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int split = blockIdx.z % a.splits, b = blockIdx.z / a.splits;
@@ -433,13 +453,13 @@ __global__ void __launch_bounds__(kTcWarps * 32)
   }
 
   // this split's KV tiles
-  const int n_tiles = (a.T + kTcKeys - 1) / kTcKeys;
+  const int n_tiles = (a.T + kKeys - 1) / kKeys;
   const int per = (n_tiles + a.splits - 1) / a.splits;
   const int t_begin = min(n_tiles, split * per);
   const int t_end = min(n_tiles, t_begin + per);
 
   // the next tile at or after `tile` admitted for some row of the block
-  // (a superset test, as in flash_kernel); threads < kTcKeys keep its key
+  // (a superset test, as in flash_kernel); threads < kKeys keep its key
   // positions in `kp`, and `full` says whether every key of it is admitted
   // for every row of the block (then the tile needs no mask).  Every thread
   // takes part (block-wide votes).
@@ -447,8 +467,8 @@ __global__ void __launch_bounds__(kTcWarps * 32)
     for (; tile < t_end; ++tile) {
       int any = 0, all = 1;
       kp = -1;
-      if (tid < kTcKeys) {
-        const int t = tile * kTcKeys + tid;
+      if (tid < kKeys) {
+        const int t = tile * kKeys + tid;
         kp = t < a.T ? a.kpos[(long long)b * a.T + t] : -1;
         any = kp >= 0 && (a.kind == kFullMask ||
                           (kp <= qmax && (a.kind != kLocal || a.window <= 0 ||
@@ -467,19 +487,20 @@ __global__ void __launch_bounds__(kTcWarps * 32)
   auto load_tile = [&](int tile, int st, int kp) {
     bf16* ks = k_s + st * Sh::kKV;
     bf16* vs = v_s + st * Sh::kKV;
-    for (int i = tid; i < kTcKeys * kChunks; i += blockDim.x) {
-      const int j = i / kChunks, c = i % kChunks, t = tile * kTcKeys + j;
+    for (int i = tid; i < kKeys * kChunks; i += blockDim.x) {
+      const int j = i / kChunks, c = i % kChunks, t = tile * kKeys + j;
       const long long off =
           t < a.T ? (((long long)b * a.T + t) * a.Hkv + h) * D + c * 8 : 0;
       cp_async16(ks + j * kLd + c * 8, k + off, t < a.T);
       cp_async16(vs + j * kLd + c * 8, v + off, t < a.T);
     }
-    if (tid < kTcKeys) kp_s[st * kTcKeys + tid] = kp;
+    if (tid < kKeys) kp_s[st * kKeys + tid] = kp;
   };
 
   // this thread's fragment rows: local rows lr and lr + 8 of its warp
   const int lr = warp * 16 + (lane >> 2);
   const bool live[2] = {row0 + lr < n_rows, row0 + lr + 8 < n_rows};
+  const bool warp_live = row0 + warp * 16 < n_rows;
   const int qp[2] = {qp_s[lr], qp_s[lr + 8]};
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float o[kDT][4];
@@ -504,108 +525,113 @@ __global__ void __launch_bounds__(kTcWarps * 32)
     __syncthreads();
     const bf16* ks = k_s + st * Sh::kKV;
     const bf16* vs = v_s + st * Sh::kKV;
-    const int* kps = kp_s + st * kTcKeys;
+    const int* kps = kp_s + st * kKeys;
 
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[kNT][4];
+    // a warp with no live row skips the math (its rows are never stored)
+    if (warp_live) {
+      // S = Q K^T for this warp's 16 rows x kKeys keys
+      float s[kNT][4];
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int j = 0; j < kNT; ++j)
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t af[4];
-      ldsm_x4(af, q_s + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd
-                      + kk * 16 + (lane >> 4) * 8);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t af[4];
+        ldsm_x4(af, q_s + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd
+                        + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
-      for (int j = 0; j < kNT; j += 2) {
-        uint32_t bf[4];
-        ldsm_x4(bf, ks + (j * 8 + (lane & 7) + (lane >> 4) * 8) * kLd
-                        + kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[j], af, bf[0], bf[1]);
-        mma_bf16(s[j + 1], af, bf[2], bf[3]);
+        for (int j = 0; j < kNT; j += 2) {
+          uint32_t bf[4];
+          ldsm_x4(bf, ks + (j * 8 + (lane & 7) + (lane >> 4) * 8) * kLd
+                          + kk * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16(s[j], af, bf[0], bf[1]);
+          mma_bf16(s[j + 1], af, bf[2], bf[3]);
+        }
       }
-    }
 
-    // scale, softcap, mask (element e: row half e >> 1, key j*8 + 2*(lane&3)
-    // + (e&1)), then the online softmax per row half, in the log2 domain.
-    // A tile admitted for every row of the block skips the mask; rows past
-    // S*G then score zero-filled queries and are never stored.
-    uint32_t ok_bits = 0xffffffffu;
-    if (!full) {
-      ok_bits = 0;
+      // scale, softcap, mask (element e: row half e >> 1, key j*8 + 2*(lane&3)
+      // + (e&1)), then the online softmax per row half, in the log2 domain.
+      // A tile admitted for every row of the block skips the mask; rows past
+      // S*G then score zero-filled queries and are never stored.
+      uint32_t ok_bits = 0xffffffffu;
+      if (!full) {
+        ok_bits = 0;
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const int2 kp2 =
+              *reinterpret_cast<const int2*>(kps + j * 8 + (lane & 3) * 2);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int rh = e >> 1;
+            const int kpe = (e & 1) ? kp2.y : kp2.x;
+            const bool ok =
+                live[rh] && admitted(a.kind, a.window, kpe, qp[rh]);
+            ok_bits |= (uint32_t)ok << (j * 4 + e);
+          }
+        }
+      }
+      float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
-        const int2 kp2 =
-            *reinterpret_cast<const int2*>(kps + j * 8 + (lane & 3) * 2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x;
+          if (a.softcap > 0.f)
+            x = tanhf(s[j][e] * a.scale / a.softcap) * a.softcap * kLog2e;
+          else
+            x = s[j][e] * scale2;
+          x = (ok_bits >> (j * 4 + e)) & 1u ? x : kNegInf;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const float m_new = fmaxf(m[rh], quad_max(mx[rh]));
+        alpha[rh] = exp2f(m[rh] - m_new);
+        m[rh] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int rh = e >> 1;
-          const bool ok = live[rh] && admitted(a.kind, a.window,
-                                               (e & 1) ? kp2.y : kp2.x, qp[rh]);
-          ok_bits |= (uint32_t)ok << (j * 4 + e);
+          // masked lanes exactly 0, never exp(-1e30 - m)
+          const float p = (ok_bits >> (j * 4 + e)) & 1u
+                              ? exp2f(s[j][e] - m[rh]) : 0.f;
+          s[j][e] = p;
+          sum[rh] += p;
         }
       }
-    }
-    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
+      for (int rh = 0; rh < 2; ++rh) l[rh] = l[rh] * alpha[rh] + sum[rh];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x;
-        if (a.softcap > 0.f)
-          x = tanhf(s[j][e] * a.scale / a.softcap) * a.softcap * kLog2e;
-        else
-          x = s[j][e] * scale2;
-        x = (ok_bits >> (j * 4 + e)) & 1u ? x : kNegInf;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      for (int dt = 0; dt < kDT; ++dt) {
+        o[dt][0] *= alpha[0];
+        o[dt][1] *= alpha[0];
+        o[dt][2] *= alpha[1];
+        o[dt][3] *= alpha[1];
       }
-    }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int rh = 0; rh < 2; ++rh) {
-      const float m_new = fmaxf(m[rh], quad_max(mx[rh]));
-      alpha[rh] = exp2f(m[rh] - m_new);
-      m[rh] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rh = e >> 1;
-        // masked lanes exactly 0, never exp(-1e30 - m)
-        const float p = (ok_bits >> (j * 4 + e)) & 1u
-                            ? exp2f(s[j][e] - m[rh]) : 0.f;
-        s[j][e] = p;
-        sum[rh] += p;
-      }
-    }
-#pragma unroll
-    for (int rh = 0; rh < 2; ++rh) l[rh] = l[rh] * alpha[rh] + sum[rh];
-#pragma unroll
-    for (int dt = 0; dt < kDT; ++dt) {
-      o[dt][0] *= alpha[0];
-      o[dt][1] *= alpha[0];
-      o[dt][2] *= alpha[1];
-      o[dt][3] *= alpha[1];
-    }
 
-    // O += P V with P = hi + lo, two bf16 MMAs per fragment
+      // O += P V with P = hi + lo, two bf16 MMAs per fragment
 #pragma unroll
-    for (int j2 = 0; j2 < kTcKeys / 16; ++j2) {
-      uint32_t hi[4], lo[4];
-      split_hi_lo(s[2 * j2][0], s[2 * j2][1], hi[0], lo[0]);
-      split_hi_lo(s[2 * j2][2], s[2 * j2][3], hi[1], lo[1]);
-      split_hi_lo(s[2 * j2 + 1][0], s[2 * j2 + 1][1], hi[2], lo[2]);
-      split_hi_lo(s[2 * j2 + 1][2], s[2 * j2 + 1][3], hi[3], lo[3]);
+      for (int j2 = 0; j2 < kKeys / 16; ++j2) {
+        uint32_t hi[4], lo[4];
+        split_hi_lo(s[2 * j2][0], s[2 * j2][1], hi[0], lo[0]);
+        split_hi_lo(s[2 * j2][2], s[2 * j2][3], hi[1], lo[1]);
+        split_hi_lo(s[2 * j2 + 1][0], s[2 * j2 + 1][1], hi[2], lo[2]);
+        split_hi_lo(s[2 * j2 + 1][2], s[2 * j2 + 1][3], hi[3], lo[3]);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bf[4];
-        ldsm_x4_t(bf, vs + (j2 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd
-                          + dp * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * dp], hi, bf[0], bf[1]);
-        mma_bf16(o[2 * dp], lo, bf[0], bf[1]);
-        mma_bf16(o[2 * dp + 1], hi, bf[2], bf[3]);
-        mma_bf16(o[2 * dp + 1], lo, bf[2], bf[3]);
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t bf[4];
+          ldsm_x4_t(bf, vs + (j2 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8)
+                                 * kLd + dp * 16 + (lane >> 4) * 8);
+          mma_bf16(o[2 * dp], hi, bf[0], bf[1]);
+          mma_bf16(o[2 * dp], lo, bf[0], bf[1]);
+          mma_bf16(o[2 * dp + 1], hi, bf[2], bf[3]);
+          mma_bf16(o[2 * dp + 1], lo, bf[2], bf[3]);
+        }
       }
     }
     __syncthreads();  // this stage's reads are done before it is refilled
@@ -651,8 +677,9 @@ __global__ void __launch_bounds__(kTcWarps * 32)
 }
 
 // Merge the KV splits of each (b, h, row) in split order; one thread per
-// output dim.  m is in the log2 domain, as flash_kernel_mma keeps it.  A split with l = 0 (every key masked) gets weight 0 even
-// when its m equals the maximum (both -1e30).
+// output dim.  m is in the log2 domain, as flash_kernel_mma keeps it.  A
+// split with l = 0 (every key masked) gets weight 0 even when its m equals
+// the maximum (both -1e30).
 template <int D>
 __global__ void __launch_bounds__(D) flash_kernel_combine(Args a) {
   const int row = blockIdx.x, h = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
@@ -712,17 +739,23 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// the CUDA-core instance: f32 at every head dim, bf16 at D = 16 and 32
+// (bf16 at 64 / 128 / 256 goes to launch_mma and never reaches it)
 template <typename T>
 int dispatch(const Args& a, int d, cudaStream_t stream) {
   if (a.splits != 1) return (int)cudaErrorInvalidValue;  // mma instance only
   switch (d) {
     case 16: return launch<T, 16>(a, stream);
     case 32: return launch<T, 32>(a, stream);
-    case 64: return launch<T, 64>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
-    case 256: return launch<T, 256>(a, stream);
-    default: return (int)cudaErrorInvalidValue;
   }
+  if constexpr (std::is_same<T, float>::value) {
+    switch (d) {
+      case 64: return launch<T, 64>(a, stream);
+      case 128: return launch<T, 128>(a, stream);
+      case 256: return launch<T, 256>(a, stream);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -730,8 +763,8 @@ int dispatch(const Args& a, int d, cudaStream_t stream) {
 extern "C" {
 
 // B2: flash attention.  bf16 != 0 means q, k, v and out are bf16, else
-// f32.  kind: 0 causal, 1 local, 2 full.  splits: KV splits (bf16 at D = 64
-// or 128 only; ws_o and ws_ml sized as in Args when splits > 1, else
+// f32.  kind: 0 causal, 1 local, 2 full.  splits: KV splits (bf16 at D = 64,
+// 128 or 256 only; ws_o and ws_ml sized as in Args when splits > 1, else
 // null).  Returns a cudaError_t value, checked after every launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const int32_t* qpos, const int32_t* kpos, void* out,
@@ -748,9 +781,15 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   Args a{q, k, v, qpos, kpos, out, ws_o, ws_ml, B, S, T, Hkv, G, kind,
          window, splits, softcap, scale};
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16 && D == 128) return launch_mma<128>(a, s);
-  if (bf16 && D == 64) return launch_mma<64>(a, s);
-  return bf16 ? dispatch<__nv_bfloat16>(a, D, s) : dispatch<float>(a, D, s);
+  if (bf16) {  // the tensor-core instance where it has one, no fallback
+    switch (D) {
+      case 64: return launch_mma<64>(a, s);
+      case 128: return launch_mma<128>(a, s);
+      case 256: return launch_mma<256>(a, s);
+    }
+    return dispatch<__nv_bfloat16>(a, D, s);
+  }
+  return dispatch<float>(a, D, s);
 }
 
 }  // extern "C"

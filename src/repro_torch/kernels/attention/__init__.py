@@ -11,11 +11,12 @@ from .ops import (
     MMA_HEAD_DIMS,
     NEG_INF,
     SUPPORTED_HEAD_DIMS,
+    b2_instance,
     call_kv_splits,
     flash_attention,
 )
-from .ref import flash_attention_plain, kv_split_count
+from .ref import flash_attention_plain, kv_split_count, mma_block_k
 
 __all__ = ["KINDS", "MMA_HEAD_DIMS", "NEG_INF", "SUPPORTED_HEAD_DIMS",
-           "call_kv_splits", "flash_attention", "flash_attention_plain",
-           "kv_split_count"]
+           "b2_instance", "call_kv_splits", "flash_attention",
+           "flash_attention_plain", "kv_split_count", "mma_block_k"]

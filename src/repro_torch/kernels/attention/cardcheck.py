@@ -21,8 +21,9 @@ The plain version runs with the kernel's KV split count
 (:func:`.ops.call_kv_splits`), so both merge the same key runs.
 ``B2_SPLIT`` holds the bf16 tensor-core instance at the serving geometry
 where it splits the KV axis (decode at T = 1023 and 4096, verify at S = 3
-and 5), with one split's keys all invalid for one batch row and rows
-masked in every split.
+and 5; recurrentgemma's D = 256 decode at T = 2048 and a ragged 2047),
+with one split's keys all invalid for one batch row and rows masked in
+every split.
 
 :func:`check_b2` draws small cases with masked rows and keys;
 :func:`check_b2_path` holds the kernel to the same gate at the serving
@@ -31,7 +32,8 @@ path's own shapes (``PATH_SHAPES``), with the positions the path sets;
 decoders' prefill and decode geometry (a 4096-key window that excludes
 keys, softcap 50, rings whose slot positions are not monotone);
 ``B2_A7B`` and ``B2_RING_A7B`` at recurrentgemma's local layer (D = 256,
-16 query heads over one KV head: the CUDA-core instance); ``B2_A7C`` at
+16 query heads over one KV head: the tensor-core instance's 32-key tiles,
+the ring decode with its KV axis split); ``B2_A7C`` at
 whisper-base's encoder and cross attention and pixtral-12b's prefill over
 its patch prefix, with a "full" case of more queries than keys.
 """
@@ -43,7 +45,7 @@ import itertools
 import torch
 
 from .. import cuda
-from .ops import call_kv_splits, flash_attention
+from .ops import b2_instance, call_kv_splits, flash_attention
 from .ref import flash_attention_plain
 
 __all__ = ["F32_TOL", "DTYPES", "KINDS", "GQA", "HEAD_DIMS", "B2_CASES",
@@ -76,7 +78,12 @@ B2_EXTRA = (
 # one whole split of it in the first four cases): decode at T = 1023 and
 # 4096, verify at S = 3 and S = 5 (speculative k = 2 and 4), a local window
 # (most splits masked by position) and D = 64 under "full" (the last batch
-# row has no valid key at all)
+# row has no valid key at all); then recurrentgemma's local layer (bf16,
+# D = 256, 16 query heads over one KV head: 64 splits of one 32-key tile
+# each): decode over 2048 keys with one whole split of the last batch row
+# dead, a ragged T = 2047 (the last tile one key short, its split dead)
+# and a local window of 100 keys, which masks 60 of its 64 splits by
+# position
 B2_SPLIT = (
     dict(dtype=torch.bfloat16, kind="causal", hq=48, hkv=8, d=128, b=4, s=1,
          t=1023, dead=(128, 256)),
@@ -90,6 +97,12 @@ B2_SPLIT = (
          t=1023, window=100),
     dict(dtype=torch.bfloat16, kind="full", hq=8, hkv=2, d=64, b=2, s=1,
          t=700),
+    dict(dtype=torch.bfloat16, kind="causal", hq=16, hkv=1, d=256, b=4, s=1,
+         t=2048, dead=(64, 96)),
+    dict(dtype=torch.bfloat16, kind="causal", hq=16, hkv=1, d=256, b=4, s=1,
+         t=2047, dead=(2016, 2047)),
+    dict(dtype=torch.bfloat16, kind="local", hq=16, hkv=1, d=256, b=2, s=1,
+         t=2047, window=100),
 )
 # the serving path's shapes at the full-width qwen2.5-14b config (48 query
 # heads, 8 KV heads, D=128, bf16): (name, B, S, T, kind)
@@ -118,8 +131,8 @@ B2_A7A = (
 # D=128): (name, Hq, Hkv, softcap) of gemma2's and mixtral's local layers
 B2_RING = (("ring_gemma2", 32, 16, 50.0), ("ring_mixtral", 32, 8, 0.0))
 # recurrentgemma-9b's local layer (16 query heads over one KV head, D=256,
-# bf16, window 2048: the CUDA-core instance) at a 2300-token prompt, where
-# rows 2048.. exclude keys: keyword arguments of check_b2
+# bf16, window 2048: the tensor-core instance) at a 2300-token prompt,
+# where rows 2048.. exclude keys: keyword arguments of check_b2
 B2_A7B = (
     dict(dtype=torch.bfloat16, kind="local", hq=16, hkv=1, d=256, b=1,
          s=2300, t=2300, window=2048, masked=False),
@@ -259,8 +272,8 @@ def check_b2_ring(dev, name: str, hq: int, hkv: int, softcap: float,
 
 def _compare(case, q, k, v, qpos, kpos, zero, *, kind, window, softcap):
     """Kernel against plain on one set of operands (see the module
-    docstring); returns ``{"max_abs_err", "max_err_over_tol",
-    "kv_splits"}``."""
+    docstring); returns ``{"max_abs_err", "max_err_over_tol", "kv_splits",
+    "instance"}`` (``instance``: :func:`.ops.b2_instance`)."""
     dtype, d = q.dtype, q.shape[-1]
     splits = call_kv_splits(q.shape, k.shape, dtype)
     before = cuda.launch_counts().get("flash_attention", 0)
@@ -288,15 +301,16 @@ def _compare(case, q, k, v, qpos, kpos, zero, *, kind, window, softcap):
             or plain[zero].abs().max().item() != 0.0):
         raise AssertionError(f"B2 {case}: fully masked rows are not exact 0")
     return {"max_abs_err": err.max().item(),
-            "max_err_over_tol": (err / tol).max().item(), "kv_splits": splits}
+            "max_err_over_tol": (err / tol).max().item(), "kv_splits": splits,
+            "instance": b2_instance(d, dtype)}
 
 
 def check_b2_case(dev, gen, *, dtype, kind, hq, hkv, d, b=2, s=33, t=47,
                   window=7, softcap=0.0, masked=True, dead=None) -> tuple:
     """One B2 case, kernel against plain; returns ``{"max_abs_err",
-    "max_err_over_tol", "kv_splits", "window_excluded"}`` (the last: the
-    pairs :func:`window_excluded_pairs` counts, 0 unless "local") and the
-    operands ``(q, k, v, qpos, kpos)``."""
+    "max_err_over_tol", "kv_splits", "instance", "window_excluded"}`` (the
+    last: the pairs :func:`window_excluded_pairs` counts, 0 unless
+    "local") and the operands ``(q, k, v, qpos, kpos)``."""
     q, k, v, qpos, kpos, zero = b2_inputs(dev, gen, dtype=dtype, hq=hq,
                                           hkv=hkv, d=d, b=b, s=s, t=t,
                                           kind=kind, masked=masked, dead=dead)

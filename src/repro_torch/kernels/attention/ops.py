@@ -13,11 +13,13 @@ instead of returning a result without a gradient; training attends on
 the ``"ref"`` backend (``runtime.use_attn_backend("ref")``).
 
 bf16 operands at a head dim in :data:`MMA_HEAD_DIMS` run the tensor-core
-instance, which splits the KV axis over blocks when the call's shapes
-leave the card under-filled (:func:`call_kv_splits`); the wrapper then
-allocates the splits' workspace and the one C call launches the split
-kernel and the merge.  The plain version on CPU tensors takes the same
-split count, so both sides run one recurrence.
+instance (:func:`b2_instance`); f32 operands, and bf16 at D = 16 / 32, run
+the CUDA-core instance.  The tensor-core instance splits the KV axis over
+blocks when the call's shapes leave the card under-filled
+(:func:`call_kv_splits`); the wrapper then allocates the splits' workspace
+and the one C call launches the split kernel and the merge.  The plain
+version on CPU tensors takes the same split count, so both sides run one
+recurrence.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from .. import cuda
 from .ref import NEG_INF, flash_attention_plain, kv_split_count
 
 __all__ = ["KINDS", "MMA_HEAD_DIMS", "NEG_INF", "SUPPORTED_HEAD_DIMS",
-           "call_kv_splits", "flash_attention"]
+           "b2_instance", "call_kv_splits", "flash_attention"]
 
 KINDS = ("causal", "local", "full")
 _KIND_CODE = {"causal": 0, "local": 1, "full": 2}
@@ -38,8 +40,18 @@ _KIND_CODE = {"causal": 0, "local": 1, "full": 2}
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
 # bf16 head dims of the tensor-core instance (the others, and f32, run the
 # CUDA-core instance, which never splits the KV axis)
-MMA_HEAD_DIMS = (64, 128)
+MMA_HEAD_DIMS = (64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def b2_instance(d: int, dtype) -> str:
+    """The kernel instance a call of head dim ``d`` and ``dtype`` runs:
+    "mma" (bf16 on the tensor cores) or "cuda_core" (f32, and bf16 at a
+    head dim outside :data:`MMA_HEAD_DIMS`).  The C entry point makes the
+    same choice; a call never moves from one instance to the other."""
+    if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS:
+        return "mma"
+    return "cuda_core"
 
 
 def call_kv_splits(q_shape, k_shape, dtype) -> int:
@@ -47,7 +59,7 @@ def call_kv_splits(q_shape, k_shape, dtype) -> int:
     the tensor-core instance, else 1."""
     b, s, hq, d = q_shape
     t, hkv = k_shape[1], k_shape[2]
-    if dtype != torch.bfloat16 or d not in MMA_HEAD_DIMS:
+    if b2_instance(d, dtype) != "mma":
         return 1
     return kv_split_count(b, s, t, hkv, hq // hkv, d)
 

@@ -12,7 +12,7 @@ All math is f32.  The CPU path of :func:`..ops.flash_attention` and the
 card check of the CUDA kernel both run this.
 
 With ``kv_splits`` > 1 it follows the tensor-core kernel's split KV axis:
-the keys are cut at whole kernel tiles (:data:`MMA_BLOCK_K`) into
+the keys are cut at whole kernel tiles (:func:`mma_block_k` keys) into
 ``kv_splits`` runs, each run keeps its own (m, l, acc), and the runs are
 merged in split order: ``M = max m_s``, ``w_s = exp(m_s - M)`` where
 ``l_s > 0`` and 0 where it is not, ``out = sum w_s acc_s / sum w_s l_s``
@@ -26,12 +26,11 @@ import torch
 
 from ..cuda import FILL_BLOCKS
 
-__all__ = ["BLOCK_K", "MMA_BLOCK_K", "MMA_ROWS", "NEG_INF", "kv_split_count",
-           "flash_attention_plain"]
+__all__ = ["BLOCK_K", "MMA_ROWS", "NEG_INF", "kv_split_count",
+           "kv_split_runs", "flash_attention_plain", "mma_block_k"]
 
 NEG_INF = -1e30  # finite mask constant shared with models.layers
 BLOCK_K = 32     # keys per tile, as in the CUDA-core kernel
-MMA_BLOCK_K = 64  # keys per tile of the tensor-core kernel
 MMA_ROWS = 64     # (query, group) rows per block of the tensor-core kernel
 
 
@@ -39,19 +38,35 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def mma_block_k(d: int) -> int:
+    """Keys per KV tile of the tensor-core kernel at head dim ``d``
+    (``TcShape<D>::kKeys``): 64, or 32 at D = 256, where a warp's f32
+    output fragments already take 128 registers a thread."""
+    return 32 if d > 128 else 64
+
+
 def kv_split_count(b: int, s: int, t: int, hkv: int, g: int, d: int) -> int:
     """KV splits of the tensor-core kernel for a call of these shapes: 1
     when its ``B * Hkv * ceil(S*G/64)`` blocks fill the card, else enough
-    to (at most one per 64-key tile), with no empty split.  ``d`` does not
-    change the count; it is an argument so that the count is visibly a
-    function of the whole call shape and of nothing else."""
-    del d
+    to (at most one per key tile of :func:`mma_block_k` keys), with no
+    empty split.  A function of the whole call shape and of nothing
+    else."""
     blocks = b * hkv * _cdiv(s * g, MMA_ROWS)
-    tiles = _cdiv(t, MMA_BLOCK_K)
+    tiles = _cdiv(t, mma_block_k(d))
     if blocks <= 0 or blocks >= FILL_BLOCKS or tiles <= 1:
         return 1
     splits = min(_cdiv(FILL_BLOCKS, blocks), tiles)
     return _cdiv(tiles, _cdiv(tiles, splits))
+
+
+def kv_split_runs(t: int, d: int, splits: int) -> list:
+    """The key runs ``(k0, k1)`` of a call of ``t`` keys at head dim ``d``
+    cut ``splits`` ways, as the kernel cuts them: ceil(tiles / splits)
+    whole tiles of :func:`mma_block_k` keys each (the last run may be
+    short; a split past the last tile has no run)."""
+    bk = mma_block_k(d)
+    per = max(1, _cdiv(_cdiv(t, bk), max(int(splits), 1))) * bk
+    return [(k0, min(t, k0 + per)) for k0 in range(0, max(t, 1), per)]
 
 
 def flash_attention_plain(q, k, v, qpos, kpos, *, kind: str, window: int,
@@ -71,12 +86,8 @@ def flash_attention_plain(q, k, v, qpos, kpos, *, kind: str, window: int,
     vr = v.permute(0, 2, 1, 3).to(torch.float32)
     qp = qpos.to(torch.int64).repeat_interleave(g, dim=1)[:, None, :, None]
     kp_all = kpos.to(torch.int64)
-    # the kernel's split boundaries: ceil(tiles / splits) whole tiles each
-    per = max(1, _cdiv(_cdiv(t, MMA_BLOCK_K), max(int(kv_splits), 1))) \
-        * MMA_BLOCK_K
     parts = []
-    for k0 in range(0, max(t, 1), per):
-        k1 = min(t, k0 + per)
+    for k0, k1 in kv_split_runs(t, d, kv_splits):
         m = torch.full((b, hkv, rows, 1), NEG_INF, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros_like(m)

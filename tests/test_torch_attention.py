@@ -25,11 +25,14 @@ from repro_torch import runtime
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import cuda
 from repro_torch.kernels.attention import (
+    b2_instance,
     call_kv_splits,
     flash_attention,
     flash_attention_plain,
     kv_split_count,
+    mma_block_k,
 )
+from repro_torch.kernels.attention.ref import kv_split_runs
 from repro_torch.models import layers as L
 
 torch.set_num_threads(1)
@@ -271,8 +274,23 @@ def test_kv_split_count_is_a_function_of_the_call_shapes():
     q, k = (4, 1, 48, 128), (4, 1024, 8, 128)
     assert call_kv_splits(q, k, torch.bfloat16) == 8
     assert call_kv_splits(q, k, torch.float32) == 1          # CUDA-core
+    # bf16 at D = 256 runs the tensor cores (32-key tiles) and splits; f32
+    # at D = 256 and bf16 at D = 32 stay on the CUDA-core instance
     assert call_kv_splits((4, 1, 48, 256), (4, 1024, 8, 256),
+                          torch.bfloat16) == 8
+    assert call_kv_splits((4, 1, 48, 256), (4, 1024, 8, 256),
+                          torch.float32) == 1                 # CUDA-core
+    assert call_kv_splits((4, 1, 48, 32), (4, 1024, 8, 32),
                           torch.bfloat16) == 1                # CUDA-core
+    # recurrentgemma's local layer (16 query heads over one KV head): ring
+    # decode over 2048 keys splits into 64 one-tile runs; the 2300-token
+    # windowed prefill (575 blocks) fills the card
+    assert kv_split_count(4, 1, 2048, 1, 16, 256) == 64
+    assert kv_split_count(1, 2300, 2300, 1, 16, 256) == 1
+    assert call_kv_splits((4, 1, 16, 256), (4, 2048, 1, 256),
+                          torch.bfloat16) == 64
+    assert call_kv_splits((1, 2300, 16, 256), (1, 2300, 1, 256),
+                          torch.bfloat16) == 1
 
 
 def test_cpu_path_takes_the_kernels_split_count():
@@ -288,6 +306,91 @@ def test_cpu_path_takes_the_kernels_split_count():
                                   window=0, softcap=0.0, scale=64 ** -0.5,
                                   kv_splits=5)
     assert torch.equal(out, plain)
+
+
+def test_instances_follow_dtype_and_head_dim():
+    """bf16 at D = 64, 128 and 256 runs the tensor-core instance; f32 at
+    every head dim and bf16 at D = 16 / 32 the CUDA-core one."""
+    for d in (64, 128, 256):
+        assert b2_instance(d, torch.bfloat16) == "mma"
+        assert b2_instance(d, torch.float32) == "cuda_core"
+    for d in (16, 32):
+        assert b2_instance(d, torch.bfloat16) == "cuda_core"
+        assert b2_instance(d, torch.float32) == "cuda_core"
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_kv_splits_fall_on_the_instances_tile_boundaries(d):
+    """The split runs are whole tiles of the instance (64 keys, 32 at
+    D = 256), one run per split, covering every key once in order."""
+    bk = mma_block_k(d)
+    assert bk == (32 if d == 256 else 64)
+    for t in range(1, 3000, 61):
+        n = kv_split_count(1, 1, t, 1, 16, d)
+        runs = kv_split_runs(t, d, n)
+        assert len(runs) == n and runs[0][0] == 0 and runs[-1][1] == t
+        for (a0, a1), (b0, _) in zip(runs, runs[1:]):
+            assert a1 == b0 and a0 % bk == 0 and b0 % bk == 0 and a1 > a0
+    assert kv_split_runs(2048, 256, 64) == [(i, i + 32)
+                                            for i in range(0, 2048, 32)]
+    assert kv_split_runs(2047, 256, 64)[-1] == (2016, 2047)
+    assert kv_split_runs(2048, 128, 32)[1] == (64, 128)
+
+
+def _rgemma_operands(case: str):
+    """recurrentgemma-9b's local layer (16 query heads over one KV head,
+    D = 256) narrowed in length, numpy seeded: a 40-row prefill over 200
+    keys whose 64-key window excludes keys, or one decode step over wrapped
+    128-slot rings (slot j holds the largest position <= pos with
+    position % 128 == j; non-monotone kpos, and the short ring's unwritten
+    slots negative).  Returns (q, k, v, qpos, kpos, kind, window)."""
+    if case == "local_prefill":
+        b, s, t, window, kind = 2, 40, 200, 64, "local"
+        qpos = (np.arange(s) + t - s).astype(np.int32)[None].repeat(b, 0)
+        kpos = np.arange(t, dtype=np.int32)[None].repeat(b, 0)
+    else:
+        b, s, t, window, kind = 4, 1, 128, 0, "causal"
+        pos = np.array([215, 300, 511, 50])
+        qpos = pos[:, None].astype(np.int32)
+        kpos = (pos[:, None] - ((pos % t)[:, None] - np.arange(t)) % t) \
+            .astype(np.int32)
+    q, k, v = _qkv(b, s, 16, 1, 256, t=t, seed=21 + s)
+    return q, k, v, qpos, kpos, kind, window
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["local_prefill", "ring_decode"])
+def test_recurrentgemma_local_geometry_matches_reference(case, dtype):
+    """The same operands through the reference kernel (Pallas interpret
+    mode) and the port's CPU path at the split count that path takes (bf16:
+    the tensor-core instance's 32-key runs; f32: one run).  bf16 operands
+    reach the reference as the f32 values of the bf16 inputs, which is
+    what its kernel computes on; the port is compared in f32, and its bf16
+    answer is that f32 result rounded once."""
+    q, k, v, qpos, kpos, kind, window = _rgemma_operands(case)
+    if case == "local_prefill":
+        qp, kp = qpos[..., :, None], kpos[..., None, :]
+        assert ((kp >= 0) & (kp <= qp - window)).any()  # the window bites
+    else:
+        assert (kpos[:, 1:] < kpos[:, :-1]).any()       # the ring wrapped
+        assert (kpos < 0).any()                         # unwritten slots
+    tq, tk, tv = (x.to(dtype) for x in _t(q, k, v))
+    want = j_flash(*(np.asarray(x.to(torch.float32)) for x in (tq, tk, tv)),
+                   kind=kind, qpos=qpos, kpos=kpos, window=window,
+                   interpret=True)
+    splits = call_kv_splits(tq.shape, tk.shape, dtype)
+    assert splits == (1 if dtype == torch.float32 else
+                      {"local_prefill": 7, "ring_decode": 4}[case])
+    tqp, tkp = torch.from_numpy(qpos), torch.from_numpy(kpos)
+    got = flash_attention_plain(tq, tk, tv, tqp, tkp, kind=kind,
+                                window=window, softcap=0.0,
+                                scale=256 ** -0.5, out_dtype=torch.float32,
+                                kv_splits=splits)
+    _close(got, want)
+    out = flash_attention(tq, tk, tv, kind=kind, qpos=tqp, kpos=tkp,
+                          window=window)
+    assert out.dtype == dtype
+    assert torch.equal(out, got.to(dtype))
 
 
 @pytest.mark.parametrize("which", ["q", "k", "v"])

@@ -35,10 +35,11 @@ rings, and one full-width MoE layer of mixtral and olmoe against the CPU
 (``repro_torch.models.cardcheck``: routing equal but at router near-ties,
 outputs within 4 bf16 ulps).  The recurrent decoders: B1 at
 recurrentgemma's kan_variant() halves (4096 / 1152), B2 at its D = 256
-local layer (16 query heads over one KV head) at a 2300-token prefill and
-over wrapped 2048-slot rings, and one full-width RG-LRU layer and Mamba-2
-block against the CPU (outputs within 4 bf16 ulps of max|out|, conv
-states within one of max|conv|, f32 states within 2 of max|state|).  The
+local layer (16 query heads over one KV head: the tensor-core instance)
+at a 2300-token prefill and over wrapped 2048-slot rings (the KV axis
+split), and one full-width RG-LRU layer and Mamba-2 block against the
+CPU (outputs within 4 bf16 ulps of max|out|, conv states within one of
+max|conv|, f32 states within 2 of max|state|).  The
 encoder and patch prefixes: B1 at whisper-base's and pixtral-12b's
 kan_variant() halves (512 / 256, 5120 / 1408), B2 at whisper's encoder
 ("full", 4 x 1500 frames), cross prefill and cross decode over 1500 keys,
@@ -130,7 +131,8 @@ def test_b2_kernel_matches_plain_at_serving_geometry_and_softcap(dev, case):
 def test_b2_kernel_matches_plain_with_kv_splits(dev, case):
     """The bf16 tensor-core instance with its KV axis split (decode at
     T = 1023 and 4096, verify S = 3, a whole split masked, rows masked in
-    every split: exact zeros)."""
+    every split: exact zeros; recurrentgemma's D = 256 decode over 2048
+    and a ragged 2047 keys and under a window that masks most splits)."""
     gen = torch.Generator(device=dev).manual_seed(40 + case)
     st = ac.check_b2(dev, gen, **ac.B2_SPLIT[case])
     assert st["kv_splits"] > 1
@@ -184,14 +186,16 @@ def test_b1_kernel_matches_plain_at_recurrentgemma_ffn(dev, grid, f, o, flags,
 @pytest.mark.parametrize("case", range(len(ac.B2_A7B)))
 def test_b2_kernel_matches_plain_at_d256_local_prefill(dev, case):
     gen = torch.Generator(device=dev).manual_seed(70 + case)
-    assert ac.check_b2(dev, gen, **ac.B2_A7B[case])["window_excluded"] > 0
+    st = ac.check_b2(dev, gen, **ac.B2_A7B[case])
+    assert st["window_excluded"] > 0 and st["instance"] == "mma"
 
 
 @pytest.mark.parametrize("name,hq,hkv,softcap,d,window", ac.B2_RING_A7B)
 def test_b2_kernel_matches_plain_over_d256_rings(dev, name, hq, hkv, softcap,
                                                  d, window):
-    assert ac.check_b2_ring(dev, name, hq, hkv, softcap, d=d,
-                            window=window)["non_monotone_slots"] > 0
+    st = ac.check_b2_ring(dev, name, hq, hkv, softcap, d=d, window=window)
+    assert st["non_monotone_slots"] > 0
+    assert st["instance"] == "mma" and st["kv_splits"] > 1
 
 
 @pytest.mark.parametrize("arch,kind", [("recurrentgemma-9b", "rglru"),
