@@ -175,7 +175,27 @@ Phases (any failure exits non-zero):
      and per decode step, a profiled run's idle share and waits per decode
      step, and phase 10's teacher-forced gate (also against the fused +
      flash forward, as prefill-then-decode against forward);
- 13. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
+ 13. mesh serving on a 1x1 ``DeviceMesh`` over a world-1 NCCL group
+     (``launch.mesh.make_local_mesh``): phase 4's KAN slice at 1..65536
+     rows through ``runtime.execute(mesh=)`` and through
+     ``place_deployed_kan`` bundles, bit-identical (y and boundary codes)
+     to the unsharded calls with the same B1 launches per call and the
+     plan cache holding meshed and unmeshed entries apart; quiet acim ==
+     fused under the mesh, noisy acim reproducible under one seed; phase
+     6's full-width engine (contiguous and paged) with ``mesh=``: streams
+     equal phase 6's token for token, B1 / B2 on every layer of every
+     call, decode ms/step, tokens/s and collectives per decode step beside
+     phase 6's and, contiguous, in turns with the unmeshed engine (mesh,
+     plain, plain, mesh); the int8 codec (``dist.compress``) of the full-width
+     KAN-FFN bundle against a numpy reckoning, ``_quantize`` on the card
+     against numpy, the decompressed bundle on the mesh under the parity
+     gate against its unplaced twin and within the codec's error of the
+     original; what a larger mesh runs, on the one card: a model shard's
+     B1 column slabs of gemma2's full-width halves at the whole layer's
+     feature split bit-identical to the whole layer's columns, and NCCL's
+     collectives called directly on the world-1 groups;
+     ``launch.serve --mesh data=1,model=1`` in-process;
+ 14. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
 
 A longer report goes to ``reports/chip_smoke_report.json`` (gitignored).
 """
@@ -3939,6 +3959,328 @@ def phase_a7c(dev, report) -> tuple:
     return by_path, checks
 
 
+# ----------------------------------------------------------------------------
+# phase 13: mesh serving on a 1x1 DeviceMesh over a world-1 NCCL group
+# ----------------------------------------------------------------------------
+
+# the rows of phase 4's requests the meshed slice repeats
+MESH_BATCHES = BATCHES
+
+
+def _codec_reckoning(a):
+    """numpy reckoning of one leaf's int8 codes and scale, apart from
+    ``dist.compress``: the scale in f64 from max |a|, the quotient in f32."""
+    import numpy as np
+
+    s = max(float(np.abs(a).max()), 1e-30) / 127.0
+    q = np.clip(np.rint(a / np.float32(s)), -127, 127).astype(np.int8)
+    return q, s
+
+
+def mesh_slice(dev, mesh, report) -> dict:
+    """Phase 4's KAN slice through ``runtime.execute(mesh=)`` and through a
+    ``place_deployed_kan`` bundle, against the unsharded calls."""
+    import torch
+
+    from repro_torch import runtime
+    from repro_torch.core.kan_network_deploy import place_deployed_kan
+    from repro_torch.data.knot import make_knot_dataset
+    from repro_torch.kernels import cuda
+
+    models = build_models(dev)
+    knot, _, _, _ = make_knot_dataset(n_train=4 * max(MESH_BATCHES),
+                                      n_test=1, seed=0)
+    runtime.reset_cache()
+    want, per_call = {}, {}
+    for name, (_, _, dep) in models.items():
+        for b in MESH_BATCHES:
+            x = torch.as_tensor(requests(name, knot, b), device=dev)
+            n0 = cuda.launch_counts().get("kan_pipeline_layer", 0)
+            want[name, b] = runtime.execute(dep, x, return_intermediates=True)
+            per_call[name, b] = (cuda.launch_counts()["kan_pipeline_layer"]
+                                 - n0)
+    placed = {name: place_deployed_kan(dep, mesh)
+              for name, (_, _, dep) in models.items()}
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    got, mesh_calls = {}, {}
+    for name, (_, _, dep) in models.items():
+        for b in MESH_BATCHES:
+            x = torch.as_tensor(requests(name, knot, b), device=dev)
+            for how, kw in (("mesh", {"mesh": mesh}), ("placed", {})):
+                bundle = dep if how == "mesh" else placed[name]
+                n0 = cuda.launch_counts().get("kan_pipeline_layer", 0)
+                got[name, b, how] = runtime.execute(
+                    bundle, x, return_intermediates=True, **kw)
+                mesh_calls[name, b, how] = (
+                    cuda.launch_counts()["kan_pipeline_layer"] - n0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda.launch_counts()
+    stats = runtime.cache_stats()
+    for (name, b, how), (y, codes) in got.items():
+        wy, wcodes = want[name, b]
+        require(torch.equal(y, wy) and len(codes) == len(wcodes)
+                and all(torch.equal(c, w) for c, w in zip(codes, wcodes)),
+                f"mesh {name} b={b} ({how}): not bit-identical to unsharded")
+        require(mesh_calls[name, b, how] == per_call[name, b],
+                f"mesh {name} b={b} ({how}): {mesh_calls[name, b, how]} B1 "
+                f"launches, unsharded {per_call[name, b]}")
+    buckets = len({runtime.bucket_batch(b) for b in MESH_BATCHES})
+    require(stats["entries"] == 2 * len(models) * buckets
+            and stats["misses"] == 2 * len(models) * buckets,
+            f"plan cache {stats}: meshed and unmeshed entries not apart "
+            f"({2 * len(models) * buckets} expected)")
+    notes = runtime.shard_notes()
+    require(not notes, f"1x1 mesh recorded fallbacks {notes}")
+
+    # acim under the mesh: quiet == fused bit for bit, noise reproducible
+    _, _, dep = models["kan1"]
+    x = torch.as_tensor(requests("kan1", knot, 4096), device=dev)
+    yf, cf = got["kan1", 4096, "mesh"]
+    yq, cq = runtime.execute(dep, x, backend="acim", mesh=mesh,
+                             cim=runtime.quiet_cim_config(),
+                             return_intermediates=True)
+    require(torch.equal(yq, yf) and all(torch.equal(a, b)
+                                        for a, b in zip(cq, cf)),
+            "mesh acim: quiet config not bit-identical to fused")
+
+    def noisy(seed):
+        return runtime.execute(
+            dep, x, backend="acim", mesh=mesh,
+            generator=torch.Generator(device=dev).manual_seed(seed))
+
+    n0 = cuda.launch_counts().get("kan_pipeline_layer.noise", 0)
+    a, b2, c = noisy(11), noisy(11), noisy(12)
+    noise_launches = cuda.launch_counts()["kan_pipeline_layer.noise"] - n0
+    require(torch.equal(a, b2) and not torch.equal(a, c),
+            "mesh acim: noise not reproducible under one seed")
+    require(noise_launches == 6, f"mesh acim: {noise_launches} noisy B1 "
+            "launches (want 2 layers x 3 calls)")
+    n_req = len(got)
+    print(f"  KAN slice on the mesh: {n_req} requests (mesh= and placed) in "
+          f"{wall:.3f} s, bit-identical to unsharded (y and boundary codes), "
+          f"B1 launches per call equal ({launches.get('kan_pipeline_layer')} "
+          f"in all); plan cache {stats} (meshed and unmeshed apart); quiet "
+          f"acim == fused, noisy acim reproducible ({noise_launches} noisy "
+          "B1 launches)")
+    report["mesh"]["slice"] = {"requests": n_req, "wall_s": wall,
+                               "launches": launches, "plan_cache": stats}
+    del models, placed, got, want
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_serve(dev, mesh, report) -> dict:
+    """Phase 6's full-width engine on the mesh, contiguous and paged, and
+    the compress round trip of its first KAN-FFN bundle."""
+    import numpy as np
+    import torch
+
+    from repro_torch import parity, runtime
+    from repro_torch.core.kan_ffn_deploy import quantize_kan_ffn_params_tree
+    from repro_torch.dist import comm
+    from repro_torch.dist.compress import (
+        _quantize,
+        compress_deployed_kan,
+        decompress_deployed_kan,
+    )
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.executor import _entry_codes
+
+    cfg = serve_config()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qparams = quantize_kan_ffn_params_tree(init_params(gen, cfg, device=dev),
+                                           cfg)
+    prompts = serve_prompts(cfg.vocab_size)
+    base = report["serve"]["modes"]
+    launches, out = {}, {}
+    # contiguous in turns with the unmeshed engine (mesh, plain, plain,
+    # mesh), so the host's drift between phase 6 and here stays out of the
+    # comparison; paged once
+    for mode, turns in (("contiguous", (True, False, False, True)),
+                        ("paged", (True,))):
+        times = {True: [], False: []}
+        for meshed in turns:
+            comm.reset_collectives()
+            run = serve_once(qparams, cfg, prompts, dev, mode,
+                             engine_kw={"mesh": mesh} if meshed else None)
+            label = f"{'mesh' if meshed else 'plain'} {mode}"
+            check_counts(run, label, cfg.num_layers)
+            require(run["streams"] == base[mode]["streams"],
+                    f"{label}: streams differ from phase 6's")
+            dec = sorted(run["decode_ms"])
+            times[meshed].append((dec[len(dec) // 2],
+                                  run["sched"]["tokens_per_s"]))
+            if meshed and len(times[True]) == 1:
+                require(run["engine"].mesh_layout()["shape"] == [1, 1],
+                        f"{label}: layout {run['engine'].mesh_layout()}")
+                coll = dict(comm.COLLECTIVES)
+                steps = max(run["decode_calls"], 1)
+                launches[f"mesh_lm_{mode}"] = run["launches"]
+                info = {"decode_calls": run["decode_calls"],
+                        "prefill_calls": run["prefill_calls"],
+                        "collectives": coll,
+                        "collectives_per_decode_step": {
+                            k: v / steps for k, v in coll.items()},
+                        "launches": run["launches"],
+                        "peak_bytes": run["peak_bytes"]}
+            del run
+        info.update(
+            meshed_decode_ms=[t[0] for t in times[True]],
+            meshed_tokens_per_s=[t[1] for t in times[True]],
+            plain_decode_ms=[t[0] for t in times[False]],
+            plain_tokens_per_s=[t[1] for t in times[False]],
+            phase6_decode_ms=base[mode]["decode_ms_median"],
+            phase6_tokens_per_s=base[mode]["tokens_per_s"])
+        out[mode] = info
+
+        def fmt(xs):
+            return " / ".join(f"{x:.2f}" for x in xs)
+
+        print(f"  mesh {mode}: streams equal phase 6's in every turn; decode "
+              f"ms/step (median) meshed {fmt(info['meshed_decode_ms'])}, "
+              f"plain {fmt(info['plain_decode_ms']) or 'not run'} (phase 6 "
+              f"{info['phase6_decode_ms']:.2f}); tokens/s meshed "
+              f"{fmt(info['meshed_tokens_per_s'])}, plain "
+              f"{fmt(info['plain_tokens_per_s']) or 'not run'} (phase 6 "
+              f"{info['phase6_tokens_per_s']:.1f}); collectives "
+              f"{info['collectives'] or 'none'} in "
+              f"{info['decode_calls']} decode steps (a group of one rank "
+              "skips its collective)")
+    report["mesh"]["serve"] = out
+
+    # compress -> decompress of the full-width KAN-FFN bundle onto the mesh
+    dep = qparams["decoder"][0]["l0_ffn"]["deployed"][0]
+    t0 = time.perf_counter()
+    payload = compress_deployed_kan(dep)
+    t_comp = time.perf_counter() - t0
+    f32_bytes = sum(t.numel() * t.element_size()
+                    for lw in dep.layers for t in lw.values())
+    pay_bytes = 0
+    for entry, lw in zip(payload["layers"], dep.layers):
+        for k, v in entry.items():
+            a = lw[k].cpu().numpy()
+            if isinstance(v, tuple):
+                q, sc = _codec_reckoning(a)
+                require(np.array_equal(v[0], q) and v[1] == sc,
+                        f"codec: leaf {k} differs from the numpy reckoning")
+                pay_bytes += v[0].nbytes + 4
+            else:
+                require(np.array_equal(v, a), f"codec: raw leaf {k} moved")
+                pay_bytes += v.nbytes
+    # the gradient codec on the card against numpy, on the largest leaf
+    big = dep.layers[0]["wc"]
+    gq, gs = _quantize(big)
+    a = big.cpu().numpy()
+    s_np = np.float32(np.abs(a).max()) / np.float32(127)
+    require(np.float32(gs.item()) == s_np and np.array_equal(
+        gq.cpu().numpy(), np.clip(np.round(a / s_np), -127, 127)
+        .astype(np.int8)), "_quantize on the card differs from numpy")
+    del gq, a
+    dep_mesh = decompress_deployed_kan(payload, dep, mesh=mesh)
+    dep_host = decompress_deployed_kan(payload, dep)
+    require(dep_mesh.placement is mesh, "decompress: placement not recorded")
+    x = torch.randn(64, cfg.d_model, generator=gen, device=dev)
+    y0 = runtime.execute(dep, x)
+    ym, cm = runtime.execute(dep_mesh, x, return_intermediates=True)
+    yh, ch = runtime.execute(dep_host, x, return_intermediates=True)
+    entry, xraw = _entry_codes(dep_host, x, None)
+    gate = parity.compare_runs(
+        cm, ch, parity.boundary_prerounds(dep_host, entry, xraw, ch), ym, yh)
+    rel = float((ym - y0).abs().max() / (y0.abs().max() + 1e-6))
+    require(rel < 5e-2, f"decompressed bundle {rel:.3e} of scale from the "
+            "original (codec envelope 5e-2)")
+    print(f"  compress: full-width KAN-FFN bundle {f32_bytes} B -> payload "
+          f"{pay_bytes} B ({pay_bytes / f32_bytes:.4f}) in {t_comp:.2f} s; "
+          "every int8 code and scale equal to the numpy reckoning, "
+          "_quantize on the card equal to numpy; decompressed onto the mesh "
+          f"== decompressed unplaced under the parity gate ({gate}); "
+          f"against the original bundle {rel:.3e} of max|y| (the int8 "
+          "codec's error)")
+    report["mesh"]["compress"] = {
+        "f32_bytes": f32_bytes, "payload_bytes": pay_bytes,
+        "ratio": pay_bytes / f32_bytes, "seconds": t_comp, "gate": gate,
+        "rel_err_vs_original": rel}
+    del qparams, dep, dep_mesh, dep_host
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_shard_checks(dev, mesh, report) -> None:
+    """What a larger mesh runs, held on one card: a model shard's B1
+    column slabs at the whole layer's feature split equal the whole
+    layer's columns bit for bit (gemma2's full-width halves, whose slabs
+    would split otherwise), and NCCL's collectives called directly on the
+    mesh's world-1 groups, int32 and f32 (``dist.comm`` skips them there).
+    Comparison launches: no path's count."""
+    import torch
+
+    from repro_torch.dist.cardcheck import check_collectives
+    from repro_torch.kernels.kan_spline import cardcheck as cc
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    slabs = []
+    for grid, f, o, flags, rows, model in cc.B1_COLUMN_SLAB_CASES:
+        r = cc.check_b1_column_slabs(dev, gen, grid, f, o, flags, rows, model)
+        require(r["local_plan_splits"] != r["splits"],
+                f"B1 slab {f}x{o}/{model}: the slab's own split equals the "
+                "layer's, the case checks nothing")
+        slabs.append(f"{f}x{o}@{rows}/{model}: {r['splits']} splits (slab's "
+                     f"own {r['local_plan_splits']})")
+    coll = check_collectives(mesh, dev)
+    wall = time.perf_counter() - t0
+    print(f"  B1 column slabs bit-identical to the whole layer's columns at "
+          f"its feature split: {'; '.join(slabs)}; NCCL collectives called "
+          f"directly on groups {coll['groups']}: {coll['calls']} calls "
+          f"(all-gather / all-reduce / broadcast, int32 and f32) exact; "
+          f"{wall:.2f} s")
+    report["mesh"]["shard_checks"] = {"slabs": slabs, "collectives": coll,
+                                      "wall_s": wall}
+    torch.cuda.empty_cache()
+
+
+def phase_mesh(dev, report) -> dict:
+    """A 1x1 DeviceMesh over a world-1 NCCL group: the KAN slice, the
+    full-width engine, the compress round trip and ``launch.serve --mesh``
+    (see the module docstring, phase 13)."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve as cli
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(1, 1)
+    t_mesh = time.perf_counter() - t0
+    ones = torch.ones(8, device=dev)
+    dist.all_reduce(ones)  # the NCCL group answers a collective
+    require(dist.get_backend() == "nccl" and bool((ones == 1).all()),
+            f"process group {dist.get_backend()}: all-reduce gave {ones}")
+    print(f"mesh: {mesh} (backend {dist.get_backend()}, world "
+          f"{dist.get_world_size()}), built in {t_mesh:.2f} s")
+    report["mesh"] = {"build_s": t_mesh}
+    launches = {"mesh_kan_slice": mesh_slice(dev, mesh, report)}
+    launches.update(mesh_serve(dev, mesh, report))
+    mesh_shard_checks(dev, mesh, report)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["--arch", "qwen2.5-14b", "--kan-ffn", "--mesh",
+                  "data=1,model=1", "--requests", "2", "--max-new", "4"])
+    lines = [ln for ln in buf.getvalue().splitlines() if "mesh" in ln]
+    require(any("mesh shape=" in ln and "data=1 x model=1" in ln
+                for ln in lines),
+            f"launch.serve --mesh printed no mesh line: {buf.getvalue()}")
+    print("  launch.serve --mesh data=1,model=1: " + lines[0].strip())
+    dist.destroy_process_group()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4013,7 +4355,8 @@ def main() -> int:
     by_path.update(a7b_paths)
     a7c_paths, a7c = timed("12", phase_a7c, dev, report)
     by_path.update(a7c_paths)
-    print(f"[phases 3-12: {time.perf_counter() - t_all:.1f} s]")
+    by_path.update(timed("13", phase_mesh, dev, report))
+    print(f"[phases 3-13: {time.perf_counter() - t_all:.1f} s]")
     # phase 10's, 11's and 12's B2 and B1 shapes join the kernel line's rows
     # (its B2 ms stays the sum over phase 7's three path shapes)
     for extra in (a7a, a7b, a7c):

@@ -8,8 +8,15 @@ to :mod:`repro_torch.runtime`, which owns backend selection and bucketing.
     qparams_list = quantize_kan_network(params_list, kspec)
     dep = deploy_kan_network(qparams_list, kspec, batch=B)   # on the card
     y = kan_network_deploy_apply(dep, x)                     # "fused"
+    placed = place_deployed_kan(dep, mesh)                   # a DeviceMesh
+    y = kan_network_deploy_apply(placed, x)                  # sharded
 
-Mesh placement waits for the mesh slice.
+Placement keeps each rank's column slab as a plain local tensor, with the
+per-leaf specs recorded in ``DeployedKAN.shard_specs``, and not as a
+``DTensor``: kernel B1 takes raw device pointers of contiguous tensors, so
+a ``DTensor`` would be unwrapped (``to_local()``) on every call, and the
+runtime's shard body already knows each rank's coordinates.  The global
+bundle comes back with ``dist.compress`` (an all-gather over ``"model"``).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ __all__ = [
     "quantize_kan_network",
     "deploy_kan_network",
     "deploy_kan_ffn_stack",
+    "place_deployed_kan",
     "kan_network_deploy_apply",
     "kan_network_apply_ref",
 ]
@@ -48,7 +56,12 @@ class DeployedKAN:
     layers: per-layer weight dicts padded to the plan, on one device:
     {"lut", "wc", "wb"} f32 for 8-bit layers, or the int4-packed
     {"lut"[, "lutp"], "wcp", "wscale", "wb"} form for <=4-bit layers.
-    specs/dims describe the logical network.
+    specs/dims describe the logical network.  ``placement``: the mesh the
+    weights were placed on with :func:`place_deployed_kan` (or None); each
+    sharded leaf then holds this rank's column slab, and ``shard_specs``
+    the per-layer ``dist.sharding.PSpec`` dicts it was placed by.  The
+    runtime resolves the placement as its lowest-precedence mesh, and
+    ``replan`` keeps it.
     """
 
     plan: PipelinePlan
@@ -56,6 +69,8 @@ class DeployedKAN:
     specs: tuple
     dims: tuple
     residual_raw: bool = False
+    placement: object = None
+    shard_specs: tuple | None = None
 
     @property
     def device(self) -> torch.device:
@@ -63,13 +78,43 @@ class DeployedKAN:
 
     def replan(self, batch: int) -> "DeployedKAN":
         """Rebind to a new batch size: a plan-cache lookup, not a rebuild
-        (weights and padding are batch-agnostic)."""
+        (weights and padding are batch-agnostic); the placement stays."""
         if batch == self.plan.b:
             return self
         plan = runtime.PLAN_CACHE.plan(
             batch, self.dims, self.specs, residual_raw=self.residual_raw
         )
         return dataclasses.replace(self, plan=plan)
+
+
+def place_deployed_kan(dep: DeployedKAN, mesh) -> DeployedKAN:
+    """Keep this rank's slabs of a bundle's weights and record the mesh.
+
+    Each leaf follows ``dist.sharding.deployed_kan_pspecs`` (output columns
+    on "model" where the layer shards, the SH-LUT whole): a sharded leaf
+    becomes its contiguous column slab for this rank's model index.  The
+    result carries ``placement=mesh``, which the runtime picks up as its
+    default mesh.  ``dep`` must be unplaced (global weights)."""
+    from ..dist.sharding import deployed_kan_pspecs
+    from ..runtime.meshexec import mesh_axis_sizes, mesh_index
+
+    if dep.placement is not None:
+        raise ValueError("bundle is already placed; gather it first "
+                         "(dist.compress) to place it on another mesh")
+    specs = deployed_kan_pspecs(dep, mesh)
+    _, msize = mesh_axis_sizes(mesh)
+    mi = mesh_index(mesh, "model")
+    layers = []
+    for lw, lspec in zip(dep.layers, specs):
+        out = {}
+        for k, a in lw.items():
+            if "model" in lspec[k]:
+                w = a.shape[-1] // msize
+                a = a[..., mi * w:(mi + 1) * w].contiguous()
+            out[k] = a
+        layers.append(out)
+    return dataclasses.replace(dep, layers=tuple(layers), placement=mesh,
+                               shard_specs=specs)
 
 
 def quantize_kan_network(params_list, kspec: KANSpec) -> list:
@@ -138,16 +183,17 @@ def _deploy(qparams_list, dims, specs, batch, *, residual_raw,
 
 def kan_network_deploy_apply(dep: DeployedKAN, x, *, xraw=None,
                              backend: str | None = None, generator=None,
-                             cim=None, sam_perms=None,
+                             cim=None, sam_perms=None, mesh=None,
                              return_intermediates: bool = False):
     """Run float input x (B, F0) through the runtime-resolved backend
-    (explicit > scope > ``REPRO_KAN_BACKEND`` > "fused").
+    (explicit > scope > ``REPRO_KAN_BACKEND`` > "fused"), on ``mesh``
+    (explicit > ``runtime.use_mesh`` scope > ``dep.placement`` > none).
 
     ``generator`` / ``cim`` / ``sam_perms`` only matter for the acim
     backend (``sam_perms``: per-layer KAN-SAM row placements)."""
     return runtime.execute(
         dep, x, backend=backend, default="fused", xraw=xraw,
-        generator=generator, cim=cim, sam_perms=sam_perms,
+        generator=generator, cim=cim, sam_perms=sam_perms, mesh=mesh,
         return_intermediates=return_intermediates,
     )
 

@@ -21,7 +21,9 @@ full-width half with feature splits > 1) and
 :func:`check_b1_padded_columns` (a noisy layer's padded columns are
 y = noise exactly and the requantized code of it).  A fourth holds what the
 row tile promises: :func:`check_b1_row_tiles` (the same bits at 16, 32 and
-64 rows per block).
+64 rows per block).  A fifth holds what a model shard promises:
+:func:`check_b1_column_slabs` (each column slab of a layer, run at the
+whole layer's feature split, gives those columns' bits).
 """
 
 from __future__ import annotations
@@ -41,9 +43,10 @@ __all__ = ["ATOL", "RTOL", "ORDERS", "B1_GEOMETRIES", "B1_FLAGS",
            "B1_FFN_FULL", "B1_FFN_GEMMA2", "B1_FFN_RGEMMA", "B1_FFN_WHISPER",
            "B1_FFN_PIXTRAL", "B1_FFN_DRAFT",
            "B1_FFN_PACKED", "FFN_FULL_TIE_EPS", "B3_SHAPES",
-           "B1_ROW_TILE_CASES", "ROW_TILE_ROWS",
+           "B1_ROW_TILE_CASES", "ROW_TILE_ROWS", "B1_COLUMN_SLAB_CASES",
            "b1_case", "check_b1", "check_b1_rows_independent",
-           "check_b1_padded_columns", "check_b1_row_tiles", "check_b3"]
+           "check_b1_padded_columns", "check_b1_row_tiles",
+           "check_b1_column_slabs", "check_b3"]
 
 ATOL = RTOL = 1e-5
 # every spline order the kernel library has an instance for (K+1 = 2..6)
@@ -127,6 +130,14 @@ B1_ROW_TILE_CASES = (
     ("ffn_5120x1280", 8, 5120, 1280, (True, False, False, False, True)),
 )
 ROW_TILE_ROWS = (8, 1000, 65536)
+# a model shard's column slabs of gemma2-27b's full-width KAN-FFN halves,
+# whose local width picks another feature split than the whole layer's
+# (18 / 14 at model 2 against 10 / 8), at the decode bucket and a prefill
+# bucket: (grid, f, o, flags, rows, model)
+B1_COLUMN_SLAB_CASES = tuple(
+    (8, f, o, (True, False, False, False, emit), rows, model)
+    for f, o, emit in ((4608, 3456, True), (3456, 4608, False))
+    for rows in (8, 1024) for model in (2, 4))
 # (b, f, o, grid): ragged shapes, then KAN1's two layers at full batch
 B3_SHAPES = ((33, 17, 14, 5), (1, 1, 1, 64), (130, 300, 200, 16),
              (7, 5, 3, 8), (65536, 17, 1, 5), (65536, 1, 14, 68))
@@ -260,6 +271,44 @@ def check_b1_row_tiles(dev, gen, grid, f, o, flags, rows) -> dict:
                                  f"row tile {tile} differs from 64 (max "
                                  f"|dy| {diff:.3e})")
     return {"rows": rows, "tiles": list(pl.ROW_TILES), "equal": True}
+
+
+def check_b1_column_slabs(dev, gen, grid, f, o, flags, rows,
+                          model: int) -> dict:
+    """A model shard's B1 launches: each of the ``model`` column slabs of
+    one layer, on its local plan (``pipeline.shard_local_plan``) and at the
+    WHOLE layer's feature split count, gives those columns of the whole
+    layer's launch bit for bit, y and codes (``flags`` as in
+    :func:`b1_case`, unpacked weights).  Returns ``{"model", "splits",
+    "local_plan_splits", "equal"}``; raises if any bit differs."""
+    raw, packed_w, _, _, emit = flags
+    if packed_w:
+        raise ValueError("column slabs of int4-packed weights: not a case")
+    lp, lw, _, codes, xraw, nz = b1_case(dev, gen, grid, f, o, flags, rows)
+    dims = (f, o, 3) if emit else (f, o)
+    plan = pl.make_pipeline_plan(rows, dims, (lp.spec,) * (len(dims) - 1),
+                                 residual_raw=raw)
+    local = pl.shard_local_plan(plan, model)[0].layers[0]
+    splits = pl.feature_split_plan(lp.f, lp.o)[0]
+    y, c = pl.run_pipeline_layer(codes, xraw, lw, lp, rows, psum_noise=nz)
+    for mi in range(model):
+        cols = slice(mi * local.op, (mi + 1) * local.op)
+        slab = {k: v[:, cols].contiguous() if k in ("wc", "wb") else v
+                for k, v in lw.items()}
+        ys, cs = pl.run_pipeline_layer(
+            codes, xraw, slab, local, rows,
+            psum_noise=None if nz is None else nz[:, cols].contiguous(),
+            feature_splits=splits)
+        torch.cuda.synchronize()
+        if not (torch.equal(ys, y[:, cols])
+                and (c is None or torch.equal(cs, c[:, cols]))):
+            diff = (ys - y[:, cols]).abs().max().item()
+            raise AssertionError(f"B1 {f}x{o} at {rows} rows: column slab "
+                                 f"{mi} of {model} differs from the whole "
+                                 f"layer's (max |dy| {diff:.3e})")
+    return {"model": model, "splits": splits,
+            "local_plan_splits": pl.feature_split_plan(local.f, local.o)[0],
+            "equal": True}
 
 
 def check_b3(dev, gen, b, f, o, grid, order=3) -> float:

@@ -47,6 +47,8 @@ __all__ = [
     "row_tile_for",
     "normalize_tile_overrides",
     "validate_plan",
+    "model_shardable",
+    "shard_local_plan",
     "weight_bits",
     "packs_weights",
     "packs_lut",
@@ -224,6 +226,60 @@ def make_pipeline_plan(
     return PipelinePlan(
         b=batch, bp=bp, layers=tuple(layers),
         row_tile=ROW_TILES[-1] if overrides is None else row_tile_for(bb))
+
+
+def model_shardable(op: int, model_size: int) -> bool:
+    """Can an output dim split over a model axis of this size?
+
+    The axis must divide the padded dim AND each shard must keep a
+    multiple-of-8 slab.  The one shardability criterion: ``shard_local_plan``
+    (execution) and ``dist.sharding.deployed_kan_pspecs`` (weight placement)
+    both use it, so a bundle is never placed sharded where the runtime would
+    run it replicated (or the other way round)."""
+    return (model_size > 1 and op % model_size == 0
+            and (op // model_size) % 8 == 0)
+
+
+def shard_local_plan(plan: PipelinePlan, model_size: int) -> tuple:
+    """Per-shard geometry for output-channel ("model") sharding of a stack.
+
+    Each model shard owns WHOLE output columns of every sharded layer (the
+    contraction axis stays full), so the per-shard plan keeps ``f``/``fp``/
+    ``bf`` and divides ``op`` by the model-axis size; a layer whose padded
+    output dim :func:`model_shardable` refuses keeps replicated columns and
+    the reason is recorded.  ``bo`` is halved until it divides the slab.
+
+    Returns ``(local_plan, sharded_flags, notes)``.  The local plan breaks
+    two :func:`validate_plan` invariants on purpose (the inter-layer
+    boundary, restored by an all-gather over "model", and the 128-padded
+    boundary, a global property), so it must not be re-validated.  Its
+    sharded layers' ``o`` is the local slab, so B1's feature split must
+    come from the GLOBAL plan (``run_pipeline_layer(feature_splits=)``).
+    """
+    n = len(plan.layers)
+    if model_size <= 1:
+        return plan, (False,) * n, ()
+    layers, flags, notes = [], [], []
+    for li, lp in enumerate(plan.layers):
+        if not model_shardable(lp.op, model_size):
+            notes.append(
+                f"layer {li}: op={lp.op} not shardable over model={model_size}"
+                " (needs a multiple-of-8 per-shard slab); columns replicated"
+            )
+            layers.append(lp)
+            flags.append(False)
+            continue
+        op_l = lp.op // model_size
+        bo_l = lp.bo
+        while op_l % bo_l:
+            bo_l //= 2
+        layers.append(dataclasses.replace(lp, o=op_l, op=op_l, bo=bo_l))
+        flags.append(True)
+    return (
+        dataclasses.replace(plan, layers=tuple(layers)),
+        tuple(flags),
+        tuple(notes),
+    )
 
 
 def validate_plan(plan: PipelinePlan) -> None:
@@ -494,7 +550,8 @@ def run_pipeline_layer_plain(codes, xraw, lw: dict, lp: LayerPlan, bp: int,
     return y, torch.clamp(q, 0, num_codes - 1)
 
 
-def _run_pipeline_layer_cuda(codes, xraw, lw, lp, bp, psum_noise, row_tile):
+def _run_pipeline_layer_cuda(codes, xraw, lw, lp, bp, psum_noise, row_tile,
+                             splits):
     spec = lp.spec
     cuda.check_spec(spec)
     lib = cuda.library()
@@ -505,7 +562,7 @@ def _run_pipeline_layer_cuda(codes, xraw, lw, lp, bp, psum_noise, row_tile):
     nx = _requant_consts(lp) if lp.emit_codes else (0.0, 0.0, 0.0, 0.0, 0)
     packed_lut = "lutp" in lw
     packed_w = "wcp" in lw
-    splits, fps = feature_split_plan(lp.f, lp.o)
+    fps = -(-lp.f // splits)
     ws = (torch.empty((splits, bp, lp.op), dtype=torch.float32, device=dev)
           if splits > 1 else None)
     status = lib.kan_pipeline_layer(
@@ -529,16 +586,22 @@ def _run_pipeline_layer_cuda(codes, xraw, lw, lp, bp, psum_noise, row_tile):
 
 
 def run_pipeline_layer(codes, xraw, lw: dict, lp: LayerPlan, bp: int, *,
-                       psum_noise=None, row_tile: int = ROW_TILES[-1]):
+                       psum_noise=None, row_tile: int = ROW_TILES[-1],
+                       feature_splits: int | None = None):
     """One fused layer on padded geometry: kernel B1 for CUDA tensors, the
     plain version for CPU tensors.
 
     codes (bp, fp) int32; xraw (bp, fp) f32 when ``lp.residual_raw``; ``lw``
     the deployed layer dict (packing follows its keys); psum_noise (bp, op)
     f32 or None; ``row_tile`` B1's batch rows per block (one of
-    :data:`ROW_TILES`; the plain version has no tiles).  Returns (y (bp, op)
-    f32, next codes (bp, op) int32 or None on the last layer).
+    :data:`ROW_TILES`; the plain version has no tiles); ``feature_splits``
+    the contraction's split count, by default ``feature_split_plan(lp.f,
+    lp.o)``'s.  A model shard passes the GLOBAL layer's count, so each of
+    its columns sums in the unsharded order.  Returns (y (bp, op) f32, next
+    codes (bp, op) int32 or None on the last layer).
     """
+    if feature_splits is None:
+        feature_splits = feature_split_plan(lp.f, lp.o)[0]
     if row_tile not in ROW_TILES:
         raise ValueError(f"row tile {row_tile} not in {ROW_TILES}")
     tensors = [codes, xraw, psum_noise, *lw.values()]
@@ -552,11 +615,11 @@ def run_pipeline_layer(codes, xraw, lw: dict, lp: LayerPlan, bp: int, *,
             xraw.contiguous() if lp.residual_raw else None,
             {k: v.contiguous() for k, v in lw.items()}, lp, bp,
             None if psum_noise is None else psum_noise.contiguous(),
-            row_tile,
+            row_tile, feature_splits,
         )
     return run_pipeline_layer_plain(
         codes, xraw, lw, lp, bp, psum_noise=psum_noise,
-        feature_splits=feature_split_plan(lp.f, lp.o)[0])
+        feature_splits=feature_splits)
 
 
 # ----------------------------------------------------------------------------

@@ -56,8 +56,12 @@ turn the obs registry on, ``--trace-out`` records the per-request span
 trees, ``--log-level`` and ``--stats-interval`` drive the structured
 logger.  ``--tuned-config`` loads a tuning artifact (either package's):
 its chosen point's grid, order and bit widths become the KAN-FFN
-quantization, and its tile plan is registered with the plan cache.  The
-reference's mesh flag exits with "not ported yet" and its ROADMAP item.
+quantization, and its tile plan is registered with the plan cache.
+``--mesh data=D,model=M`` serves on a ``DeviceMesh`` (``launch.mesh``):
+slots and KV on "data", attention heads, the vocabulary and the KAN-FFN
+columns on "model".  One card takes ``--mesh data=1,model=1`` without a
+launcher; a larger mesh runs one process per device under ``torchrun
+--nproc-per-node N``, every rank on the same request stream.
 """
 
 from __future__ import annotations
@@ -79,9 +83,7 @@ from ..serve.engine import Request, ServeEngine
 from ..serve.scheduler import QueueFull, SamplingParams, Scheduler
 
 # reference flags that wait for a later slice -> their ROADMAP item
-NOT_PORTED = {
-    "mesh": "A10 (distribution)",
-}
+NOT_PORTED: dict = {}
 
 
 def parse_args(argv=None):
@@ -108,6 +110,12 @@ def parse_args(argv=None):
                     metavar="TOKENS",
                     help="paged KV cache in blocks of this many tokens (a "
                          "multiple of 8 dividing the max length)")
+    ap.add_argument("--mesh", default=None, metavar="SPEC",
+                    help="serve on a device mesh: 'data=2,model=4' (one axis "
+                         "may omit =N to absorb the remaining ranks, e.g. "
+                         "'data,model=2'); slots / KV on data, heads, vocab "
+                         "and KAN-FFN columns on model.  Ranks are the "
+                         "process group's (torchrun), or one")
     ap.add_argument("--prefix-cache", default="on", choices=("on", "off"))
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     metavar="TOKENS",
@@ -230,11 +238,26 @@ def main(argv=None) -> None:
             raise SystemExit("--spec-decode requires --kv-block-size "
                              "(draft rollback releases pool blocks)")
 
+    mesh = None
+    if args.mesh:
+        from .mesh import parse_mesh_spec
+
+        try:
+            mesh = parse_mesh_spec(args.mesh, device=dev)
+        except ValueError as e:
+            raise SystemExit(f"--mesh {args.mesh}: {e}")
+        if args.deadline is not None and mesh.mesh.numel() > 1:
+            raise SystemExit(f"--deadline with --mesh {args.mesh}: each of "
+                             f"the {mesh.mesh.numel()} ranks would expire "
+                             "requests by its own clock")
+        if dev.type == "cuda":  # this rank's card (LOCAL_RANK under torchrun)
+            dev = torch.device("cuda", torch.cuda.current_device())
+
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(gen, cfg, device=dev)
     engine = ServeEngine(params, cfg, slots=args.slots, max_len=128,
                          kan_deploy=args.kan_ffn, kan_backend=args.backend,
-                         attn_backend=args.attn_backend,
+                         attn_backend=args.attn_backend, mesh=mesh,
                          kv_block_size=args.kv_block_size,
                          prefix_cache=args.prefix_cache == "on",
                          prefill_chunk=args.prefill_chunk,
@@ -258,6 +281,18 @@ def main(argv=None) -> None:
                  block_size=kv["block_size"],
                  prefix_cache="on" if kv["prefix_cache"] else "off",
                  prefill_chunk=kv["prefill_chunk"] or "whole-prompt")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        layout = engine.mesh_layout()
+        n_dev = (torch.cuda.device_count() if dev.type == "cuda"
+                 else dist.get_world_size())
+        log.info("mesh",
+                 shape=" x ".join(f"{a}={s}" for a, s in
+                                  zip(layout["axes"], layout["shape"])),
+                 devices=f"{dist.get_world_size()}/{n_dev}",
+                 slots=("sharded" if layout["slots_sharded"]
+                        else "replicated"))
     if args.kan_ffn:
         log.info("kan-ffn", G=cfg.kan_grid, K=cfg.kan_order,
                  n_bits=cfg.kan_n_bits,

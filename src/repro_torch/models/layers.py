@@ -12,6 +12,13 @@ reference's casts one by one.  KV caches are updated IN PLACE (the
 reference returns new arrays; an in-place ``index_put_`` saves a copy of
 the whole cache per layer and step) and returned as the same objects.
 
+Tensor parallelism (a mesh's ``"model"`` axis): under the
+``dist.comm.TPLayout`` that ``models.model.place_params`` recorded and the
+engine binds with ``dist.comm.use_tp``, a layer whose role was cut
+(attention heads, FFN hidden columns) runs on its local slab and sums the
+partial output over the group.  Under ``dist.comm.use_row_split`` MoE
+routes this rank's rows as its slab of the batch split over "data".
+
 The recurrent blocks return their new state (conv rows in the config's
 dtype, the recurrence in f32) and the stack writes it into its cache in
 place.  Cross attention reads its K/V from the encoder output (full
@@ -30,6 +37,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..core.asp_quant import ASPQuantSpec, resolve_layer_bits
 from ..core.bspline import _cardinal_bump_coeffs, bspline_basis_fast
+from ..dist import comm
 from ..kernels.attention.ref import NEG_INF
 
 __all__ = [
@@ -45,6 +53,7 @@ __all__ = [
     "attention_decode",
     "init_kv_cache",
     "init_paged_kv_cache",
+    "local_kv_heads",
     "paged_prefill_update",
     "init_ffn",
     "ffn",
@@ -169,9 +178,20 @@ def _proj(x, w):
 
 
 def _out_proj(o, wo):
-    """(B, S, H, K) x (H, K, D) -> (B, S, D)."""
+    """(B, S, H, K) x (H, K, D) -> (B, S, D); with the heads cut over the
+    tensor-parallel group (row-parallel ``wo``) the partial outputs are
+    summed over it."""
     b, s, h, k = o.shape
-    return (o.reshape(b * s, h * k) @ wo.reshape(h * k, -1)).reshape(b, s, -1)
+    y = (o.reshape(b * s, h * k) @ wo.reshape(h * k, -1)).reshape(b, s, -1)
+    tp = comm.tp_layout()
+    return comm.all_reduce_sum(y, tp.group) if tp.heads else y
+
+
+def local_kv_heads(cfg: ModelConfig) -> int:
+    """KV heads this rank holds: its slab when the bound layout cut the
+    heads, else all of them."""
+    tp = comm.tp_layout()
+    return cfg.phys_kv_heads // tp.size if tp.heads else cfg.phys_kv_heads
 
 
 def _qkv(p, x, cfg: ModelConfig, use_rope: bool, positions):
@@ -434,7 +454,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, kind: str,
     """One layer's contiguous KV cache, (B, T, Hkv, D): T = max_len, or the
     rolling window min(max_len, window) for "local" layers."""
     t = min(max_len, cfg.window_size) if kind == "local" else max_len
-    shape = (batch, t, cfg.phys_kv_heads, cfg.head_dim)
+    shape = (batch, t, local_kv_heads(cfg), cfg.head_dim)
     dt = torch_dtype(cfg)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -443,7 +463,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, kind: str,
 def init_paged_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                         *, device=None) -> dict:
     """One layer's paged KV pool: (NB, block_size, Hkv, D), no batch dim."""
-    shape = (num_blocks, block_size, cfg.phys_kv_heads, cfg.head_dim)
+    shape = (num_blocks, block_size, local_kv_heads(cfg), cfg.head_dim)
     dt = torch_dtype(cfg)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -608,11 +628,23 @@ def _kan_linear(c, wb, x, cfg: ModelConfig):
     return y + torch.relu(x) @ wb
 
 
+def _tp_sum(y):
+    """Sum a partial output over the tensor-parallel group when the bound
+    layout cut the FFN hidden dim it was contracted over."""
+    tp = comm.tp_layout()
+    return comm.all_reduce_sum(y, tp.group) if tp.ffn else y
+
+
 def ffn(p, x, cfg: ModelConfig):
+    """The FFN sublayer.  A float block whose hidden columns are a
+    tensor-parallel slab sums its output over the group; a deployed
+    KAN-FFN block runs on the runtime's mesh (its columns on "model")."""
     if cfg.ffn_kind == "swiglu":
-        return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+        y = (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+        return _tp_sum(y)
     if cfg.ffn_kind == "gelu":
-        return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
+        y = F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
+        return _tp_sum(y)
     if cfg.ffn_kind == "kan":
         if "l1" in p:
             # ASP-quantized deployed block: both halves through kernel B1
@@ -620,7 +652,8 @@ def ffn(p, x, cfg: ModelConfig):
 
             return kan_ffn_apply_quantized(p, x, cfg)
         h = _kan_linear(p["c1"], p["wb1"], x, cfg)
-        return _kan_linear(p["c2"], p["wb2"], h, cfg)
+        y = _kan_linear(p["c2"], p["wb2"], h, cfg)
+        return _tp_sum(y)
     if cfg.ffn_kind == "none":
         return torch.zeros_like(x)
     raise ValueError(cfg.ffn_kind)
@@ -660,7 +693,13 @@ def moe_route(p, xt, cfg: ModelConfig):
 
     Two lowerings of the rank (``cfg.moe_dispatch``), equal in result:
     "sort", a stable argsort and ``searchsorted(side="left")``; "cumsum",
-    one-hot prefix sums.  Every index is computed on the device."""
+    one-hot prefix sums.  Every index is computed on the device.
+
+    Under ``dist.comm.use_row_split`` the (T, D) rows are this rank's slab
+    of a batch split over the group in rank order: the ranks all-gather
+    their per-expert counts, each rank's ranks start after the lower
+    ranks' counts, and the capacity is that of the whole batch, so every
+    assignment keeps or drops as in the unsharded call."""
     t = xt.shape[0]
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     logits = xt.to(torch.float32) @ p["router"]
@@ -681,6 +720,13 @@ def moe_route(p, xt, cfg: ModelConfig):
             torch.int32)                                    # (T*k, E)
         pos = torch.cumsum(onehot, dim=0) - 1      # rank per expert, int64
         pos = pos.gather(1, flat_e[:, None])[:, 0]
+    group = comm.row_split_group()
+    n = comm.group_size(group)
+    if n > 1:
+        counts = torch.bincount(flat_e, minlength=e)
+        every = comm.all_gather(counts[None], group, 0)         # (n, E)
+        pos = pos + every[:comm.group_rank(group)].sum(0)[flat_e]
+        t = t * n  # the slabs are equal: the engine splits only then
     return flat_e, flat_g, pos, moe_capacity(t, cfg)
 
 

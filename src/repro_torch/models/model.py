@@ -21,6 +21,18 @@ Port of ``repro.models.model``.  Families:
            ``num_patches``)
 
 Caches are written in place and returned.
+
+Tensor parallelism: :func:`place_params` cuts a param tree to this rank's
+slabs on a mesh's ``"model"`` axis where ``dist.sharding.param_pspecs``
+puts a leaf there (attention heads, dense FFN hidden columns, the
+vocabulary of ``embed`` and ``lm_head``), and places the deployed KAN-FFN
+bundles on the mesh's ``"model"`` axis for the runtime.  Under
+``dist.comm.use_tp`` the entry points then run per rank: the embedding is
+a masked lookup summed over the group, the logits of a vocabulary slab are
+all-gathered, and the layers reduce their partial outputs
+(``models.layers``); each reads which roles were cut from the
+``dist.comm.TPLayout`` that :func:`place_params` returns.  MoE expert
+weights cut under ``model > 1`` are refused.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..dist import comm
 from . import layers as L
 from .transformer import (
     init_stack,
@@ -54,6 +67,7 @@ __all__ = [
     "init_paged_cache",
     "prefill_chunk",
     "params_device",
+    "place_params",
     "prefix_batch_key",
     "tokens_only_refusal",
 ]
@@ -117,8 +131,88 @@ def params_device(p: dict) -> torch.device:
     return p["embed"].device
 
 
+# the roles a tensor-parallel cut may take, by the leaf's last tree key
+# (attention ``wo`` by its parent too); ``param_pspecs`` decides the cut
+_TP_ROLES = {"wq": "heads", "wk": "heads", "wv": "heads", "bq": "heads",
+             "bk": "heads", "bv": "heads", "embed": "vocab",
+             "lm_head": "vocab"}
+_FFN_KEYS = ("wi", "wg", "wo", "c1", "wb1", "c2", "wb2")
+
+
+def _tp_role(path: str) -> str | None:
+    parent, _, key = path.rpartition("/")
+    if key == "wo" and parent.endswith("attn"):
+        return "heads"
+    if key in _FFN_KEYS and parent.endswith("ffn"):
+        return "ffn"
+    return _TP_ROLES.get(key)
+
+
+def place_params(p: dict, cfg: ModelConfig, mesh):
+    """This rank's part of a param tree on ``mesh`` (see the module note),
+    and the :class:`dist.comm.TPLayout` of what was cut, for
+    ``dist.comm.use_tp``.
+
+    Tensor leaves keep the slab of each dim ``param_pspecs`` (no fsdp) puts
+    on ``"model"``; deployed KAN bundles are placed on the mesh's
+    ``"model"`` axis (``place_deployed_kan``).  A role is cut whole or not
+    at all: a cut of a leaf outside the heads, the FFN hidden dim and the
+    vocabulary (MoE experts, ``patch_proj``), or of some of a role's leaves
+    only (a model size that divides one of the query and KV head counts),
+    raises ``NotImplementedError``."""
+    from ..core.kan_network_deploy import DeployedKAN, place_deployed_kan
+    from ..dist.sharding import axis_size, leaf_pspec, map_with_path
+    from ..runtime.meshexec import mesh_index
+
+    msize = axis_size(mesh, "model")
+    mi = mesh_index(mesh, "model")
+    kan_mesh = mesh["model"] if "model" in mesh.mesh_dim_names else None
+    cuts: dict = {}
+
+    def place(path, leaf):
+        if isinstance(leaf, DeployedKAN):
+            return leaf if kan_mesh is None else place_deployed_kan(leaf,
+                                                                    kan_mesh)
+        role = _tp_role(path)
+        cut = False
+        for dim, axis in enumerate(leaf_pspec(path, leaf.shape, mesh)):
+            if axis == "model":
+                w = leaf.shape[dim] // msize
+                leaf = leaf.narrow(dim, mi * w, w).contiguous()
+                cut = True
+        if cut and role is None:
+            raise NotImplementedError(
+                f"{path} under a model axis of {msize} is not ported yet "
+                "(ROADMAP A10b); serve it on a data-only mesh")
+        if role is not None:
+            cuts.setdefault(role, set()).add(cut)
+        return leaf
+
+    placed = map_with_path(place, p)
+    split = [r for r, c in cuts.items() if len(c) > 1]
+    if split:
+        raise NotImplementedError(
+            f"model={msize} cuts some of the {split[0]} leaves only (heads "
+            f"{cfg.phys_heads} / KV {cfg.phys_kv_heads}); that layout is "
+            "not ported (ROADMAP A10b)")
+    group = mesh.get_group("model") if kan_mesh is not None else None
+    return placed, comm.TPLayout(group, **{r: True in c
+                                           for r, c in cuts.items()})
+
+
 def _embed_tokens(p, tokens, cfg: ModelConfig):
-    h = p["embed"][tokens]
+    emb = p["embed"]
+    tp = comm.tp_layout()
+    if tp.vocab:
+        # a vocabulary slab: rows [v0, v0 + V/m) of this rank; the others
+        # look up zeros, and the sum over the group is the full lookup
+        v0 = tp.rank * emb.shape[0]
+        local = tokens - v0
+        hit = (local >= 0) & (local < emb.shape[0])
+        h = emb[torch.where(hit, local, 0)] * hit[..., None].to(emb.dtype)
+        h = comm.all_reduce_sum(h, tp.group)
+    else:
+        h = emb[tokens]
     # scaled in the embedding's dtype, as the reference does; the scale is
     # filled on the device (a host-made tensor would cost a host-to-device
     # copy and a wait on every call)
@@ -129,6 +223,9 @@ def _embed_tokens(p, tokens, cfg: ModelConfig):
 def _lm_logits(p, h, cfg: ModelConfig):
     w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
     logits = (h @ w).to(torch.float32)
+    tp = comm.tp_layout()
+    if tp.vocab:  # a vocabulary slab of the columns
+        logits = comm.all_gather(logits, tp.group, dim=-1)
     return L.softcap(logits, cfg.final_logit_softcap)
 
 

@@ -2,7 +2,8 @@
 
 Port of ``repro.runtime``.  See :mod:`.executor` for the KAN ``ref`` /
 ``fused`` / ``acim`` backends and ``REPRO_KAN_BACKEND`` resolution, :mod:`.plancache`
-for batch bucketing, and :mod:`.attention` for the attention registry
+for batch bucketing, :mod:`.meshexec` for mesh-sharded execution
+(``mesh=`` / :func:`use_mesh`), and :mod:`.attention` for the attention registry
 (``ref`` / ``flash``, ``REPRO_ATTN_BACKEND``).
 
     from repro_torch import runtime
@@ -37,6 +38,13 @@ from .executor import (
     resolve_backend,
     use_backend,
 )
+from .meshexec import (
+    mesh_axis_sizes,
+    reset_shard_notes,
+    resolve_mesh,
+    shard_notes,
+    use_mesh,
+)
 from .plancache import PLAN_CACHE, PlanCache, PlanKey, bucket_batch
 
 __all__ = [
@@ -57,6 +65,7 @@ __all__ = [
     "dispatch_counts",
     "execute",
     "get_executor",
+    "mesh_axis_sizes",
     "quiet_cim_config",
     "ref_composition",
     "register_attn_backend",
@@ -66,8 +75,11 @@ __all__ = [
     "reset_dispatch_counts",
     "resolve_attn_backend",
     "resolve_backend",
+    "resolve_mesh",
+    "shard_notes",
     "use_attn_backend",
     "use_backend",
+    "use_mesh",
 ]
 
 
@@ -82,5 +94,7 @@ def cache_stats() -> dict:
 
 
 def reset_cache() -> None:
-    """Drop all cached plans and entries and zero the counters."""
+    """Drop all cached plans and entries, zero the counters and forget the
+    recorded shard notes."""
     PLAN_CACHE.clear()
+    reset_shard_notes()

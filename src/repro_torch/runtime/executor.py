@@ -21,8 +21,16 @@ Selection precedence: explicit argument > :func:`use_backend` scope >
 :mod:`plancache` (pow2 batch bucketing + LRU of built entries).  Each
 dispatch is counted per backend (fed to the obs registry as
 ``runtime.backend_dispatch{backend=...}``) and runs under
-``obs.profile_scope("kan_spline.<backend>")``.  The mesh path waits for a
-later slice.
+``obs.profile_scope("kan_spline.<backend>")``.
+
+Every backend also has a MESH dimension (:mod:`.meshexec`): when a mesh is
+bound (explicit ``mesh=`` argument > :func:`use_mesh` scope > the bundle's
+``DeployedKAN.placement``), the entry is built as a shard body: batch over
+``"data"``, each layer's output columns over ``"model"`` per
+``dist.sharding.deployed_kan_pspecs``, the boundary requantizer shard-local
+and the int32 codes all-gathered between layers.  The plan-cache key
+carries the mesh fingerprint, so sharded and unsharded entries never
+collide.  A CUDA shard launches B1 (or raises), as an unsharded call does.
 """
 
 from __future__ import annotations
@@ -41,12 +49,28 @@ from ..core.asp_quant import dense_basis_from_codes, f32, quantize_input
 from ..core.cim import CIMConfig
 from ..core.tmdv import TMDVConfig, apply_input_noise
 from ..kernels.kan_spline.pipeline import (
+    _requant_consts,
+    feature_split_plan,
+    gained_layer,
     kan_pipeline_impl,
+    run_pipeline_layer,
+    shard_local_plan,
     unpacked_wc,
     weight_bits,
 )
 from ..obs import REGISTRY as _OBS_REGISTRY
 from ..obs.trace import profile_scope
+from .meshexec import (
+    build_sharded_runner,
+    mesh_axis_sizes,
+    mesh_fingerprint,
+    mesh_from_fingerprint,
+    mesh_index,
+    register_mesh,
+    resolve_mesh,
+    shard_generator,
+    use_mesh,
+)
 from .plancache import PLAN_CACHE, PlanKey, bucket_batch
 
 __all__ = [
@@ -58,6 +82,8 @@ __all__ = [
     "resolve_backend",
     "get_executor",
     "use_backend",
+    "use_mesh",
+    "resolve_mesh",
     "ref_composition",
     "quiet_cim_config",
     "RefExecutor",
@@ -192,14 +218,68 @@ def _slice_result(out, b, return_intermediates):
     return out[:b]
 
 
+# Deriving a mesh fingerprint walks the mesh's ranks and the plan's layer
+# geometry; on the serving path that would run per token per FFN block just
+# to hit a cached entry, so it is memoized on (mesh, geometry, bucket).  The
+# registration stays per call (dict writes), so reset_cache() and
+# reset_shard_notes() are repopulated by the next execution.
+_MESH_FP_MEMO: dict = {}
+
+
+def _mesh_key_fingerprint(mesh, dsize, msize, dims, specs, bucket,
+                          residual_raw) -> tuple:
+    memo_key = (id(mesh), dims, specs, bucket, residual_raw)
+    hit = _MESH_FP_MEMO.get(memo_key)
+    if hit is None or hit[0] is not mesh:
+        base = PLAN_CACHE.plan(bucket // dsize, dims, specs,
+                               residual_raw=residual_raw)
+        _, sharded, notes = shard_local_plan(base, msize)
+        hit = (mesh, mesh_fingerprint(mesh, sharded), notes)
+        if len(_MESH_FP_MEMO) > 256:
+            _MESH_FP_MEMO.clear()
+        _MESH_FP_MEMO[memo_key] = hit
+    _, fp, notes = hit
+    register_mesh(fp, mesh, notes)
+    return fp
+
+
+def _local_layers(layers, base_plan, local_plan, sharded, model_index):
+    """This rank's slabs of a bundle's layers: a placed bundle's leaves are
+    already its slabs (last dim = the local width); an unplaced bundle's
+    sharded leaves (last dim = the global width) are sliced here."""
+    out = []
+    for lw, glp, llp, sh in zip(layers, base_plan.layers, local_plan.layers,
+                                sharded):
+        if not sh:
+            out.append(lw)
+            continue
+        lo = model_index * llp.op
+        local = {}
+        for k, a in lw.items():
+            if k.startswith("lut"):
+                local[k] = a
+            elif a.shape[-1] == llp.op:
+                local[k] = a
+            elif a.shape[-1] == glp.op:
+                local[k] = a[..., lo:lo + llp.op].contiguous()
+            else:
+                raise ValueError(
+                    f"layer leaf {k!r} has {a.shape[-1]} columns; the mesh "
+                    f"wants {glp.op} (global) or {llp.op} (this shard's)")
+        out.append(local)
+    return tuple(out)
+
+
 class _CachedExecutor:
     """Common plan-cache plumbing: bucket, pad, look up, run, slice.
 
-    Subclasses supply ``_build(key) -> (plan, apply)``, and may override
-    ``_flags(cim=, sam_perms=)`` (backend statics that belong in the cache
-    key) and ``_run`` (how the apply is invoked; the default calls
-    ``apply(codes, xraw, layers, return_intermediates)``).  ``generator``
-    reaches ``_run``; only stochastic backends read it.
+    Subclasses supply ``_build_local(key) -> (plan, apply)``, and may
+    override ``_flags(cim=, sam_perms=)`` (backend statics that belong in
+    the cache key), ``_run`` (how the apply is invoked; the default calls
+    ``apply(codes, xraw, layers, return_intermediates)``) and, for the mesh
+    path, ``_mesh_layer_fn`` / ``_mesh_noise_fn`` (the per-shard layer step
+    and the per-shard stochastic terms).  ``generator`` reaches ``_run``;
+    only stochastic backends read it.
     """
 
     name = "?"
@@ -207,15 +287,26 @@ class _CachedExecutor:
     def _flags(self, cim=None, sam_perms=None) -> tuple:
         return ()  # deterministic backends ignore the acim options
 
-    def __call__(self, dep, x, *, xraw=None, generator=None,
+    def __call__(self, dep, x, *, xraw=None, generator=None, mesh=None,
                  return_intermediates=False, **opts):
         device = dep.device
+        mesh = resolve_mesh(mesh, getattr(dep, "placement", None))
         x = _as_input(x, device)
         if xraw is not None:
             xraw = _as_input(xraw, device)
         codes, xraw = _entry_codes(dep, x, xraw)
         b = codes.shape[0]
-        bucket = bucket_batch(b)
+        if mesh is None:
+            bucket = bucket_batch(b)
+            mesh_fp = ()
+        else:
+            dsize, msize = mesh_axis_sizes(mesh)
+            # every data shard's slab holds at least one 8-row tile, and
+            # the bucket divides by any data size
+            bucket = bucket_batch(b, lo=8 * dsize)
+            mesh_fp = _mesh_key_fingerprint(
+                mesh, dsize, msize, tuple(dep.dims), tuple(dep.specs),
+                bucket, dep.residual_raw)
         key = PlanKey(
             dims=tuple(dep.dims),
             specs=tuple(dep.specs),
@@ -224,6 +315,7 @@ class _CachedExecutor:
             device=str(codes.device),
             backend=self.name,
             flags=self._flags(**opts),
+            mesh=mesh_fp,
         )
         _, apply = PLAN_CACHE.get(key, self._build)
         DISPATCH_COUNTS[self.name] += 1
@@ -238,7 +330,69 @@ class _CachedExecutor:
         return apply(codes, xraw, layers, return_intermediates)
 
     def _build(self, key: PlanKey):
+        if key.mesh:
+            return self._build_sharded(key)
+        return self._build_local(key)
+
+    def _build_local(self, key: PlanKey):
         raise NotImplementedError
+
+    # -- the mesh path ---------------------------------------------------
+
+    def _mesh_layer_fn(self, key: PlanKey, local_plan):
+        """Per-shard layer step: kernel B1 on the local geometry at the
+        global layer's feature split (shared by "fused" and "acim"; "ref"
+        overrides it with the padded composition)."""
+        def layer_fn(li, lp, lw, h_codes, h_raw, psum_noise, splits):
+            return run_pipeline_layer(
+                h_codes, h_raw if lp.residual_raw else None, lw, lp,
+                local_plan.bp, psum_noise=psum_noise,
+                row_tile=local_plan.row_tile, feature_splits=splits)
+        return layer_fn
+
+    def _mesh_noise_fn(self, key: PlanKey, local_plan):
+        return None  # deterministic backends draw nothing per shard
+
+    def _build_sharded(self, key: PlanKey):
+        """One shard body per (geometry, bucket, mesh fingerprint).
+
+        The per-shard plan is the plan of the local rows (``bucket /
+        data``, tuned tiles included) with each sharded layer's padded
+        output dim divided by the model size; each layer's feature split
+        comes from the global widths."""
+        mesh = mesh_from_fingerprint(key.mesh)
+        dsize, msize = mesh_axis_sizes(mesh)
+        base = PLAN_CACHE.plan(key.bucket // dsize, key.dims, key.specs,
+                               residual_raw=key.residual_raw)
+        local_plan, sharded, _ = shard_local_plan(base, msize)
+        if sharded != key.mesh[4]:
+            raise RuntimeError(f"shard flags {sharded} != key {key.mesh}")
+        runner = build_sharded_runner(
+            mesh, local_plan=local_plan, layer_sharded=sharded,
+            feature_splits=tuple(feature_split_plan(lp.f, lp.o)[0]
+                                 for lp in base.layers),
+            residual_raw=key.residual_raw,
+            layer_fn=self._mesh_layer_fn(key, local_plan),
+            noise_fn=self._mesh_noise_fn(key, local_plan))
+        lp0 = base.layers[0]
+        logical_o = tuple(lp.o for lp in base.layers)
+        model_index = mesh_index(mesh, "model")
+
+        def apply(codes, xraw, layers, return_intermediates, noise_arg=None):
+            codes = F.pad(codes, (0, lp0.fp - lp0.f))
+            if key.residual_raw:
+                xraw = F.pad(xraw.to(torch.float32), (0, lp0.fp - lp0.f))
+            local = _local_layers(layers, base, local_plan, sharded,
+                                  model_index)
+            y, boundary = runner(codes, xraw, local, noise_arg,
+                                 return_intermediates)
+            y = y[:, : logical_o[-1]]
+            if return_intermediates:
+                return y, tuple(c[:, : logical_o[li]]
+                                for li, c in enumerate(boundary))
+            return y
+
+        return base, apply
 
 
 # ----------------------------------------------------------------------------
@@ -280,10 +434,43 @@ def ref_composition(logical_layers, specs, codes, xraw, *,
     return y
 
 
+def _ref_padded_layer(lp, lw, codes, xraw, psum_noise=None):
+    """One layer of the ref composition on PADDED per-shard geometry: the
+    mesh path's plain analogue of B1, in the kernel's op order (dense
+    SH-LUT basis -> banded MAC -> ReLU branch -> noise -> boundary re-code)
+    on the padded weights a shard holds.  The re-code multiplies by the f32
+    ``1 / code_step`` as every other path does; the reference's version
+    divides by ``code_step``, which moves a code by one at near-ties."""
+    spec = lp.spec
+    b = codes.shape[0]
+    basis = dense_basis_from_codes(codes, lw["lut"].to(torch.float32), spec)
+    y = basis.reshape(b, lp.fp * spec.num_basis) @ unpacked_wc(lw, lp)
+    if lp.residual_raw:
+        resid = xraw.to(torch.float32)
+    else:
+        resid = f32(spec.lo) + codes.to(torch.float32) * f32(spec.code_step)
+    y = y + torch.clamp_min(resid, 0.0) @ lw["wb"].to(torch.float32)
+    if psum_noise is not None:
+        y = y + psum_noise
+    if not lp.emit_codes:
+        return y, None
+    half_span, mid, lo, scale, num_codes = _requant_consts(lp)
+    h = torch.tanh(y) * half_span + mid
+    q = torch.floor((h - lo) * scale + 0.5).to(torch.int32)
+    return y, torch.clamp(q, 0, num_codes - 1)
+
+
 class RefExecutor(_CachedExecutor):
     name = "ref"
 
-    def _build(self, key: PlanKey):
+    def _mesh_layer_fn(self, key: PlanKey, local_plan):
+        def layer_fn(li, lp, lw, h_codes, h_raw, psum_noise, splits):
+            return _ref_padded_layer(
+                lp, lw, h_codes, h_raw if lp.residual_raw else None,
+                psum_noise=psum_noise)
+        return layer_fn
+
+    def _build_local(self, key: PlanKey):
         plan = PLAN_CACHE.plan(key.bucket, key.dims, key.specs,
                                residual_raw=key.residual_raw)
 
@@ -307,7 +494,7 @@ class RefExecutor(_CachedExecutor):
 class FusedExecutor(_CachedExecutor):
     name = "fused"
 
-    def _build(self, key: PlanKey):
+    def _build_local(self, key: PlanKey):
         plan = PLAN_CACHE.plan(key.bucket, key.dims, key.specs,
                                residual_raw=key.residual_raw)
 
@@ -474,7 +661,76 @@ class ACIMExecutor(_CachedExecutor):
                          else torch.from_numpy(g).to(key.device))
         return tuple(gains)
 
-    def _build(self, key: PlanKey):
+    def _mesh_layer_fn(self, key: PlanKey, local_plan):
+        """The fused step with the IR-drop row gains applied to the
+        shard's column slab.  The gains are a full-length ROW vector (the
+        contraction axis stays whole on every shard), so they broadcast
+        unchanged against the slab."""
+        base_fn = super()._mesh_layer_fn(key, local_plan)
+        row_gains = self._row_gains(key, local_plan)
+
+        def layer_fn(li, lp, lw, h_codes, h_raw, psum_noise, splits):
+            return base_fn(li, lp, gained_layer(lw, lp, row_gains[li]),
+                           h_codes, h_raw, psum_noise, splits)
+
+        return layer_fn
+
+    def _mesh_noise_fn(self, key: PlanKey, local_plan):
+        """Per-shard stochastic terms, each from its own generator seeded
+        by (the call's base seed, a tag, the shard's coordinates):
+
+          * the entry-code noise folds in the data index only (codes are
+            replicated across "model");
+          * layer ``li``'s partial-sum draw folds in the model index only
+            where that layer's columns are sharded, so a replicated layer
+            draws identical noise on every model replica.
+
+        A fixed seed on a fixed mesh reproduces; the draws are not the
+        unsharded call's (nor the reference's: Philox is not threefry).
+        Each shard owns whole columns, so its ``n_arrays`` and per-channel
+        ``w_lsb`` equal the unsharded values of the same columns."""
+        cfg, _, has_input_noise, has_psum = self._statics(key)
+        if not (has_input_noise or has_psum):
+            return None
+        spec0 = key.specs[0]
+        tm = cfg.input_gen
+
+        def noise_fn(codes, layers, base_seed, ctx):
+            dev = codes.device
+            if has_input_noise:
+                g = shard_generator(dev, base_seed, 0, ctx.data_index)
+                eff = apply_input_noise(codes, tm, g)
+                codes = torch.clamp(torch.floor(eff + 0.5).to(torch.int32),
+                                    0, spec0.num_codes - 1)
+            if not has_psum:
+                return codes, None
+            noises = []
+            for li, (lp, lw) in enumerate(zip(local_plan.layers, layers)):
+                mi = ctx.model_index if ctx.layer_sharded[li] else 0
+                g = shard_generator(dev, base_seed, 1 + li, ctx.data_index,
+                                    mi)
+                noises.append(
+                    self._layer_psum_std(cfg, lp, lw)[None, :] * torch.randn(
+                        (local_plan.bp, lp.op), generator=g, device=dev))
+            return codes, tuple(noises)
+
+        return noise_fn
+
+    def _build_sharded(self, key: PlanKey):
+        """The shard body, fed a base seed drawn from the call's generator
+        (one 62-bit draw, so a reused generator moves on)."""
+        plan, apply = super()._build_sharded(key)
+
+        def seeded(codes, xraw, layers, generator, return_intermediates):
+            seed = 0
+            if generator is not None:
+                seed = int(torch.randint(2**62, (1,), generator=generator,
+                                         device=generator.device).item())
+            return apply(codes, xraw, layers, return_intermediates, seed)
+
+        return plan, seeded
+
+    def _build_local(self, key: PlanKey):
         cfg, _, has_input_noise, has_psum = self._statics(key)
         plan = PLAN_CACHE.plan(key.bucket, key.dims, key.specs,
                                residual_raw=key.residual_raw)

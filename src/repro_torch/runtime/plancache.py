@@ -3,7 +3,8 @@
 Port of ``repro.runtime.plancache``.
 
   * **bucketing**: a logical batch ``b`` is rounded up to the next power of
-    two (:func:`bucket_batch`); inputs are zero-padded to the bucket and the
+    two (:func:`bucket_batch`; on a mesh, ``8 * data_size`` times one);
+    inputs are zero-padded to the bucket and the
     output sliced back.  Rows are independent through the whole datapath,
     so padding is invisible to the real rows, and a ragged request stream
     builds O(log B) entries instead of one per batch size.
@@ -34,7 +35,9 @@ __all__ = ["bucket_batch", "PlanKey", "PlanCache", "PLAN_CACHE"]
 
 
 def bucket_batch(b: int, lo: int = 8) -> int:
-    """Round a logical batch up to the next power of two (>= ``lo``)."""
+    """Round a logical batch up to ``lo`` times a power of two.  Meshed
+    calls pass ``lo = 8 * data_size``, so every data shard's slab is at
+    least one 8-row tile and the bucket divides by any data size."""
     if b < 1:
         raise ValueError(f"batch must be >= 1, got {b}")
     p = lo
@@ -54,6 +57,7 @@ class PlanKey:
     device: str             # "cuda:0", "cpu", ...: where the entry runs
     backend: str
     flags: tuple = ()       # backend statics (e.g. ("cim", CIMConfig(...)))
+    mesh: tuple = ()        # meshexec.mesh_fingerprint, () when unsharded
 
 
 class PlanCache:

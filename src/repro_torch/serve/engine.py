@@ -38,9 +38,36 @@ decode and verify call runs under ``obs.profile_scope`` (``serve.prefill``,
 ``serve.prefill_chunk``, ``serve.decode_step``, ``serve.verify``): a
 ``torch.profiler`` range while annotations are on, nothing otherwise.
 
-Not ported yet: ``mesh=`` (ROADMAP A10).  An audio or vlm model is
-refused: its prefill needs stub embeddings beside the tokens, which the
-engine does not carry (the reference's engine raises ``KeyError`` there).
+``mesh=`` (a ``DeviceMesh`` with axes ("data", "model"), e.g.
+``launch.mesh.make_local_mesh``) serves SPMD, one process per device, each
+running the same engine and scheduler on the same request stream
+(:class:`SlotShards`):
+
+  * params follow ``models.model.place_params``: attention heads, dense
+    FFN hidden columns and the vocabulary on "model" (kernel B2 runs per
+    rank on its ``Hkv / model`` heads), and the deployed KAN-FFN bundles
+    on the runtime's mesh runner with their columns on "model" (kernel B1
+    per shard);
+  * slots split over "data" when ``data`` divides them: data rank d owns
+    ``slots / data`` slots and the cache rows for them (contiguous), or its
+    share of the paged pool (``ServeEngine.pools``, one ``KVBlockPool``
+    per data rank; ``num_blocks`` is rounded up to a multiple of
+    ``data``).  Otherwise every rank serves every slot;
+  * decode (and verify) runs on the local slots, and the logits are
+    all-gathered over "data", so every rank's scheduler sees every stream;
+  * a B=1 prefill runs on the ranks of the slot's owner, and its
+    first-token logits are broadcast over "data".
+
+Host state (positions, block tables, pool bookkeeping, the scheduler)
+stays identical on every rank, so every rank takes the same decisions; a
+request ``deadline_s`` or future ``arrival_s`` would read each rank's
+wall clock, so the scheduler refuses them on a mesh of more than one rank
+(unless it runs on a clock every rank advances alike).  A 1x1 mesh serves
+the same tokens as no mesh.
+
+An audio or vlm model is refused: its prefill needs stub embeddings beside
+the tokens, which the engine does not carry (the reference's engine raises
+``KeyError`` there).
 """
 
 from __future__ import annotations
@@ -56,12 +83,14 @@ import torch
 from .. import runtime
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..dist import comm
 from ..models import model as M
 from ..obs.trace import profile_scope
-from .kvpool import KVBlockPool
+from ..runtime.meshexec import mesh_axis_sizes, mesh_index
+from .kvpool import KVBlockPool, merged_stats
 
-__all__ = ["Request", "ServeEngine", "prefill_bucketing_supported",
-           "paged_kv_supported"]
+__all__ = ["Request", "ServeEngine", "SlotShards",
+           "prefill_bucketing_supported", "paged_kv_supported"]
 
 
 def prefill_bucketing_supported(cfg: ModelConfig) -> bool:
@@ -99,11 +128,80 @@ class Request:
     ttft_s: float = 0.0          # arrival -> first token
 
 
-def step_scope(kan_backend, attn_backend):
-    """The KAN and attention backends and ``no_grad`` for one step."""
+class SlotShards:
+    """How a mesh splits a pool of ``slots`` decode slots (``mesh=None``:
+    one rank holds all of them).
+
+    Data rank d owns slots ``[d * local, (d + 1) * local)`` when the data
+    size divides ``slots`` (``sharded``); otherwise every rank holds every
+    slot.  :meth:`scope` binds the runtime's mesh (the ``"model"`` axis:
+    the KAN-FFN columns) and ``tp``, the tensor-parallel layout
+    ``models.model.place_params`` returned, for one step."""
+
+    def __init__(self, mesh, slots: int, tp: comm.TPLayout | None = None):
+        self.mesh = mesh
+        self.tp = tp
+        self.ranks = 1 if mesh is None else int(mesh.mesh.numel())
+        dsize, self.msize = (1, 1) if mesh is None else mesh_axis_sizes(mesh)
+        self.dsize = dsize
+        self.sharded = dsize > 1 and slots % dsize == 0
+        self.rank = 0 if mesh is None else mesh_index(mesh, "data")
+        self.local = slots // dsize if self.sharded else slots
+        self.lo = self.rank * self.local if self.sharded else 0
+        names = () if mesh is None else mesh.mesh_dim_names
+        self.data_group = mesh.get_group("data") if "data" in names else None
+        self.kan_mesh = mesh["model"] if "model" in names else None
+
+    def owner(self, slot: int) -> int:
+        return slot // self.local if self.sharded else self.rank
+
+    def owns(self, slot: int) -> bool:
+        return self.owner(slot) == self.rank
+
+    def rows(self, a):
+        """This rank's rows of a per-slot array."""
+        return a[self.lo:self.lo + self.local] if self.sharded else a
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a per-slot result, in slot order."""
+        return comm.all_gather(t, self.data_group, 0) if self.sharded else t
+
+    def share_logits(self, slot: int, logits):
+        """The owner's (V,) f32 first-token logits of ``slot`` on every
+        rank (``logits`` is None on the others)."""
+        if not self.sharded:
+            return logits
+        return comm.broadcast(logits, self.owner(slot), self.data_group)
+
+    def scope(self, split_rows: bool = False):
+        """The mesh scope of one step; ``split_rows``: the step runs the
+        local slots on every data rank at once (decode, verify), so the
+        rows are this rank's slab of one batch split over "data"."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(runtime.use_mesh(self.kan_mesh))
+        stack.enter_context(comm.use_tp(self.tp))
+        stack.enter_context(comm.use_row_split(
+            self.data_group if split_rows and self.sharded else None))
+        return stack
+
+    def layout(self) -> dict | None:
+        if self.mesh is None:
+            return None
+        return {"axes": list(self.mesh.mesh_dim_names),
+                "shape": [int(s) for s in self.mesh.shape],
+                "devices": self.ranks,
+                "slots_sharded": self.sharded}
+
+
+def step_scope(kan_backend, attn_backend, shards=None,
+               split_rows: bool = False):
+    """The KAN and attention backends, the mesh scope of ``shards`` (see
+    :meth:`SlotShards.scope`) and ``no_grad`` for one step."""
     stack = contextlib.ExitStack()
     stack.enter_context(runtime.use_backend(kan_backend))
     stack.enter_context(runtime.use_attn_backend(attn_backend))
+    if shards is not None:
+        stack.enter_context(shards.scope(split_rows))
     stack.enter_context(torch.no_grad())
     return stack
 
@@ -150,9 +248,6 @@ class ServeEngine:
                  kv_blocks: int | None = None, prefix_cache: bool = True,
                  prefill_chunk: int | None = None,
                  spec_decode: int = 0, draft_spec=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is not ported yet (ROADMAP A10)")
         refusal = M.tokens_only_refusal(cfg, "the serving engine")
         if refusal:
             raise ValueError(refusal)
@@ -171,6 +266,11 @@ class ServeEngine:
             from ..core.kan_ffn_deploy import quantize_kan_ffn_params_tree
 
             params = quantize_kan_ffn_params_tree(params, cfg)
+        tp = None
+        if mesh is not None:
+            params, tp = M.place_params(params, cfg, mesh)
+        self.mesh = mesh
+        self.shards = SlotShards(mesh, slots, tp)
         self.params = params
         self.cfg = cfg
         self.slots = slots
@@ -191,7 +291,7 @@ class ServeEngine:
                              "(set kv_block_size)")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
-        self.pool = None
+        self.pools: list[KVBlockPool] = []
         if self.paged:
             if not paged_kv_supported(cfg):
                 raise ValueError(
@@ -207,15 +307,24 @@ class ServeEngine:
             nblk = max_len // kv_block_size
             num_blocks = (kv_blocks if kv_blocks is not None
                           else slots * nblk + 1)  # +1: the scratch block
-            self.pool = KVBlockPool(num_blocks, kv_block_size,
-                                    prefix_cache=prefix_cache)
-            # table row entry 0 = the scratch block (unallocated / retired)
+            # a sharded pool: one share per data rank, each with its
+            # scratch block
+            shares = self.shards.dsize if self.shards.sharded else 1
+            num_blocks += (-num_blocks) % shares
+            self.pools = [KVBlockPool(num_blocks // shares, kv_block_size,
+                                      prefix_cache=prefix_cache)
+                          for _ in range(shares)]
+            # table row entry 0 = the scratch block (unallocated / retired);
+            # a row's ids index its owner's share
             self.block_tables = np.zeros((slots, nblk), np.int32)
             self._slot_blocks: list[list[int]] = [[] for _ in range(slots)]
-            self.cache = M.init_paged_cache(params, cfg, num_blocks,
-                                            kv_block_size)
+            with self.shards.scope():
+                self.cache = M.init_paged_cache(
+                    params, cfg, num_blocks // shares, kv_block_size)
         else:
-            self.cache = M.init_cache(params, cfg, slots, max_len)
+            with self.shards.scope():
+                self.cache = M.init_cache(params, cfg, self.shards.local,
+                                          max_len)
         self.pos = np.zeros(slots, np.int32)
         self.active: list[Request | None] = [None] * slots
         # sorted free-slot list; a slot mid-prefill is not free
@@ -247,16 +356,30 @@ class ServeEngine:
                      else DraftSpec.parse(draft_spec))
             self.draft = DraftModel(float_params, cfg, dspec, slots, max_len,
                                     kan_backend=self.kan_backend,
-                                    attn_backend=self.attn_backend)
+                                    attn_backend=self.attn_backend,
+                                    mesh=mesh)
         elif draft_spec is not None:
             raise ValueError("draft_spec without spec_decode=k has no effect")
         del float_params
 
     # -- backend scope ----------------------------------------------------
 
-    def _scope(self):
-        """The engine's KAN and attention backends, for one step."""
-        return step_scope(self.kan_backend, self.attn_backend)
+    def _scope(self, split_rows: bool = False):
+        """The engine's KAN and attention backends and mesh, for one
+        step."""
+        return step_scope(self.kan_backend, self.attn_backend, self.shards,
+                          split_rows)
+
+    @property
+    def pool(self) -> KVBlockPool | None:
+        """The paged pool of an engine whose pool is not split over "data"
+        (None otherwise, and on contiguous engines)."""
+        return self.pools[0] if len(self.pools) == 1 else None
+
+    def _pool_of(self, slot: int) -> KVBlockPool:
+        """The pool share that holds ``slot``'s blocks."""
+        return self.pools[self.shards.owner(slot) if self.shards.sharded
+                          else 0]
 
     def _tensor(self, a, dtype=torch.int64) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -283,7 +406,7 @@ class ServeEngine:
             self.draft.release(slot)
         if self.paged:
             for bid in self._slot_blocks[slot]:
-                self.pool.release(bid)
+                self._pool_of(slot).release(bid)
             self._slot_blocks[slot] = []
             # a retired slot still rides the pooled decode step: its writes
             # go to the scratch block
@@ -327,8 +450,8 @@ class ServeEngine:
         self._take_slot(slot)
         state = {"req": req, "next": 0}
         if self.paged:
-            reused = self.pool.match_prefix(req.prompt,
-                                            max_tokens=len(req.prompt) - 1)
+            reused = self._pool_of(slot).match_prefix(
+                req.prompt, max_tokens=len(req.prompt) - 1)
             self._slot_blocks[slot] = list(reused)
             for j, bid in enumerate(reused):
                 self.block_tables[slot, j] = bid
@@ -359,18 +482,30 @@ class ServeEngine:
             self.draft.prefill_slot(slot, req)
         return logits
 
+    def _first_logits(self, slot: int, logits) -> np.ndarray:
+        """The (V,) first-token logits of ``slot`` on the host of every
+        rank (the owner's, broadcast over "data" on a sharded pool)."""
+        if logits is None:
+            logits = torch.empty(self.cfg.vocab_size, dtype=torch.float32,
+                                 device=self.device)
+        else:
+            logits = logits[0].to(torch.float32)
+        return self.shards.share_logits(slot, logits).cpu().numpy()
+
     def _prefill_contiguous(self, slot: int, req: Request) -> np.ndarray:
         plen = len(req.prompt)
         padded = self._padded_prompt(req.prompt)
-        tokens = self._tensor([padded])
         self._prefill_buckets_seen.add(len(padded))
         self.prefill_calls += 1
+        logits = None
         with self._scope(), profile_scope("serve.prefill"):
-            logits, cache1 = M.prefill(self.params, {"tokens": tokens},
-                                       self.cfg, max_len=self.max_len,
-                                       last_index=[plen - 1])
-            splice_slot(self.cache, cache1, slot, plen, self.prefill_buckets)
-        return logits[0].cpu().numpy()
+            if self.shards.owns(slot):
+                logits, cache1 = M.prefill(
+                    self.params, {"tokens": self._tensor([padded])},
+                    self.cfg, max_len=self.max_len, last_index=[plen - 1])
+                splice_slot(self.cache, cache1, slot - self.shards.lo, plen,
+                            self.prefill_buckets)
+            return self._first_logits(slot, logits)
 
     def _prefill_paged_chunk(self, slot: int, st: dict):
         """One chunk of paged prefill; returns final logits or None."""
@@ -388,10 +523,11 @@ class ServeEngine:
                 c = lb
         bs = self.kv_block_size
         blocks = self._slot_blocks[slot]
+        pool = self._pool_of(slot)
         need = -(-(start + take) // bs)          # ceil: blocks covering chunk
         try:
             while len(blocks) < need:
-                bid = self.pool.alloc()
+                bid = pool.alloc()
                 self.block_tables[slot, len(blocks)] = bid
                 blocks.append(bid)
         except Exception:
@@ -400,19 +536,22 @@ class ServeEngine:
         chunk = req.prompt[start:start + take] + [0] * (c - take)
         self._prefill_buckets_seen.add(c)
         self.prefill_calls += 1
+        logits = None
         with self._scope(), profile_scope("serve.prefill_chunk"):
-            logits, self.cache = M.prefill_chunk(
-                self.params, self._tensor([chunk]), self.cache,
-                self._tensor(self.block_tables[slot]), start, start + take,
-                self.cfg, plen - 1,
-            )
+            if self.shards.owns(slot):
+                logits, self.cache = M.prefill_chunk(
+                    self.params, self._tensor([chunk]), self.cache,
+                    self._tensor(self.block_tables[slot]), start,
+                    start + take, self.cfg, plen - 1,
+                )
         st["next"] = start + take
         if st["next"] < plen:
             return None
         # publish the prompt's FULL blocks for future prefix hits; partial
         # tail blocks (decode keeps writing them) are never shared
-        self.pool.publish_prefix(req.prompt, blocks[:plen // bs])
-        return logits[0].cpu().numpy()
+        pool.publish_prefix(req.prompt, blocks[:plen // bs])
+        with self._scope():
+            return self._first_logits(slot, logits)
 
     def _ensure_decode_blocks(self, horizon: int = 1) -> None:
         """Allocate the pool blocks covering each active slot's next
@@ -424,7 +563,7 @@ class ServeEngine:
             blocks = self._slot_blocks[i]
             need = -(-min(int(self.pos[i]) + horizon, self.max_len) // bs)
             while len(blocks) < need:
-                bid = self.pool.alloc()
+                bid = self._pool_of(i).alloc()
                 self.block_tables[i, len(blocks)] = bid
                 blocks.append(bid)
 
@@ -437,20 +576,21 @@ class ServeEngine:
             tables = tables.copy()
             for s in self._prefilling:
                 tables[s] = 0
-        return self._tensor(tables)
+        return self._tensor(self.shards.rows(tables))
 
     def decode_active(self, tokens) -> torch.Tensor:
-        """One pooled decode step over all slots; returns device logits
-        (slots, V) and updates the cache in place.  ``pos`` bookkeeping is
-        the caller's."""
+        """One pooled decode step over all slots (this rank's, on a sharded
+        pool); returns device logits (slots, V), gathered over "data", and
+        updates the cache in place.  ``pos`` bookkeeping is the caller's."""
         tables = self._step_tables(1) if self.paged else None
+        rows = self.shards.rows
         self.decode_calls += 1
-        with self._scope(), profile_scope("serve.decode_step"):
+        with self._scope(split_rows=True), profile_scope("serve.decode_step"):
             logits, self.cache = M.decode_step(
-                self.params, self.cache, self._tensor(tokens),
-                self._tensor(self.pos), self.cfg, block_table=tables,
+                self.params, self.cache, self._tensor(rows(np.asarray(tokens))),
+                self._tensor(rows(self.pos)), self.cfg, block_table=tables,
             )
-        return logits
+            return self.shards.gather(logits)
 
     def verify_active(self, tokens) -> torch.Tensor:
         """One batched verify pass over all slots (paged engines): tokens
@@ -461,27 +601,28 @@ class ServeEngine:
             raise ValueError("verify_active requires the paged KV cache")
         tokens = np.asarray(tokens)
         tables = self._step_tables(int(tokens.shape[1]))
+        rows = self.shards.rows
         self.verify_calls += 1
         self._verify_widths.add(int(tokens.shape[1]))
-        with self._scope(), profile_scope("serve.verify"):
+        with self._scope(split_rows=True), profile_scope("serve.verify"):
             logits, self.cache = M.verify_step(
-                self.params, self.cache, self._tensor(tokens),
-                self._tensor(self.pos), self.cfg, tables,
+                self.params, self.cache, self._tensor(rows(tokens)),
+                self._tensor(rows(self.pos)), self.cfg, tables,
             )
-        return logits
+            return self.shards.gather(logits)
 
     def truncate_slot(self, slot: int, new_len: int) -> None:
         """Roll back a slot's KV to ``new_len`` positions: whole tail blocks
         return to the pool and their table rows point at the scratch block."""
         blocks = self._slot_blocks[slot]
-        self.pool.truncate(blocks, new_len)
+        self._pool_of(slot).truncate(blocks, new_len)
         self.block_tables[slot, len(blocks):] = 0
 
     def kv_stats(self) -> dict | None:
         """Paged-pool counters (None on contiguous engines)."""
         if not self.paged:
             return None
-        s = self.pool.stats()
+        s = merged_stats(self.pools)
         s["prefill_chunk"] = self.prefill_chunk
         s["slot_blocks"] = [len(b) for b in self._slot_blocks]
         return s
@@ -512,6 +653,11 @@ class ServeEngine:
             (d, kan_ffn_hidden(self.cfg), d), kan_ffn_specs(self.cfg), True)
         return "tuned" if ov is not None else "heuristic"
 
+    def mesh_layout(self) -> dict | None:
+        """The serving mesh layout (axes, sizes, ranks, and whether the slot
+        pool split over "data"), or None without a mesh."""
+        return self.shards.layout()
+
     def compile_stats(self) -> dict:
         """Engine counters under the reference's keys (``prefill_traces``:
         distinct prefill buckets, ``decode_traces``: decode calls,
@@ -524,7 +670,7 @@ class ServeEngine:
             "verify_calls": self.verify_calls,
             "prefill_calls": self.prefill_calls,
             "plan_cache": runtime.cache_stats(),
-            "mesh": None,
+            "mesh": self.mesh_layout(),
             "attn_backend": self.attn_backend,
             "kv": self.kv_stats(),
             "spec": (None if self.draft is None

@@ -32,13 +32,22 @@ owns the *bookkeeping* half of the paged replacement:
 
 The pool is pure host-side state — it never touches device memory — so
 every method is cheap enough for the scheduler's admit path.
+
+On a mesh's ``"data"`` axis the serving engine keeps one
+:class:`KVBlockPool` per data rank, each with its own scratch block and
+local ids (:func:`merged_stats` sums their counters): a slot's blocks come
+from its owner's share, which holds the device blocks. Every rank keeps the
+bookkeeping of every share, so the schedulers of all ranks see the same
+state. A prefix hit counts only within one share (the reference's one pool
+can hit across them): the streams cannot change, the hit counts can.
 """
 
 from __future__ import annotations
 
 import collections
 
-__all__ = ["KVBlockPool", "KVPoolExhausted", "hash_token_blocks"]
+__all__ = ["KVBlockPool", "KVPoolExhausted", "hash_token_blocks",
+           "merged_stats"]
 
 SCRATCH_BLOCK = 0  # reserved: write-dump for retired slots, never allocated
 
@@ -279,3 +288,22 @@ class KVBlockPool:
             assert self._hash_to_block.get(h) == bid, (h, bid)
         for bid in self._evictable:
             assert bid in self._block_hash, bid
+
+
+_SUMMED = ("num_blocks", "blocks_in_use", "blocks_in_use_peak",
+           "blocks_cached", "blocks_free", "prefix_hits", "prefix_misses",
+           "allocs", "evictions", "truncations")
+
+
+def merged_stats(pools: list) -> dict:
+    """One pool's :meth:`KVBlockPool.stats`, or several shares' counters
+    summed (with the hit rate of the sums and their number, ``shares``)."""
+    if len(pools) == 1:
+        return pools[0].stats()
+    per = [p.stats() for p in pools]
+    out = dict(per[0])
+    out.update({k: sum(s[k] for s in per) for k in _SUMMED})
+    looked = out["prefix_hits"] + out["prefix_misses"]
+    out.update(prefix_hit_rate=out["prefix_hits"] / looked if looked else 0.0,
+               shares=len(pools))
+    return out

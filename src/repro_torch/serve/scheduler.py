@@ -287,7 +287,21 @@ class Scheduler:
         request invisible to admission until that offset — the hook the
         sustained-load benchmark drives its deterministic arrival schedule
         through.
+
+        On a mesh of more than one rank every rank must take the same
+        decisions, so with the wall clock (no ``clock``) a deadline or a
+        future arrival, which each rank would read off its own clock, is
+        refused with ``ValueError``.
         """
+        now = self.elapsed()
+        ranks = getattr(getattr(self.engine, "shards", None), "ranks", 1)
+        if (ranks > 1 and self._clock is None
+                and (req.deadline_s is not None or req.arrival_s > now)):
+            raise ValueError(
+                f"request {req.rid}: a deadline or a future arrival reads "
+                f"each rank's wall clock, and the {ranks} ranks of the mesh "
+                "would part ways; pass a clock every rank advances alike "
+                "(ManualClock) or serve it without a mesh")
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             self.rejected += 1
             if self._mx is not None:
@@ -296,7 +310,7 @@ class Scheduler:
                 f"queue full ({len(self.queue)}/{self.max_queue}); "
                 f"request {req.rid} rejected"
             )
-        req.arrival_s = max(float(req.arrival_s), self.elapsed())
+        req.arrival_s = max(float(req.arrival_s), now)
         req.status = "queued"
         self.queue.append(req)
         self.submitted += 1

@@ -28,6 +28,11 @@ counterpart: :meth:`DraftModel.describe` reports under the same keys the
 drafter's distinct prefill buckets (``prefill_traces``) and decode calls
 (``decode_traces``), as the engine's ``compile_stats`` does, beside its
 call counts and its plan-cache entries.
+
+``DraftModel(mesh=)`` follows the engine's mesh (``engine.SlotShards``):
+its params are placed as the target's, its cache holds this rank's slots,
+a prefill runs on the owner's ranks, and each propose step decodes the
+local slots and all-gathers their next tokens over "data".
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from .. import runtime
 from ..configs.base import ModelConfig
 from ..models import model as M
 from ..obs.trace import profile_scope
-from .engine import splice_slot, step_scope
+from .engine import SlotShards, splice_slot, step_scope
 
 __all__ = ["DraftSpec", "DraftModel", "refit_kan_ffn_params_tree"]
 
@@ -152,7 +157,7 @@ class DraftModel:
 
     def __init__(self, float_params, cfg: ModelConfig, spec: DraftSpec,
                  slots: int, max_len: int, kan_backend: str | None = None,
-                 attn_backend: str | None = None):
+                 attn_backend: str | None = None, mesh=None):
         from ..core.kan_ffn_deploy import quantize_kan_ffn_params_tree
         from ..models.layers import kan_ffn_hidden
 
@@ -173,19 +178,27 @@ class DraftModel:
         self.attn_backend = runtime.resolve_attn_backend(attn_backend)
         self.slots = slots
         self.max_len = max_len
+        self.mesh = mesh
+        tp = None
         with torch.no_grad():
             params = refit_kan_ffn_params_tree(float_params, cfg, self.cfg)
             self.params = quantize_kan_ffn_params_tree(params, self.cfg)
+            if mesh is not None:
+                self.params, tp = M.place_params(self.params, self.cfg, mesh)
         del params
+        self.shards = SlotShards(mesh, slots, tp)
         self.device = M.params_device(self.params)
-        self.cache = M.init_cache(self.params, self.cfg, slots, max_len)
+        with self.shards.scope():
+            self.cache = M.init_cache(self.params, self.cfg,
+                                      self.shards.local, max_len)
         self.pos = np.zeros(slots, np.int32)
         self._prefill_buckets_seen: set = set()
         self.prefill_calls = 0
         self.decode_calls = 0
 
-    def _scope(self):
-        return step_scope(self.kan_backend, self.attn_backend)
+    def _scope(self, split_rows: bool = False):
+        return step_scope(self.kan_backend, self.attn_backend, self.shards,
+                          split_rows)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=torch.int64,
@@ -204,11 +217,13 @@ class DraftModel:
             prompt = prompt + [0] * (lb - plen)
         self._prefill_buckets_seen.add(len(prompt))
         self.prefill_calls += 1
-        with self._scope(), profile_scope("serve.draft_prefill"):
-            _, cache1 = M.prefill(self.params, {"tokens": self._tensor([prompt])},
-                                  self.cfg, max_len=self.max_len,
-                                  last_index=[plen - 1])
-            splice_slot(self.cache, cache1, slot, plen, zero_tail=True)
+        if self.shards.owns(slot):
+            with self._scope(), profile_scope("serve.draft_prefill"):
+                _, cache1 = M.prefill(
+                    self.params, {"tokens": self._tensor([prompt])},
+                    self.cfg, max_len=self.max_len, last_index=[plen - 1])
+                splice_slot(self.cache, cache1, slot - self.shards.lo, plen,
+                            zero_tail=True)
         self.pos[slot] = plen
 
     def truncate(self, slot: int, new_len: int) -> None:
@@ -249,16 +264,19 @@ class DraftModel:
         drafts = {i: [] for i in queues}
         chain = np.zeros(self.slots, np.int32)   # last argmax per slot
         pos = self.pos.copy()
-        with self._scope(), profile_scope("serve.draft", steps=nsteps):
+        with self._scope(split_rows=True), profile_scope("serve.draft",
+                                                         steps=nsteps):
             for step in range(nsteps):
                 feed = np.zeros(self.slots, np.int32)
                 for i, q in queues.items():
                     feed[i] = q[step] if step < len(q) else chain[i]
                 self.decode_calls += 1
+                rows = self.shards.rows
                 logits, self.cache = M.decode_step(
-                    self.params, self.cache, self._tensor(feed),
-                    self._tensor(pos), self.cfg)
-                nxt = logits.argmax(dim=-1).cpu().numpy()
+                    self.params, self.cache, self._tensor(rows(feed)),
+                    self._tensor(rows(pos)), self.cfg)
+                # the next tokens, not the logits, cross "data"
+                nxt = self.shards.gather(logits.argmax(dim=-1)).cpu().numpy()
                 pos += 1
                 for i, q in queues.items():
                     chain[i] = nxt[i]

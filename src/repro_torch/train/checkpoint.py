@@ -22,7 +22,7 @@ package reads the other's checkpoints:
 * **Keep-N**: the oldest complete checkpoints beyond ``keep`` are deleted.
 
 Leaves are stored whole (unsharded); restoring onto another mesh waits
-for ROADMAP A10.
+for ROADMAP A10b.
 """
 
 from __future__ import annotations
@@ -204,7 +204,7 @@ class Checkpointer:
         if shardings is not None:
             raise NotImplementedError(
                 "restoring under new shardings is not ported yet (ROADMAP "
-                "A10: distribution)")
+                "A10b: distributed training)")
         self.wait()
         step = latest_step(self.directory)
         if step is None:

@@ -15,7 +15,7 @@ Port of ``repro.train.loop`` on one device (the card unless
 The host waits for the device once per step, to read the loss (the
 reference's sync point); the batch goes up through pinned memory without
 a wait.  Restoring under other shardings (``shardings=``) waits for
-ROADMAP A10.
+ROADMAP A10b.
 """
 
 from __future__ import annotations
@@ -84,8 +84,8 @@ class TrainLoop:
     ):
         if shardings is not None:
             raise NotImplementedError(
-                "sharded training is not ported yet (ROADMAP A10: "
-                "distribution)")
+                "sharded training is not ported yet (ROADMAP A10b: "
+                "distributed training)")
         self.cfg = cfg
         self.data_cfg = data_cfg
         self.device = resolve_device(device)

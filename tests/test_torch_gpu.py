@@ -51,7 +51,12 @@ left bit-equal by decode).  LM training
 the full-width halves against autograd of the plain forward, three train
 steps on the card equal to the CPU's within 1e-5 (and B1 / B2 never
 launched), the in-place optimizer bit-equal to the functional one, and a
-bf16 restart bit-equal to the uninterrupted run.  This file
+bf16 restart bit-equal to the uninterrupted run.  Mesh serving: the
+meshed runtime on a 1x1 NCCL mesh bit-identical to the unsharded call with
+equal B1 launches, a model shard's B1 column slabs (at the whole layer's
+feature split) bit-identical to the whole layer's columns, the NCCL
+collectives called directly on the mesh's world-1 groups, and the int8
+gradient codec on CUDA tensors equal to a numpy reckoning.  This file
 imports only the port, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -390,10 +395,13 @@ def test_b3_kernel_matches_plain(dev, order):
         cc.check_b3(dev, gen, *shape, order=order)
 
 
-@pytest.mark.parametrize("dims,grid,bits,ffn", [
+SLICE_CASES = [
     ((17, 1, 14), 5, 8, False), ((17, 1, 14), 68, 8, False),
     ((17, 1, 14), 5, (8, 4), False), ((64, 128, 64), 8, 8, True),
-])
+]
+
+
+@pytest.mark.parametrize("dims,grid,bits,ffn", SLICE_CASES)
 def test_slice_fused_matches_ref(dev, dims, grid, bits, ffn):
     kspec = KANSpec(dims=dims, grid_size=grid, n_bits=bits)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -668,3 +676,85 @@ def test_bf16_training_restarts_bit_equal_on_the_card(dev):
                               dtype="bfloat16")
     r = tc.check_restart(dev, cfg)
     assert r["restarted"] == r["losses"][3:]
+
+
+# ----------------------------------------------------------------------------
+# mesh serving (A10a): a 1x1 mesh over a world-1 NCCL group
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dims,grid,bits,ffn", SLICE_CASES)
+def test_mesh_1x1_runtime_is_unsharded_bit_for_bit(dev, dims, grid, bits, ffn):
+    """The meshed runtime (``mesh=`` and a placed bundle) on a 1x1 NCCL
+    mesh gives the unsharded call's outputs and boundary codes bit for bit,
+    with the same B1 launches per call."""
+    from repro_torch.core.kan_network_deploy import place_deployed_kan
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(1, 1)
+    assert mesh.device_type == "cuda"
+    kspec = KANSpec(dims=dims, grid_size=grid, n_bits=bits)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qparams = quantize_kan_network(init_kan_network(gen, kspec, device=dev),
+                                   kspec)
+    dep = (deploy_kan_ffn_stack(qparams, dims, kspec.layer_spec(), device=dev)
+           if ffn else deploy_kan_network(qparams, kspec, device=dev))
+    placed = place_deployed_kan(dep, mesh)
+    for rows in (1, 300, 4096):
+        x = torch.rand(rows, dims[0], generator=gen, device=dev) * 2 - 1
+        launches = []
+        outs = []
+        for kw in ({"dep": dep}, {"dep": dep, "mesh": mesh},
+                   {"dep": placed}):
+            before = cuda.launch_counts().get("kan_pipeline_layer", 0)
+            outs.append(runtime.execute(kw.pop("dep"), x,
+                                        return_intermediates=True, **kw))
+            launches.append(cuda.launch_counts()["kan_pipeline_layer"]
+                            - before)
+        assert launches == [len(dims) - 1] * 3
+        for y, codes in outs[1:]:
+            assert torch.equal(y, outs[0][0])
+            assert all(torch.equal(a, b) for a, b in zip(codes, outs[0][1]))
+
+
+def test_int8_codec_on_the_card_is_numpy_bit_for_bit(dev):
+    """``dist.compress._quantize`` on CUDA tensors: the per-tensor scale and
+    every code equal a numpy reckoning (IEEE division on the card, not a
+    reciprocal multiply)."""
+    import numpy as np
+
+    from repro_torch.dist.compress import _quantize
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for shape, scale in (((4097, 33), 3.7), ((1000,), 1e-3), ((64, 64), 1.0)):
+        g = torch.randn(shape, generator=gen, device=dev) * scale
+        q, s = _quantize(g)
+        a = g.cpu().numpy()
+        s_np = np.float32(np.abs(a).max()) / np.float32(127)
+        q_np = np.clip(np.round(a / s_np), -127, 127).astype(np.int8)
+        assert np.float32(s.item()) == s_np
+        np.testing.assert_array_equal(q.cpu().numpy(), q_np)
+
+
+@pytest.mark.parametrize("grid,f,o,flags,rows,model",
+                         cc.B1_COLUMN_SLAB_CASES)
+def test_b1_column_slabs_are_the_whole_layer_bit_for_bit(
+        dev, grid, f, o, flags, rows, model):
+    """What a model-sharded run launches, on one card: every column slab
+    of a full-width gemma2 KAN-FFN half, at the whole layer's feature
+    split, equals those columns of the whole launch; the slab's own plan
+    would have split the contraction otherwise."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    r = cc.check_b1_column_slabs(dev, gen, grid, f, o, flags, rows, model)
+    assert r["equal"] and r["local_plan_splits"] != r["splits"]
+
+
+def test_mesh_collectives_on_the_world1_nccl_groups(dev):
+    """all_gather_into_tensor, all_reduce and broadcast of int32 codes and
+    f32 rows on both groups of a 1x1 NCCL mesh, called directly (the
+    serving path skips a group of one rank)."""
+    from repro_torch.dist.cardcheck import check_collectives
+    from repro_torch.launch.mesh import make_local_mesh
+
+    r = check_collectives(make_local_mesh(1, 1), dev)
+    assert r == {"groups": {"data": 1, "model": 1}, "calls": 12}

@@ -1,0 +1,361 @@
+"""Mesh serving and the meshed KAN runtime on CPU gloo ranks.
+
+One spawn per mesh shape, (1,1), (2,1), (1,2), (2,2) and (1,3), each with
+several checks (``torch_mesh_worker.py`` is the rank body; it imports no
+JAX).  The parent converts the JAX reference's KAN1 and residual FFN
+bundles, computes the reference's unsharded outputs (Pallas interpret
+mode), hands the bundles and inputs over in ``inputs.pt`` and joins the
+ranks with a deadline.  Per shape:
+
+  * the runtime ("fused" through its plain version, "ref", quiet "acim"),
+    meshed through ``mesh=`` and through a ``place_deployed_kan`` bundle,
+    against the port's unsharded call on the same rank and the
+    reference's unsharded outputs: bit-identical at 1x1 and at (1,3)
+    (every layer replicated, with a ``shard_notes`` reason); at data-only
+    bit-identical where a row's GEMM bits do not depend on the rows beside
+    it (the plain versions' CPU GEMM is counted per case, see
+    ``test_data_slab_rows_on_the_cpu_gemm``); model-sharded within the
+    parity gate with the excused near-ties counted; every rank returns the
+    same arrays;
+  * the plumbing (precedence of ``mesh=`` > ``use_mesh`` > placement, plan
+    cache entries apart), noisy acim reproducible under one seed with
+    replicated layers equal across model ranks, ``compressed_grad_sync``
+    against numpy, the compress -> decompress round trip onto the mesh;
+  * the smoke ``qwen2.5-14b`` ``kan_variant()`` engine serving exactly the
+    unsharded port engine's tokens (contiguous, paged, speculative, and at
+    (2,2) with "flash"), and under data alone every other family the
+    engine serves (gemma2 ``kan_variant()``, mixtral, mixtral where the
+    MoE capacity binds, olmoe paged, recurrentgemma ``kan_variant()``,
+    mamba2), mirroring
+    ``tests/test_serving.py``,
+    ``tests/test_kvpool.py`` and ``tests/test_attention_parity.py``'s mesh
+    cases, which skip on a one-device reference run; on two ranks a
+    request deadline is refused.
+"""
+
+import multiprocessing as mp
+import os
+import time
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import torch_mesh_worker as W
+from conftest import kan1_bundle
+from repro import runtime as jrt
+from repro.core.kan_layer import KANSpec as JKANSpec
+from repro.core.kan_layer import init_kan_network as j_init
+from repro.core.kan_network_deploy import deploy_kan_ffn_stack as j_deploy_ffn
+from repro.core.kan_network_deploy import quantize_kan_network as j_quantize
+from repro.runtime.executor import _entry_codes as j_entry_codes
+from repro_torch import convert, parity
+from repro_torch.models import layers as TL
+
+torch.set_num_threads(1)
+
+SHAPES = [(1, 1), (2, 1), (1, 2), (2, 2), (1, 3)]
+TASKS = {
+    (1, 1): ("plumbing", "acim_noise", "compress", "engine"),
+    (2, 1): ("acim_noise", "grad_sync", "engine"),
+    (1, 2): ("acim_noise", "compress", "engine"),
+    (2, 2): ("engine",),
+    (1, 3): ("acim_noise",),
+}
+QWEN = "qwen2.5-14b"
+PAGED = {"kv_block_size": 8}
+MODES = {
+    "contiguous": (QWEN, True, {}),
+    "paged": (QWEN, True, {**PAGED, "prefill_chunk": 4}),
+    "spec": (QWEN, True, {**PAGED, "spec_decode": 2}),
+    "flash": (QWEN, True, {"attn_backend": "flash"}),
+    # the other families under data alone (MoE and recurrent blocks under
+    # model > 1 are refused: ROADMAP A10b)
+    "gemma2": ("gemma2-27b", True, {}),
+    "mixtral": ("mixtral-8x7b", False, {}),
+    # 4 slots at capacity factor 1: the unsharded engine drops assignments
+    # (counted in setup), and each data rank routes its 2 slots as part of
+    # the batch of 4, never as a batch of its own
+    "mixtral_cap": ("mixtral-8x7b", False,
+                    {"slots": 4, "max_new": 8,
+                     "cfg": {"moe_capacity_factor": 1.0}}),
+    "olmoe_paged": ("olmoe-1b-7b", False, PAGED),
+    "recurrentgemma": ("recurrentgemma-9b", True, {}),
+    "mamba2": ("mamba2-370m", False, {}),
+}
+ENGINE_MODES = {
+    (1, 1): ("contiguous", "paged"),
+    (2, 1): ("contiguous", "paged", "spec", "gemma2", "mixtral",
+             "mixtral_cap", "olmoe_paged", "recurrentgemma", "mamba2"),
+    (1, 2): ("contiguous", "spec"),
+    (2, 2): ("flash",),
+}
+DEADLINE_S = 150
+BATCH = 37
+
+
+def _ffn_bundle():
+    jk = JKANSpec(dims=(64, 128, 64), grid_size=8)
+    qparams = j_quantize(j_init(jax.random.PRNGKey(0), jk), jk)
+    return j_deploy_ffn(qparams, jk.dims, jk.layer_spec(), batch=8)
+
+
+def _inputs():
+    jdeps = {"kan1": kan1_bundle(batch=8)[2], "ffn": _ffn_bundle()}
+    rng = np.random.default_rng(7)
+    x = {"kan1": rng.uniform(-1, 1, (BATCH, 17)).astype(np.float32),
+         "ffn": (rng.normal(size=(BATCH, 64)) * 0.7).astype(np.float32)}
+    grads = {"w": rng.normal(size=(2, 5, 7)).astype(np.float32),
+             "b": (rng.normal(size=(2, 3)) * 1e-3).astype(np.float32)}
+    errors = {k: (rng.normal(size=v.shape) * 1e-3).astype(np.float32)
+              for k, v in grads.items()}
+    prompts = [rng.integers(3, 256, 6).tolist() for _ in range(3)]
+    return jdeps, x, grads, errors, prompts
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jdeps, x, grads, errors, prompts = _inputs()
+    ref = {}
+    for name, jdep in jdeps.items():
+        jy, jcodes = jrt.execute(jdep, x[name], backend="pallas",
+                                 interpret=True, return_intermediates=True)
+        j_entry, j_raw = j_entry_codes(jdep, jax.numpy.asarray(x[name]), None)
+        ref[name] = {"y": np.asarray(jy),
+                     "codes": [np.asarray(c) for c in jcodes],
+                     "entry": np.asarray(j_entry),
+                     "raw": None if j_raw is None else np.asarray(j_raw)}
+    bundles = {n: convert.deployed_from_reference(d, device="cpu")
+               for n, d in jdeps.items()}
+    # each mode's streams on the unsharded engine (the port's engine
+    # itself equals the reference's: tests/test_torch_serve.py), and the
+    # MoE assignments its capacity dropped
+    streams, drops = {}, {}
+    for mode in sorted({m for ms in ENGINE_MODES.values() for m in ms}):
+        streams[mode], drops[mode] = _unsharded_streams(mode, prompts)
+    return {"bundles": bundles, "x": x, "grads": grads, "errors": errors,
+            "prompts": prompts, "ref": ref, "streams": streams,
+            "drops": drops, "runs": {}}
+
+
+def _unsharded_streams(mode, prompts):
+    """``mode``'s streams on the unsharded engine and the number of MoE
+    assignments its routing dropped (``pos >= cap``)."""
+    route = TL.moe_route
+    dropped = []
+
+    def counting(*a, **kw):
+        flat_e, flat_g, pos, cap = route(*a, **kw)
+        dropped.append(int((pos >= cap).sum()))
+        return flat_e, flat_g, pos, cap
+
+    TL.moe_route = counting
+    try:
+        return W.serve_streams(*MODES[mode], prompts)[1], sum(dropped)
+    finally:
+        TL.moe_route = route
+
+
+def _spawn(setup, shape, tmp_path_factory) -> list:
+    """Run the ranks of one mesh shape once (cached per module)."""
+    if shape in setup["runs"]:
+        return setup["runs"][shape]
+    data, model = shape
+    world = data * model
+    workdir = str(tmp_path_factory.mktemp(f"mesh{data}x{model}"))
+    torch.save({"bundles": setup["bundles"], "x": setup["x"],
+                "grads": setup["grads"], "errors": setup["errors"],
+                "prompts": setup["prompts"], "tasks": TASKS[shape],
+                "engine_modes": {m: MODES[m]
+                                 for m in ENGINE_MODES.get(shape, ())}},
+               os.path.join(workdir, "inputs.pt"))
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=W.main, args=(r, world, data, model, workdir))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + DEADLINE_S
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(5)
+    errs = [open(os.path.join(workdir, f)).read()
+            for f in sorted(os.listdir(workdir)) if f.startswith("err")]
+    assert not hung, f"{len(hung)} ranks still running after {DEADLINE_S} s"
+    assert not errs and all(p.exitcode == 0 for p in procs), (
+        [p.exitcode for p in procs], errs)
+    outs = [torch.load(os.path.join(workdir, f"out{r}.pt"),
+                       weights_only=False) for r in range(world)]
+    setup["runs"][shape] = outs
+    return outs
+
+
+def _equal(a, b) -> bool:
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_equal(u, v) for u, v in zip(a, b))
+    return torch.equal(a, b)
+
+
+def _gate(setup, name, y, codes) -> dict:
+    """The parity gate of the port against the reference's unsharded run."""
+    r = setup["ref"][name]
+    dep = setup["bundles"][name]
+    want = [torch.tensor(c) for c in r["codes"]]
+    raw = None if r["raw"] is None else torch.tensor(r["raw"])
+    pre = parity.boundary_prerounds(dep, torch.tensor(r["entry"]), raw,
+                                    want)
+    return parity.compare_runs(codes, want, pre, y, r["y"])
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_runtime_on_the_mesh(setup, shape, tmp_path_factory):
+    outs = _spawn(setup, shape, tmp_path_factory)
+    data, model = shape
+    rt0 = outs[0]["runtime"]
+    for o in outs[1:]:  # every rank returns the same global arrays
+        for k, v in o["runtime"].items():
+            if k[2] != "plain":
+                assert _equal(v, rt0[k]), (k, "differs across ranks")
+    excused = {}
+    for (name, be, how), (y, codes) in sorted(rt0.items()):
+        if how == "plain":
+            continue
+        plain_y, plain_codes = rt0[(name, be, "plain")]
+        assert y.shape == plain_y.shape and y.dtype == torch.float32
+        if model == 1 or model == 3:
+            # 1x1 and (1,3) run the unsharded launch rows; data-only runs
+            # each slab's rows, which the CPU GEMM may sum otherwise
+            if data == 1:
+                assert _equal([y, codes], [plain_y, plain_codes]), (name, be)
+        stats = _gate(setup, name, y, codes)
+        excused[(name, be, how)] = stats["excused"]
+        assert stats["rows_left_out"] <= 2, (name, be, how, stats)
+    print(f"mesh {shape}: excused near-ties {excused}")
+    if model == 3:
+        assert outs[0]["notes"] and all(
+            "columns replicated" in n for n in outs[0]["notes"]), outs[0]
+        assert outs[0]["placed_cols/kan1"] == [128, 128]
+    elif model == 2:
+        assert outs[0]["placed_cols/kan1"] == [64, 64]
+        assert outs[0]["notes"] == []
+
+
+def test_data_slab_rows_on_the_cpu_gemm(setup, tmp_path_factory):
+    """Data-only meshes run each rank's slab of rows through the plain
+    versions' CPU GEMM; the count of outputs whose bits differ from the
+    unsharded call (which runs all rows in one launch) is printed here.
+    On the card B1's rows are independent of the rows beside them, and the
+    1x1 check there is bit-identical."""
+    outs = _spawn(setup, (2, 1), tmp_path_factory)
+    rt = outs[0]["runtime"]
+    diffs = {}
+    for (name, be, how), (y, codes) in sorted(rt.items()):
+        if how == "plain":
+            continue
+        py, pc = rt[(name, be, "plain")]
+        diffs[(name, be, how)] = (int((y != py).sum()),
+                                  sum(int((a != b).sum())
+                                      for a, b in zip(codes, pc)))
+    print(f"data=2 outputs / codes differing from the unsharded call: {diffs}")
+    assert all(c == 0 for _, c in diffs.values()), diffs
+
+
+def test_plumbing_precedence_and_cache_keys(setup, tmp_path_factory):
+    res = _spawn(setup, (1, 1), tmp_path_factory)[0]["plumbing"]
+    for k in ("arg_beats_placement", "placement_alone", "none",
+              "replan_keeps_placement", "scope_beats_placement",
+              "arg_beats_scope", "none_passes_through"):
+        assert res[k], k
+    assert res["stats_first"]["entries"] == 2, res
+    assert res["stats_first"]["misses"] == 2, res
+    assert res["stats_second"]["entries"] == 2, res
+    assert res["stats_second"]["hits"] == 2, res
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 1), (1, 2), (1, 3)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_noisy_acim_reproducible_per_shard(setup, shape, tmp_path_factory):
+    outs = _spawn(setup, shape, tmp_path_factory)
+    for o in outs:
+        n = o["acim_noise"]
+        assert torch.equal(n["a"], n["b"])
+        assert not torch.equal(n["a"], n["c"])
+        assert torch.isfinite(n["a"]).all()
+        # the gathered output is the same global array on every rank
+        assert torch.equal(n["a"], outs[0]["acim_noise"]["a"])
+
+
+def test_compressed_grad_sync_against_numpy(setup, tmp_path_factory):
+    outs = _spawn(setup, (2, 1), tmp_path_factory)
+    want_sync, want_ef = {}, {}
+    for k, g in setup["grads"].items():
+        deqs = []
+        for d in range(2):
+            ge = g[d] + setup["errors"][k][d]
+            q, s = W.reference_quantize(ge)
+            deq = q.astype(np.float32) * s
+            deqs.append(deq)
+            want_ef.setdefault(k, []).append(ge - deq)
+        want_sync[k] = (deqs[0] + deqs[1]) / np.float32(2)
+    for d, o in enumerate(outs):
+        for k in want_sync:
+            np.testing.assert_array_equal(o["grad_sync"]["synced"][k].numpy(),
+                                          want_sync[k])
+            np.testing.assert_array_equal(o["grad_sync"]["new_ef"][k].numpy(),
+                                          want_ef[k][d])
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 2)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_compress_roundtrip_onto_the_mesh(setup, shape, tmp_path_factory):
+    """As ``tests/test_optimizer_dist.py``'s sharded round trip: the gather
+    side starts placed, the payload holds the global int8 leaves, the
+    decoded bundle lands on the mesh and runs within the codec's error."""
+    dep = setup["bundles"]["kan1"]
+    for o in _spawn(setup, shape, tmp_path_factory):
+        c = o["compress"]
+        for entry, lw in zip(c["payload"]["layers"], dep.layers):
+            assert entry["wc"][0].dtype == np.int8
+            assert entry["wc"][0].shape == tuple(lw["wc"].shape)
+        assert c["placed_on_mesh"]
+        scale = float(c["y0"].abs().max()) + 1e-6
+        assert float((c["y1"] - c["y0"]).abs().max()) < 5e-2 * scale
+        assert c["mismatch"] and "does not match" in c["mismatch"]
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 1), (1, 2), (2, 2)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_engine_serves_the_unsharded_tokens(setup, shape, tmp_path_factory):
+    outs = _spawn(setup, shape, tmp_path_factory)
+    for o in outs:
+        for mode in ENGINE_MODES[shape]:
+            assert o["engine"][mode] == setup["streams"][mode], (shape, mode)
+            layout = o["engine"][mode + "/layout"]
+            assert layout["shape"] == list(shape)
+            assert layout["slots_sharded"] == (shape[0] > 1)
+            # the collectives the layout implies ran: logits gathered and
+            # first tokens broadcast over "data"; heads / vocab reduced and
+            # logits and KAN-FFN codes gathered over "model"
+            coll = o["engine"][mode + "/collectives"]
+            assert (coll.get("broadcast", 0) > 0) == (shape[0] > 1), coll
+            assert (coll.get("all_reduce", 0) > 0) == (shape[1] > 1), coll
+            assert (coll.get("all_gather", 0) > 0) == (shape != (1, 1)), coll
+    if "mixtral_cap" in ENGINE_MODES[shape]:
+        assert setup["drops"]["mixtral_cap"] > 0, setup["drops"]
+    print(f"engine {shape} collectives (rank 0): "
+          f"{ {m: outs[0]['engine'][m + '/collectives'] for m in ENGINE_MODES[shape]} }")
+
+
+def test_meshed_scheduler_refuses_wall_clock_decisions(setup,
+                                                       tmp_path_factory):
+    """A deadline or a future arrival would be read off each rank's own
+    clock: on a mesh of two ranks the scheduler and the serve CLI refuse
+    them instead of letting the ranks part ways."""
+    for o in _spawn(setup, (2, 1), tmp_path_factory):
+        refused = o["engine"]["refused"]
+        assert set(refused) == {"deadline", "arrival", "cli"}, refused
+        assert "2 ranks" in refused["deadline"]
+        assert "--deadline" in refused["cli"]

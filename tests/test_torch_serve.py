@@ -182,10 +182,31 @@ def test_attention_backends_give_the_same_tokens(setup):
     assert outs[0] == outs[1]
 
 
+class _FakeMesh:
+    """A (data, model) mesh at rank 0, as much of it as
+    ``models.model.place_params`` reads (no process group)."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, shape):
+        self.shape = shape
+
+    def get_local_rank(self, axis):
+        return 0
+
+    def get_group(self, axis):
+        return None
+
+    def __getitem__(self, axis):
+        return self
+
+
 def test_engine_refuses_what_is_not_ported(setup):
     _, cfg, _, tp = setup
-    with pytest.raises(NotImplementedError, match="A10"):
-        ServeEngine(tp, cfg, mesh=object(), device="cpu")
+    # mesh serving is ported (tests/test_torch_mesh.py); a model axis that
+    # divides the query heads (4) but not the KV heads (2) is refused
+    with pytest.raises(NotImplementedError, match="A10b"):
+        ServeEngine(tp, cfg, mesh=_FakeMesh((1, 4)), device="cpu")
     # speculative decoding is ported (tests/test_torch_spec.py): only its
     # inconsistent settings are refused
     with pytest.raises(ValueError, match="kan_deploy"):
@@ -252,8 +273,8 @@ def test_cli_serves_at_smoke_size_on_the_cpu(setup):
     out = buf.getvalue()
     assert "served requests=3" in out, out
     assert "attn_backend=flash" in out and "kan_backend=fused" in out, out
-    assert set(cli.NOT_PORTED) == {"mesh"}
-    with pytest.raises(SystemExit, match="not ported yet"):
+    assert not cli.NOT_PORTED  # --mesh is ported (tests/test_torch_mesh.py)
+    with pytest.raises(SystemExit, match="unknown mesh axis"):
         cli.main(["--arch", "qwen2.5-14b", "--mesh", "1", "--device", "cpu"])
 
 
