@@ -195,7 +195,20 @@ Phases (any failure exits non-zero):
      feature split bit-identical to the whole layer's columns, and NCCL's
      collectives called directly on the world-1 groups;
      ``launch.serve --mesh data=1,model=1`` in-process;
- 14. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
+ 14. training on a 1x1 ``DeviceMesh`` over a world-1 NCCL group: phase
+     9's cell (the full-width ``qwen2.5-14b`` ``kan_variant()``, 4 layers,
+     microbatch 8, remat, 16 x 256 tokens, 6 steps) through
+     ``TrainLoop(shardings=)``: losses, grad norms and the parameters'
+     sha256 bit-equal to phase 9's unmeshed run, a checkpoint at step 3
+     restored by a new loop whose steps 3-5 are bit-equal to the unbroken
+     run, peak memory within 1 GiB of phase 9's and s/step beside it; what
+     a model cut runs, one slab at a time: a full-width mixtral MoE layer
+     at model 2 (partial expert outputs added by hand, within 4 bf16 ulps
+     of the whole layer) and qwen's float KAN-FFN (5120 -> 1280 -> 5120,
+     f32) at model 2 forward and backward (within 1e-5 x max); the
+     gradient-carrying collectives of ``dist.comm`` on the world-1
+     groups; no B1-B4 launch in the phase;
+ 15. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
 
 A longer report goes to ``reports/chip_smoke_report.json`` (gitignored).
 """
@@ -2676,6 +2689,24 @@ def train_flops(cfg, tokens: int, seq: int) -> dict:
             "bound_ms": 1e3 * (bf16 / BF16_FLOP_PER_S + f32 / F32_FLOP_PER_S)}
 
 
+def params_sha256(params) -> str:
+    """sha256 of a parameter tree's bytes, leaf by leaf in the checkpoint's
+    order, each copied to the host in turn."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.train.checkpoint import flatten
+
+    h = hashlib.sha256()
+    for t in flatten(params):
+        t = t.detach().to("cpu")
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(t.contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
 def phase_train(dev, report) -> None:
     """LM training: the float KAN-FFN's backward at the full-width halves,
     card against CPU and the in-place optimizer at small widths, a bf16
@@ -2737,6 +2768,8 @@ def phase_train(dev, report) -> None:
         buf = io.StringIO()
         with tempfile.TemporaryDirectory() as d, \
                 contextlib.redirect_stdout(buf):
+            gc.collect()   # earlier phases' garbage would hide some peak
+            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
             loop, hist = train_cli.main(TRAIN_ARGV + ["--ckpt-dir", d])
@@ -2829,13 +2862,18 @@ def phase_train(dev, report) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # determinism: a second run from the same seed
+    # determinism: a second run from the same seed; its untouched state's
+    # parameter hash and its grad norms are what phase 14's meshed run
+    # must equal
     loop, hist2, _ = train_run()
     losses2 = [m["loss"] for m in hist2]
     require(losses2 == losses,
             f"train: a second run from one seed gives losses {losses2} "
             f"against {losses}")
-    print(f"train: a second run from one seed: losses bit-equal {losses2}")
+    params_hash = params_sha256(loop.state["params"])
+    print(f"train: a second run from one seed: losses bit-equal {losses2}; "
+          f"grad norms {[m['grad_norm'] for m in hist2]}; parameters "
+          f"sha256 {params_hash}")
     del loop
     gc.collect()
     torch.cuda.empty_cache()
@@ -2848,6 +2886,8 @@ def phase_train(dev, report) -> None:
     print(f"train: B1 / B2 launches and 'flash' dispatches unchanged over "
           f"the phase; phase wall {wall:.1f} s")
     report["train"] = {**out, "losses": losses, "losses_2": losses2,
+                       "grad_norms_2": [m["grad_norm"] for m in hist2],
+                       "params_sha256_2": params_hash,
                        "time_s": times, "s_per_step": s_step,
                        "tokens_per_s": tokens / s_step, "peak_bytes": peak,
                        "base_bytes": base, "reckoning_bytes": reckon,
@@ -4281,6 +4321,167 @@ def phase_mesh(dev, report) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------------
+# phase 14: training on a 1x1 DeviceMesh over a world-1 NCCL group
+# ----------------------------------------------------------------------------
+
+# phase 9's cell through TrainLoop(shardings=); the checkpoint after step 3
+# (AdamW state and bf16 parameters of the 4-layer model, ~25 GB) is written
+# to the temporary directory and read back by a new loop
+MESH_CKPT_STEP = 3
+# one full-width MoE layer of mixtral-8x7b at 256 tokens, and the float
+# KAN-FFN of qwen2.5-14b (5120 -> 1280 -> 5120) at 64 tokens, at model 2
+MOE_SLAB_TOKENS = 256
+KAN_SLAB = (5120, 1280, 64)
+
+
+def phase_meshtrain(dev, report) -> dict:
+    """Phase 9's training cell on a 1x1 mesh through ``TrainLoop(
+    shardings=)``: bit-equal to phase 9's unmeshed run (losses, grad norms,
+    parameter hash), a restart from the step-3 checkpoint bit-equal to
+    the unbroken run, peak memory and s/step beside phase 9's; then what
+    one card can hold of a model cut (a MoE layer's and a KAN-FFN's slabs
+    at model 2, remat's recompute under a cut layout) and the autograd
+    collectives on the world-1 groups.
+    Returns the B1-B4 launches of the phase (none: training attends on
+    "ref" and runs the float KAN-FFN)."""
+    import dataclasses
+    import gc
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import runtime
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.lm_data import DataConfig
+    from repro_torch.dist import cardcheck as dc
+    from repro_torch.dist.sharding import PSpec, to_shardings
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train.loop import TrainLoop
+    from repro_torch.train.train_state import meta_state, state_pspecs
+
+    t_phase = time.perf_counter()
+    idle = (dict(cuda.launch_counts()),
+            runtime.attn_dispatch_counts().get("flash", 0))
+    mesh = make_local_mesh(1, 1)
+    require(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+    want = report["train"]
+    cfg = dataclasses.replace(get_config("qwen2.5-14b"),
+                              num_layers=TRAIN_LAYERS).kan_variant()
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                      global_batch=16)
+    rows = PSpec("data", None)
+    sh = {"state": to_shardings(state_pspecs(meta_state(cfg), mesh), mesh),
+          "batch": to_shardings({"tokens": rows, "targets": rows}, mesh)}
+    quiet = lambda *_: None  # noqa: E731
+    ckdir = tempfile.mkdtemp(prefix="repro_torch_meshtrain_")
+    free = shutil.disk_usage(ckdir).free
+    print(f"meshtrain: {cfg.name} {cfg.num_layers} layers on {mesh}; "
+          f"checkpoints in {ckdir} ({free} B free)")
+    try:
+        # what earlier phases left for the collector would be freed during
+        # the run and hide that much of its peak: collect it first
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loop = TrainLoop(cfg, dcfg, ckdir, ckpt_every=MESH_CKPT_STEP,
+                         shardings=sh)
+        hist = loop.run(MESH_CKPT_STEP, log=quiet)   # saves step_3
+        t_save = time.perf_counter()
+        loop.ckpt_every = 10 ** 9
+        loop.start_step = MESH_CKPT_STEP
+        hist += loop.run(TRAIN_STEPS - MESH_CKPT_STEP, log=quiet)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        got_hash = params_sha256(loop.state["params"])
+        losses = [m["loss"] for m in hist]
+        norms = [m["grad_norm"] for m in hist]
+        times = [m["time_s"] for m in hist]
+        require(losses == want["losses"] and norms == want["grad_norms_2"]
+                and got_hash == want["params_sha256_2"],
+                f"meshtrain: 1x1 losses {losses} / grad norms {norms} / hash "
+                f"{got_hash} against phase 9's {want['losses']} / "
+                f"{want['grad_norms_2']} / {want['params_sha256_2']}")
+        s_step = statistics.median(times[1:])
+        require(abs(peak - want["peak_bytes"]) <= 1 << 30,
+                f"meshtrain: peak {peak} B against phase 9's "
+                f"{want['peak_bytes']} B (more than 1 GiB apart)")
+        print(f"meshtrain: TrainLoop(shardings=) 1x1, {TRAIN_STEPS} steps: "
+              f"losses, grad norms and parameter sha256 bit-equal to phase "
+              f"9's ({got_hash[:16]}...); median s/step {s_step:.4f} "
+              f"(phase 9: {want['s_per_step']:.4f}); steps {times}; peak "
+              f"{peak} B over the {base} B allocated before (phase 9: "
+              f"{want['peak_bytes']} B); run {run_s:.2f} "
+              f"s with init and the step-{MESH_CKPT_STEP} save "
+              f"({t_save - t0:.2f} s to it) ({smi_line()})")
+        del loop
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t1 = time.perf_counter()
+        loop = TrainLoop(cfg, dcfg, ckdir, ckpt_every=10 ** 9, shardings=sh)
+        t_restore = time.perf_counter() - t1
+        require(loop.start_step == MESH_CKPT_STEP,
+                f"meshtrain: restored at {loop.start_step}")
+        again = loop.run(TRAIN_STEPS - MESH_CKPT_STEP, log=quiet)
+        again_hash = params_sha256(loop.state["params"])
+        require([m["loss"] for m in again] == losses[MESH_CKPT_STEP:]
+                and [m["grad_norm"] for m in again] == norms[MESH_CKPT_STEP:]
+                and again_hash == got_hash,
+                f"meshtrain: the restart's losses {[m['loss'] for m in again]}"
+                f" against {losses[MESH_CKPT_STEP:]}")
+        print(f"meshtrain: restart from step {MESH_CKPT_STEP} (restore "
+              f"{t_restore:.2f} s): steps {MESH_CKPT_STEP}-"
+              f"{TRAIN_STEPS - 1} losses, grad norms and parameter sha256 "
+              f"bit-equal to the unbroken run")
+        del loop
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    # what a model cut runs, one slab at a time on the card
+    t2 = time.perf_counter()
+    moe = dc.check_moe_slabs(dev, get_config("mixtral-8x7b"),
+                             MOE_SLAB_TOKENS)
+    kan = dc.check_kan_ffn_slabs(dev, *KAN_SLAB)
+    coll = dc.check_autograd_collectives(mesh, dev)
+    remat = dc.check_remat_under_layout(mesh, dev)
+    torch.cuda.empty_cache()
+    print(f"meshtrain: mixtral MoE layer (4096, 8 experts, d_ff 14336, bf16, "
+          f"{moe['tokens']} tokens) at model {moe['model']}: slabs' partial "
+          f"sums vs the whole layer {moe['max_abs_err']:.3e} (tol "
+          f"{moe['tol']:.3e}, 4 bf16 ulps of {moe['max_abs_out']:.3f}); "
+          f"qwen KAN-FFN {kan['d']} -> {kan['h']} -> {kan['d']} f32 at "
+          f"model {kan['model']}, forward and backward, relative errors "
+          f"{kan['rel_err']} (tol {kan['tol']}); autograd collectives exact "
+          f"on groups {coll['groups']}; remat's recompute on the device "
+          f"thread bit-equal to no remat under {len(remat['layouts'])} "
+          f"cut layouts (smoke qwen at model 2 and 4, the backward outside "
+          f"the layout's scope); {time.perf_counter() - t2:.2f} s")
+    now = (dict(cuda.launch_counts()),
+           runtime.attn_dispatch_counts().get("flash", 0))
+    require(now == idle, f"meshtrain: B1/B2 launches or flash dispatches "
+            f"moved: {idle} -> {now}")
+    dist.destroy_process_group()
+    wall = time.perf_counter() - t_phase
+    print(f"meshtrain: no B1-B4 launch and no 'flash' dispatch in the phase; "
+          f"phase wall {wall:.1f} s")
+    report["meshtrain"] = {
+        "losses": losses, "grad_norms": norms, "params_sha256": got_hash,
+        "time_s": times, "s_per_step": s_step, "peak_bytes": peak,
+        "run_s": run_s, "restore_s": t_restore, "moe_slabs": moe,
+        "kan_ffn_slabs": kan, "autograd_collectives": coll,
+        "remat_layouts": remat["layouts"], "wall_s": wall}
+    return {k: now[0].get(k, 0) - idle[0].get(k, 0) for k in now[0]}
+
+
 def main() -> int:
     try:
         import torch
@@ -4356,7 +4557,8 @@ def main() -> int:
     a7c_paths, a7c = timed("12", phase_a7c, dev, report)
     by_path.update(a7c_paths)
     by_path.update(timed("13", phase_mesh, dev, report))
-    print(f"[phases 3-13: {time.perf_counter() - t_all:.1f} s]")
+    mesh_train = timed("14", phase_meshtrain, dev, report)
+    print(f"[phases 3-14: {time.perf_counter() - t_all:.1f} s]")
     # phase 10's, 11's and 12's B2 and B1 shapes join the kernel line's rows
     # (its B2 ms stays the sum over phase 7's three path shapes)
     for extra in (a7a, a7b, a7c):
@@ -4395,7 +4597,9 @@ def main() -> int:
                "max_abs_err": errs[k], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
-               "launches_by_path": paths}
+               "launches_by_path": paths,
+               # phase 14's meshed training runs none of B1-B4
+               "mesh_train_launches": mesh_train.get(k, 0)}
         if k != "cim_mac_fwd":
             # ms is L2-cold (cold_ms); warm_ms replays a CUDA graph of
             # launches on warm operands; event_ms times launches back to

@@ -1,21 +1,36 @@
 """Collectives over mesh groups, their counters, and the model code's scopes.
 
-Every collective the port issues on a serving or runtime path goes through
-one of the helpers here, which count their calls in :data:`COLLECTIVES`
-(``all_gather`` / ``all_reduce`` / ``broadcast``) so a caller can read how
-many a step paid.  A group of one rank is a no-op and counts nothing.
+Every collective the port issues on a serving, runtime or training path
+goes through one of the helpers here, which count their calls in
+:data:`COLLECTIVES` (``all_gather`` / ``all_reduce`` / ``broadcast``) so a
+caller can read how many a step paid.  A group of one rank is a no-op and
+counts nothing.
+
+The collectives carry gradients in Megatron's f / g form, so a meshed
+forward trains: :func:`tp_copy` (f: identity forward, all-reduce of the
+gradient backward) at the input of a region whose weights are cut on
+their output dim; :func:`tp_reduce` (g: all-reduce forward, identity
+backward) after a region whose weights are cut on their input dim;
+:func:`tp_gather` (all-gather forward, this rank's chunk of the gradient
+backward) for outputs cut on a dim, such as the logits of a vocabulary
+slab.  Their backward collectives count as the forward ones do.  Without
+autograd (serving under ``no_grad``) f is the identity and g / gather are
+:func:`all_reduce_sum` / :func:`all_gather`, so a served step issues the
+same collectives as before.
 
 :func:`use_tp` binds a :class:`TPLayout` for the model code
 (``models.layers`` / ``models.model``): the ``"model"`` group of a mesh and
 the roles whose weights ``models.model.place_params`` cut to a local slab
-(attention heads, dense FFN hidden columns, the vocabulary).  A layer of a
-cut role reduces or gathers its partial result over that group; a layer of
-a whole role never pays a collective.
+(query and KV heads, dense FFN hidden columns, MoE expert hidden columns,
+the patch projection's columns, the vocabulary).  A layer of a cut role
+reduces or gathers its partial result over that group; a layer of a whole
+role never pays a collective.
 
 :func:`use_row_split` binds the ``"data"`` group when a step runs this
 rank's rows of one batch split over that axis in rank order (the serving
-engine's decode and verify); a layer that couples the rows of a batch
-(MoE capacity routing) then routes them as the whole batch.
+engine's decode and verify, a meshed train step); a layer that couples the
+rows of a batch (MoE capacity routing) then routes them as the whole
+batch.
 """
 
 from __future__ import annotations
@@ -37,6 +52,9 @@ __all__ = [
     "all_gather",
     "all_reduce_sum",
     "broadcast",
+    "tp_copy",
+    "tp_reduce",
+    "tp_gather",
     "TPLayout",
     "use_tp",
     "tp_layout",
@@ -93,6 +111,77 @@ def broadcast(t: torch.Tensor, src_index: int, group) -> torch.Tensor:
     return t
 
 
+# -- collectives that carry a gradient ----------------------------------------
+
+
+def _tracks_grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _Copy(torch.autograd.Function):
+    """f: identity forward, the gradient summed over ``group`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    """g: the sum over ``group`` forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """Concatenation over ``group`` along ``dim`` forward; this rank's
+    chunk of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.width = group, dim, x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = group_rank(ctx.group) * ctx.width
+        return g.narrow(ctx.dim, lo, ctx.width).contiguous(), None, None
+
+
+def tp_copy(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` entering a region whose weights are cut over ``group`` on their
+    output dim: the gradient that flows back is summed over the group."""
+    if group_size(group) == 1 or not _tracks_grad(x):
+        return x
+    return _Copy.apply(x, group)
+
+
+def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of a region's partial outputs; the gradient
+    passes through unchanged."""
+    if group_size(group) == 1 or not _tracks_grad(x):
+        return all_reduce_sum(x, group)
+    return _Reduce.apply(x, group)
+
+
+def tp_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``; the gradient that
+    flows back is this rank's chunk."""
+    if group_size(group) == 1 or not _tracks_grad(x):
+        return all_gather(x, group, dim)
+    return _Gather.apply(x, group, dim % x.ndim)
+
+
 # -- scopes for the model code ------------------------------------------------
 
 
@@ -100,23 +189,25 @@ def broadcast(t: torch.Tensor, src_index: int, group) -> torch.Tensor:
 class TPLayout:
     """Which roles of a param tree hold a tensor-parallel slab over
     ``group`` (a mesh's ``"model"`` group), as ``models.model.place_params``
-    cut them: ``heads`` (wq / wk / wv / bq / bk / bv heads and attention
-    ``wo`` rows), ``ffn`` (the dense or float KAN-FFN hidden dim) and
-    ``vocab`` (``embed`` rows, ``lm_head`` columns).  The default cuts
-    nothing."""
+    cut them: ``heads`` (wq / bq query heads and attention ``wo`` rows),
+    ``kv`` (wk / wv / bk / bv heads, cut only with the query heads: where
+    the group's size divides the query head count alone, the KV heads stay
+    whole and each rank takes those its query heads read), ``ffn`` (the
+    dense or float KAN-FFN hidden dim), ``moe`` (the experts' hidden dim),
+    ``patch`` (the patch projection's output columns) and ``vocab``
+    (``embed`` rows, ``lm_head`` columns).  ``size`` and ``rank`` are the
+    mesh's "model" size and this rank's coordinate there, which chose the
+    slabs.  The default cuts nothing."""
 
     group: Any = None
     heads: bool = False
+    kv: bool = False
     ffn: bool = False
+    moe: bool = False
+    patch: bool = False
     vocab: bool = False
-
-    @property
-    def size(self) -> int:
-        return group_size(self.group)
-
-    @property
-    def rank(self) -> int:
-        return group_rank(self.group)
+    size: int = 1
+    rank: int = 0
 
 
 _TP: contextvars.ContextVar = contextvars.ContextVar("repro_torch_tp",

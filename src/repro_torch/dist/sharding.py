@@ -13,9 +13,15 @@ one entry per tensor dim (an axis name, a tuple of names, or None), so a
 spec compares entry for entry with the reference's.  The spec functions
 read only the mesh's axis names and sizes (``mesh_dim_names`` and
 ``shape``), so they accept a ``DeviceMesh`` or any object with those two
-attributes.  :func:`to_shardings` binds a spec tree to a mesh as
-``torch.distributed.tensor`` placements, one ``Shard(dim)`` or
-``Replicate()`` per mesh dim.
+attributes.  :func:`to_shardings` binds a spec tree to a mesh: each
+spec becomes a :class:`MeshSharding`, the tuple of ``torch.distributed.
+tensor`` placements (one ``Shard(dim)`` or ``Replicate()`` per mesh dim)
+that also carries its mesh and spec, as a ``NamedSharding`` does.  The
+port holds local tensors, not ``DTensor``s: :func:`shard_tensor` cuts a
+whole tensor to this rank's slab of a sharding (:func:`shard_param` a
+parameter by its path: the one place a parameter's tensor-parallel cut is
+made) and :func:`gather_tensor` puts the slabs back together over the
+mesh's groups.
 """
 
 from __future__ import annotations
@@ -31,6 +37,11 @@ __all__ = [
     "paged_cache_pspecs",
     "deployed_kan_pspecs",
     "to_shardings",
+    "MeshSharding",
+    "shard_tensor",
+    "shard_param",
+    "gather_tensor",
+    "global_shape",
     "map_with_path",
 ]
 
@@ -47,6 +58,15 @@ class PSpec(tuple):
 
     def __repr__(self) -> str:
         return f"PSpec{tuple.__repr__(self)}"
+
+    def on(self, dim: int, name: str) -> bool:
+        """Whether tensor dim ``dim`` is cut on mesh axis ``name``."""
+        e = self[dim] if -len(self) <= dim < len(self) else None
+        return e == name or (isinstance(e, tuple) and name in e)
+
+    def dim_on(self, name: str) -> int | None:
+        """The tensor dim cut on mesh axis ``name`` (None: none is)."""
+        return next((i for i in range(len(self)) if self.on(i, name)), None)
 
 
 def axis_size(mesh, name: str) -> int:
@@ -242,19 +262,78 @@ def _placements(spec: PSpec, mesh) -> tuple:
 
     out = []
     for name in mesh.mesh_dim_names:
-        dim = next((i for i, e in enumerate(spec)
-                    if e == name or (isinstance(e, tuple) and name in e)),
-                   None)
+        dim = spec.dim_on(name)
         out.append(Replicate() if dim is None else Shard(dim))
     return tuple(out)
 
 
+class MeshSharding(tuple):
+    """A :class:`PSpec` bound to a mesh: the placements, one per mesh dim
+    (it compares as that tuple), with ``mesh`` and ``spec`` attached."""
+
+    def __new__(cls, spec: PSpec, mesh):
+        obj = super().__new__(cls, _placements(spec, mesh))
+        obj.mesh, obj.spec = mesh, spec
+        return obj
+
+    def __reduce__(self):
+        return (tuple, (tuple(self),))
+
+    def cuts(self):
+        """(mesh dim name, tensor dim, mesh dim size) of each mesh dim that
+        shards the tensor, in mesh order."""
+        sizes = tuple(self.mesh.shape)
+        return [(name, pl.dim, sizes[i])
+                for i, (name, pl) in enumerate(zip(self.mesh.mesh_dim_names,
+                                                   self))
+                if hasattr(pl, "dim") and sizes[i] > 1]
+
+
 def to_shardings(pspecs, mesh):
-    """Bind a PSpec tree to a mesh: each spec becomes a tuple of
-    ``torch.distributed.tensor`` placements, one per mesh dim."""
+    """Bind a PSpec tree to a mesh: each spec becomes a
+    :class:`MeshSharding`."""
     if _is_spec(pspecs):
-        return _placements(pspecs, mesh)
+        return MeshSharding(pspecs, mesh)
     if isinstance(pspecs, dict):
         return {k: to_shardings(v, mesh) for k, v in pspecs.items()}
     out = [to_shardings(v, mesh) for v in pspecs]
     return out if isinstance(pspecs, list) else tuple(out)
+
+
+def global_shape(local_shape, sharding: MeshSharding) -> tuple:
+    """The whole tensor's shape of a slab of ``local_shape``."""
+    shape = list(local_shape)
+    for _, dim, n in sharding.cuts():
+        shape[dim] *= n
+    return tuple(shape)
+
+
+def shard_tensor(t, sharding: MeshSharding):
+    """This rank's slab of the whole tensor ``t`` (``t`` itself where
+    nothing is cut)."""
+    from ..runtime.meshexec import mesh_index
+
+    for name, dim, n in sharding.cuts():
+        w = t.shape[dim] // n
+        t = t.narrow(dim, mesh_index(sharding.mesh, name) * w, w)
+    return t.contiguous()
+
+
+def shard_param(path: str, leaf, mesh):
+    """This rank's slab of the parameter ``leaf`` at ``path`` on ``mesh``:
+    the cut :func:`param_pspecs` (no fsdp) gives it, on "model" only.  A
+    leaf of a scanned stack may be cut before it is stacked: the rules
+    count dims from the end."""
+    return shard_tensor(leaf, MeshSharding(leaf_pspec(path, leaf.shape, mesh),
+                                           mesh))
+
+
+def gather_tensor(t, sharding: MeshSharding):
+    """The whole tensor from every rank's slab ``t``: all-gathered over the
+    group of each mesh dim that cuts it (``t`` itself where nothing is
+    cut)."""
+    from .comm import all_gather
+
+    for name, dim, _ in reversed(sharding.cuts()):
+        t = all_gather(t, sharding.mesh.get_group(name), dim)
+    return t

@@ -14,10 +14,15 @@ the whole cache per layer and step) and returned as the same objects.
 
 Tensor parallelism (a mesh's ``"model"`` axis): under the
 ``dist.comm.TPLayout`` that ``models.model.place_params`` recorded and the
-engine binds with ``dist.comm.use_tp``, a layer whose role was cut
-(attention heads, FFN hidden columns) runs on its local slab and sums the
-partial output over the group.  Under ``dist.comm.use_row_split`` MoE
-routes this rank's rows as its slab of the batch split over "data".
+engine or the train step binds with ``dist.comm.use_tp``, a layer whose
+role was cut (query / KV heads, FFN or expert hidden columns) runs on its
+local slab and sums the partial output over the group, through the
+collectives of ``dist.comm`` that carry gradients (f at the cut region's
+input, g after it), so the same code trains.  Where the query heads are
+cut and the KV heads are not, each rank computes the whole KV heads and
+keeps those its query heads read (:func:`kv_head_index`).  Under
+``dist.comm.use_row_split`` MoE routes this rank's rows as its slab of the
+batch split over "data".
 
 The recurrent blocks return their new state (conv rows in the config's
 dtype, the recurrence in f32) and the stack writes it into its cache in
@@ -53,6 +58,7 @@ __all__ = [
     "attention_decode",
     "init_kv_cache",
     "init_paged_kv_cache",
+    "kv_head_index",
     "local_kv_heads",
     "paged_prefill_update",
     "init_ffn",
@@ -64,6 +70,9 @@ __all__ = [
     "moe_capacity",
     "moe_route",
     "moe_combine",
+    "moe_dispatch",
+    "moe_experts",
+    "moe_gather",
     "moe",
     "init_rglru",
     "rglru",
@@ -184,20 +193,84 @@ def _out_proj(o, wo):
     b, s, h, k = o.shape
     y = (o.reshape(b * s, h * k) @ wo.reshape(h * k, -1)).reshape(b, s, -1)
     tp = comm.tp_layout()
-    return comm.all_reduce_sum(y, tp.group) if tp.heads else y
+    return comm.tp_reduce(y, tp.group) if tp.heads else y
+
+
+def _tp_enter(x, cut: bool):
+    """``x`` entering weights cut on their output dim (``cut``): its
+    gradient is summed over the tensor-parallel group."""
+    return comm.tp_copy(x, comm.tp_layout().group) if cut else x
+
+
+def kv_head_index(cfg: ModelConfig, tp: comm.TPLayout):
+    """The KV heads this rank attends with where the bound layout cut the
+    query heads but not the KV heads: a ``slice`` where its query heads
+    cover whole groups of ``G = Hq / Hkv`` (``Hkv' = Hq' / G``) or fall
+    inside one group (one KV head, ``G' = Hq'``), else one KV head per
+    query head (``G' = 1``), a list of indices ``h // G``."""
+    g = cfg.phys_heads // cfg.phys_kv_heads
+    hq = cfg.phys_heads // tp.size
+    h0 = tp.rank * hq
+    if hq % g == 0:
+        return slice(h0 // g, (h0 + hq) // g)
+    if g % hq == 0:
+        return slice(h0 // g, h0 // g + 1)
+    return [(h0 + j) // g for j in range(hq)]
 
 
 def local_kv_heads(cfg: ModelConfig) -> int:
-    """KV heads this rank holds: its slab when the bound layout cut the
-    heads, else all of them."""
+    """KV heads this rank holds: its slab when the bound layout cut them,
+    the heads its query heads read when it cut the query heads alone,
+    else all of them."""
     tp = comm.tp_layout()
-    return cfg.phys_kv_heads // tp.size if tp.heads else cfg.phys_kv_heads
+    if tp.kv:
+        return cfg.phys_kv_heads // tp.size
+    if tp.heads:
+        idx = kv_head_index(cfg, tp)
+        return len(range(cfg.phys_kv_heads)[idx]) \
+            if isinstance(idx, slice) else len(idx)
+    return cfg.phys_kv_heads
+
+
+def _kv_local(t, cfg: ModelConfig):
+    """(B, S, Hkv, D) of the whole KV heads -> this rank's (see
+    :func:`kv_head_index`); every rank's gradient of the whole heads is
+    summed over the group, so ``wk`` / ``wv`` (replicated) get all of
+    it."""
+    tp = comm.tp_layout()
+    t = comm.tp_copy(t, tp.group)
+    idx = kv_head_index(cfg, tp)
+    if isinstance(idx, slice):
+        return t[:, :, idx]
+    return torch.cat([t[:, :, h:h + 1] for h in idx], dim=2)
+
+
+def _kv_of(p, x, cfg: ModelConfig, xin=None):
+    """K and V (B, S, Hkv', D) of ``x`` (biases added, no RoPE) for this
+    rank; ``xin`` is ``x`` already entered into the cut heads."""
+    tp = comm.tp_layout()
+    if tp.kv:
+        x = _tp_enter(x, True) if xin is None else xin
+    k, v = _proj(x, p["wk"]), _proj(x, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    if tp.heads and not tp.kv:
+        k, v = _kv_local(k, cfg), _kv_local(v, cfg)
+    return k, v
+
+
+def _q_of(p, x, xin=None):
+    """The query heads of ``x`` this rank holds (bias added, no RoPE)."""
+    if xin is None:
+        xin = _tp_enter(x, comm.tp_layout().heads)
+    q = _proj(xin, p["wq"])
+    return q + p["bq"] if "bq" in p else q
 
 
 def _qkv(p, x, cfg: ModelConfig, use_rope: bool, positions):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    xin = _tp_enter(x, comm.tp_layout().heads)
+    q = _q_of(p, x, xin)
+    k, v = _kv_of(p, x, cfg, xin)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -304,8 +377,8 @@ def attention(p, x, cfg: ModelConfig, kind: str, positions=None,
     and "bidir" has no RoPE either."""
     b, s, _ = x.shape
     if kind == "cross":
-        q = _proj(x, p["wq"])
-        k, v = _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+        q = _q_of(p, x)
+        k, v = _kv_of(p, enc_out, cfg)
     else:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -396,7 +469,7 @@ def attention_decode(p, x, cache, pos, cfg: ModelConfig, kind: str,
     over the ring is the whole window predicate, since the ring holds only
     the last ``window`` positions."""
     if kind == "cross":
-        q = _proj(x, p["wq"])
+        q = _q_of(p, x)
         out = _sdpa_decode(q, cache["k"], cache["v"], cfg, "cross", None,
                            None)
         return _out_proj(out, p["wo"]), cache
@@ -632,13 +705,21 @@ def _tp_sum(y):
     """Sum a partial output over the tensor-parallel group when the bound
     layout cut the FFN hidden dim it was contracted over."""
     tp = comm.tp_layout()
-    return comm.all_reduce_sum(y, tp.group) if tp.ffn else y
+    return comm.tp_reduce(y, tp.group) if tp.ffn else y
 
 
 def ffn(p, x, cfg: ModelConfig):
     """The FFN sublayer.  A float block whose hidden columns are a
     tensor-parallel slab sums its output over the group; a deployed
     KAN-FFN block runs on the runtime's mesh (its columns on "model")."""
+    if cfg.ffn_kind == "kan" and "l1" in p:
+        # ASP-quantized deployed block: both halves through kernel B1
+        from ..core.kan_ffn_deploy import kan_ffn_apply_quantized
+
+        return kan_ffn_apply_quantized(p, x, cfg)
+    if cfg.ffn_kind == "none":
+        return torch.zeros_like(x)
+    x = _tp_enter(x, comm.tp_layout().ffn)
     if cfg.ffn_kind == "swiglu":
         y = (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
         return _tp_sum(y)
@@ -646,16 +727,9 @@ def ffn(p, x, cfg: ModelConfig):
         y = F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
         return _tp_sum(y)
     if cfg.ffn_kind == "kan":
-        if "l1" in p:
-            # ASP-quantized deployed block: both halves through kernel B1
-            from ..core.kan_ffn_deploy import kan_ffn_apply_quantized
-
-            return kan_ffn_apply_quantized(p, x, cfg)
         h = _kan_linear(p["c1"], p["wb1"], x, cfg)
         y = _kan_linear(p["c2"], p["wb2"], h, cfg)
         return _tp_sum(y)
-    if cfg.ffn_kind == "none":
-        return torch.zeros_like(x)
     raise ValueError(cfg.ffn_kind)
 
 
@@ -745,11 +819,11 @@ def moe_combine(contrib, dtype):
     return out
 
 
-def moe(p, x, cfg: ModelConfig):
-    """Top-k MoE over (B, S, D): tokens scattered into (E, cap, D) expert
-    batches (dropped assignments to an extra row ``E*cap``, cut off), the
-    SwiGLU experts as batched matmuls, the gate multiplied in the experts'
-    dtype and the k outputs of a token summed by :func:`moe_combine`."""
+def moe_dispatch(p, x, cfg: ModelConfig):
+    """Route (B, S, D) and scatter the tokens into (E, cap, D) expert
+    batches (dropped assignments to an extra row ``E*cap``, cut off).
+    Returns ``(xe, dest, flat_g)``, ``dest`` (T*k,) each assignment's row
+    of the expert batches (``E*cap`` where dropped)."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     t = b * s
@@ -759,16 +833,46 @@ def moe(p, x, cfg: ModelConfig):
     # repeat(arange(T), k): a token's k assignments are contiguous
     tok_id = torch.arange(t, device=x.device)[:, None].expand(t, k).reshape(
         t * k)
+    # the experts' input enters their hidden columns when the layout cut
+    # them (the router above reads the whole rows)
+    xt = _tp_enter(xt, comm.tp_layout().moe)
     # kept destinations are distinct; the dropped ones race on row e*cap
     xe = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
     xe = xe.index_put((dest,), xt[tok_id])[:e * cap].reshape(e, cap, d)
+    return xe, dest, flat_g
+
+
+def moe_experts(p, xe):
+    """The SwiGLU experts as batched matmuls, (E, cap, D) -> (E, cap, D);
+    with hidden columns cut, this rank's partial sum."""
     h = torch.bmm(xe, p["wi"])
     g = torch.bmm(xe, p["wg"])
-    ye = torch.bmm(F.silu(g) * h, p["wo"])
-    ye_flat = torch.cat([ye.reshape(e * cap, d),
-                         torch.zeros((1, d), dtype=ye.dtype, device=x.device)])
+    return torch.bmm(F.silu(g) * h, p["wo"])
+
+
+def moe_gather(ye, dest, flat_g, shape, dtype):
+    """Each assignment's expert output times its gate (in the experts'
+    dtype; a dropped one reads zeros), the k of a token summed by
+    :func:`moe_combine`: (B, S, D)."""
+    b, s, d = shape
+    t, e_cap = b * s, ye.shape[0] * ye.shape[1]
+    ye_flat = torch.cat([ye.reshape(e_cap, d),
+                         torch.zeros((1, d), dtype=ye.dtype, device=ye.device)])
     contrib = ye_flat[dest] * flat_g[:, None].to(ye.dtype)
-    return moe_combine(contrib.reshape(t, k, d), x.dtype).reshape(b, s, d)
+    return moe_combine(contrib.reshape(t, -1, d), dtype).reshape(b, s, d)
+
+
+def moe(p, x, cfg: ModelConfig):
+    """Top-k MoE over (B, S, D): :func:`moe_dispatch`, :func:`moe_experts`
+    and :func:`moe_gather`.  Where the layout cut the experts' hidden dim,
+    each rank's partial expert outputs are summed over the group before
+    the gates multiply them and a token's k rows are combined in order."""
+    xe, dest, flat_g = moe_dispatch(p, x, cfg)
+    ye = moe_experts(p, xe)
+    tp = comm.tp_layout()
+    if tp.moe:
+        ye = comm.tp_reduce(ye, tp.group)
+    return moe_gather(ye, dest, flat_g, x.shape, x.dtype)
 
 
 # ----------------------------------------------------------------------------

@@ -24,15 +24,17 @@ Caches are written in place and returned.
 
 Tensor parallelism: :func:`place_params` cuts a param tree to this rank's
 slabs on a mesh's ``"model"`` axis where ``dist.sharding.param_pspecs``
-puts a leaf there (attention heads, dense FFN hidden columns, the
-vocabulary of ``embed`` and ``lm_head``), and places the deployed KAN-FFN
-bundles on the mesh's ``"model"`` axis for the runtime.  Under
-``dist.comm.use_tp`` the entry points then run per rank: the embedding is
-a masked lookup summed over the group, the logits of a vocabulary slab are
-all-gathered, and the layers reduce their partial outputs
+puts a leaf there (query and KV heads, dense FFN and MoE expert hidden
+columns, the patch projection's columns, the vocabulary of ``embed`` and
+``lm_head``), and places the deployed KAN-FFN bundles on the mesh's
+``"model"`` axis for the runtime.  Under ``dist.comm.use_tp`` the entry
+points then run per rank: the embedding is a masked lookup summed over the
+group, the logits of a vocabulary slab and the patch rows of a column slab
+are all-gathered, and the layers reduce their partial outputs
 (``models.layers``); each reads which roles were cut from the
-``dist.comm.TPLayout`` that :func:`place_params` returns.  MoE expert
-weights cut under ``model > 1`` are refused.
+``dist.comm.TPLayout`` that :func:`place_params` returns.  The collectives
+carry gradients (``dist.comm``), so ``loss_fn`` trains under the same
+layout.
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ __all__ = [
     "prefill_chunk",
     "params_device",
     "place_params",
+    "param_layout",
     "prefix_batch_key",
     "tokens_only_refusal",
 ]
@@ -98,27 +101,36 @@ def tokens_only_refusal(cfg: ModelConfig, who: str) -> str | None:
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, *,
-                device=None) -> dict:
+                device=None, place=None) -> dict:
     """Random weights on ``device`` (the card unless ``device="cpu"``),
-    drawn from ``gen`` (a generator on that device)."""
+    drawn from ``gen`` (a generator on that device).
+
+    ``place(path, leaf)``, where given, replaces each leaf as soon as it is
+    drawn (a stacked layer's leaves as soon as its layer is, before the
+    stack is built), e.g. by this rank's slab (``dist.sharding.
+    shard_param``): the draws are the same, and no more than one layer's
+    leaves are ever whole at once."""
     dev = resolve_device(device)
     dt = L.torch_dtype(cfg)
+    put = place or (lambda _path, leaf: leaf)
     p = {
-        "embed": L._normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt, dev),
+        "embed": put("embed", L._normal(gen, (cfg.vocab_size, cfg.d_model),
+                                        0.02, dt, dev)),
         "final_norm": L.init_rmsnorm(cfg.d_model, device=dev),
         "decoder": init_stack(gen, cfg, cross=cfg.encoder_layers > 0,
-                              device=dev),
+                              device=dev, place=place, path="decoder"),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = L._normal(gen, (cfg.d_model, cfg.vocab_size), 0.02,
-                                 dt, dev)
+        p["lm_head"] = put("lm_head", L._normal(
+            gen, (cfg.d_model, cfg.vocab_size), 0.02, dt, dev))
     if cfg.encoder_layers > 0:
-        p["encoder"] = init_stack(gen, _encoder_cfg(cfg), device=dev)
+        p["encoder"] = init_stack(gen, _encoder_cfg(cfg), device=dev,
+                                  place=place, path="encoder")
         p["enc_norm"] = L.init_rmsnorm(cfg.d_model, device=dev)
     if cfg.family == "vlm":
-        p["patch_proj"] = L._normal(
+        p["patch_proj"] = put("patch_proj", L._normal(
             gen, (cfg.patch_embed_dim, cfg.d_model),
-            1.0 / math.sqrt(cfg.patch_embed_dim), dt, dev)
+            1.0 / math.sqrt(cfg.patch_embed_dim), dt, dev))
     return p
 
 
@@ -132,10 +144,11 @@ def params_device(p: dict) -> torch.device:
 
 
 # the roles a tensor-parallel cut may take, by the leaf's last tree key
-# (attention ``wo`` by its parent too); ``param_pspecs`` decides the cut
-_TP_ROLES = {"wq": "heads", "wk": "heads", "wv": "heads", "bq": "heads",
-             "bk": "heads", "bv": "heads", "embed": "vocab",
-             "lm_head": "vocab"}
+# (attention ``wo`` and the FFN / expert keys by their parent too);
+# ``param_pspecs`` decides the cut
+_TP_ROLES = {"wq": "heads", "bq": "heads", "wk": "kv", "wv": "kv",
+             "bk": "kv", "bv": "kv", "embed": "vocab", "lm_head": "vocab",
+             "patch_proj": "patch"}
 _FFN_KEYS = ("wi", "wg", "wo", "c1", "wb1", "c2", "wb2")
 
 
@@ -145,6 +158,8 @@ def _tp_role(path: str) -> str | None:
         return "heads"
     if key in _FFN_KEYS and parent.endswith("ffn"):
         return "ffn"
+    if key in ("wi", "wg", "wo") and parent.endswith("moe"):
+        return "moe"
     return _TP_ROLES.get(key)
 
 
@@ -154,14 +169,15 @@ def place_params(p: dict, cfg: ModelConfig, mesh):
     ``dist.comm.use_tp``.
 
     Tensor leaves keep the slab of each dim ``param_pspecs`` (no fsdp) puts
-    on ``"model"``; deployed KAN bundles are placed on the mesh's
-    ``"model"`` axis (``place_deployed_kan``).  A role is cut whole or not
-    at all: a cut of a leaf outside the heads, the FFN hidden dim and the
-    vocabulary (MoE experts, ``patch_proj``), or of some of a role's leaves
-    only (a model size that divides one of the query and KV head counts),
-    raises ``NotImplementedError``."""
+    on ``"model"``: query and KV heads, the dense / float KAN-FFN and MoE
+    expert hidden dims, the patch projection's output columns and the
+    vocabulary; deployed KAN bundles are placed on the mesh's ``"model"``
+    axis (``place_deployed_kan``).  A role is cut whole or not at all.
+    Where the model size divides the query head count but not the KV head
+    count, the KV heads stay whole (``TPLayout.kv`` False) and each rank
+    attends with those its query heads read."""
     from ..core.kan_network_deploy import DeployedKAN, place_deployed_kan
-    from ..dist.sharding import axis_size, leaf_pspec, map_with_path
+    from ..dist.sharding import axis_size, map_with_path, shard_param
     from ..runtime.meshexec import mesh_index
 
     msize = axis_size(mesh, "model")
@@ -174,30 +190,31 @@ def place_params(p: dict, cfg: ModelConfig, mesh):
             return leaf if kan_mesh is None else place_deployed_kan(leaf,
                                                                     kan_mesh)
         role = _tp_role(path)
-        cut = False
-        for dim, axis in enumerate(leaf_pspec(path, leaf.shape, mesh)):
-            if axis == "model":
-                w = leaf.shape[dim] // msize
-                leaf = leaf.narrow(dim, mi * w, w).contiguous()
-                cut = True
+        whole = tuple(leaf.shape)
+        leaf = shard_param(path, leaf, mesh)
+        cut = tuple(leaf.shape) != whole
         if cut and role is None:
-            raise NotImplementedError(
-                f"{path} under a model axis of {msize} is not ported yet "
-                "(ROADMAP A10b); serve it on a data-only mesh")
+            raise ValueError(f"{path}: cut on the model axis, but no layer "
+                             "reads it as a slab")
         if role is not None:
             cuts.setdefault(role, set()).add(cut)
         return leaf
 
     placed = map_with_path(place, p)
     split = [r for r, c in cuts.items() if len(c) > 1]
-    if split:
-        raise NotImplementedError(
-            f"model={msize} cuts some of the {split[0]} leaves only (heads "
-            f"{cfg.phys_heads} / KV {cfg.phys_kv_heads}); that layout is "
-            "not ported (ROADMAP A10b)")
+    roles = {r: True in c for r, c in cuts.items()}
+    if split or (roles.get("kv") and not roles.get("heads")):
+        raise ValueError(
+            f"model={msize} cuts the {split or ['kv']} leaves unevenly "
+            f"(heads {cfg.phys_heads} / KV {cfg.phys_kv_heads})")
     group = mesh.get_group("model") if kan_mesh is not None else None
-    return placed, comm.TPLayout(group, **{r: True in c
-                                           for r, c in cuts.items()})
+    return placed, comm.TPLayout(group, size=msize, rank=mi, **roles)
+
+
+def param_layout(cfg: ModelConfig, mesh) -> comm.TPLayout:
+    """The :class:`dist.comm.TPLayout` :func:`place_params` gives ``cfg``'s
+    params on ``mesh``, read off a tree on the meta device (no memory)."""
+    return place_params(init_params(None, cfg, device="meta"), cfg, mesh)[1]
 
 
 def _embed_tokens(p, tokens, cfg: ModelConfig):
@@ -210,7 +227,7 @@ def _embed_tokens(p, tokens, cfg: ModelConfig):
         local = tokens - v0
         hit = (local >= 0) & (local < emb.shape[0])
         h = emb[torch.where(hit, local, 0)] * hit[..., None].to(emb.dtype)
-        h = comm.all_reduce_sum(h, tp.group)
+        h = comm.tp_reduce(h, tp.group)
     else:
         h = emb[tokens]
     # scaled in the embedding's dtype, as the reference does; the scale is
@@ -222,10 +239,12 @@ def _embed_tokens(p, tokens, cfg: ModelConfig):
 
 def _lm_logits(p, h, cfg: ModelConfig):
     w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
-    logits = (h @ w).to(torch.float32)
     tp = comm.tp_layout()
     if tp.vocab:  # a vocabulary slab of the columns
-        logits = comm.all_gather(logits, tp.group, dim=-1)
+        h = comm.tp_copy(h, tp.group)
+    logits = (h @ w).to(torch.float32)
+    if tp.vocab:
+        logits = comm.tp_gather(logits, tp.group, -1)
     return L.softcap(logits, cfg.final_logit_softcap)
 
 
@@ -245,6 +264,9 @@ def _encode(p, batch, cfg: ModelConfig):
 
 def _prepend_patches(p, h_tokens, batch, cfg: ModelConfig):
     patches = batch["patch_embeds"].to(L.torch_dtype(cfg)) @ p["patch_proj"]
+    tp = comm.tp_layout()
+    if tp.patch:  # a slab of the projection's output columns
+        patches = comm.tp_gather(patches, tp.group, -1)
     return torch.cat([patches, h_tokens], dim=1)
 
 
@@ -271,18 +293,21 @@ def forward(p, batch, cfg: ModelConfig):
     return _lm_logits(p, h[:, n_prefix:], cfg)
 
 
-def loss_fn(p, batch, cfg: ModelConfig):
+def loss_fn(p, batch, cfg: ModelConfig, mask_count=None):
     """Mean next-token NLL of ``batch`` {"tokens", "targets": (B, S) int,
     optional "loss_mask": (B, S) float}: log-softmax of the f32 logits,
     the targets' entries gathered; with a mask, the masked mean (its sum
-    clamped to at least 1)."""
+    clamped to at least 1).  ``mask_count`` replaces the mask's own sum
+    as the divisor: a sharded step passes the mask count of the whole
+    batch, so the ranks' losses over their rows add up to its mean."""
     logits = forward(p, batch, cfg)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, batch["targets"].to(torch.int64)[..., None])[
         ..., 0]
     mask = batch.get("loss_mask")
     if mask is not None:
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        count = mask.sum() if mask_count is None else mask_count
+        return (nll * mask).sum() / torch.clamp(count, min=1.0)
     return nll.mean()
 
 

@@ -29,6 +29,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..dist import comm
+from ..dist.sharding import map_with_path
 from ..runtime.attention import resolve_attn_backend, use_attn_backend
 from . import layers as L
 
@@ -115,14 +117,20 @@ def _init_block(gen, cfg: ModelConfig, kinds, cross: bool, device) -> dict:
 
 
 def init_stack(gen, cfg: ModelConfig, *, cross: bool = False,
-               device=None) -> list:
+               device=None, place=None, path: str = "") -> list:
     """Stacked params per group (leading dim = repeats); ``cross`` adds a
-    cross-attention sublayer to every layer but "ssm"."""
+    cross-attention sublayer to every layer but "ssm".  ``place(path,
+    leaf)``, where given, replaces each layer's leaves as soon as the layer
+    is drawn (paths under ``path``, as the stacked tree's)."""
     groups = []
-    for kinds, repeats in layer_groups(cfg):
+    for gi, (kinds, repeats) in enumerate(layer_groups(cfg)):
         _check_kinds(kinds)
-        groups.append(stack_trees([_init_block(gen, cfg, kinds, cross, device)
-                                   for _ in range(repeats)]))
+        blocks = []
+        for _ in range(repeats):
+            bp = _init_block(gen, cfg, kinds, cross, device)
+            blocks.append(bp if place is None else map_with_path(
+                place, bp, f"{path}/{gi}" if path else str(gi)))
+        groups.append(stack_trees(blocks))
     return groups
 
 
@@ -207,13 +215,16 @@ def _block_forward(bp, x, cfg: ModelConfig, kinds, positions, enc_out=None):
     return x
 
 
-def _remat_block(bp, x, cfg: ModelConfig, kinds, positions, attn_backend,
+def _remat_block(bp, x, cfg: ModelConfig, kinds, positions, scope,
                  enc_out):
     # the recomputation runs inside the backward pass, on the autograd
-    # engine's thread for a CUDA tensor, where the caller's
-    # use_attn_backend() scope is not set: pin the backend resolved at the
-    # forward so both passes dispatch alike
-    with use_attn_backend(attn_backend):
+    # engine's thread for a CUDA tensor, where the caller's scopes
+    # (use_attn_backend, use_tp, use_row_split) are not set: pin the
+    # attention backend, tensor-parallel layout and row-split group read
+    # at the forward, so both passes run the same function
+    attn_backend, tp, rows = scope
+    with use_attn_backend(attn_backend), comm.use_tp(tp), \
+            comm.use_row_split(rows):
         return _block_forward(bp, x, cfg, kinds, positions, enc_out)
 
 
@@ -223,11 +234,12 @@ def stack_forward(groups, x, cfg: ModelConfig, positions=None, enc_out=None):
     explicit input of each block's checkpoint, so its gradient reaches the
     encoder."""
     remat = cfg.remat and torch.is_grad_enabled()
-    backend = resolve_attn_backend() if remat else None
+    scope = ((resolve_attn_backend(), comm.tp_layout(),
+              comm.row_split_group()) if remat else None)
     for bp, _, kinds in _each_layer(groups, None, cfg):
         if remat:
             x = checkpoint(_remat_block, bp, x, cfg, kinds, positions,
-                           backend, enc_out, use_reentrant=False,
+                           scope, enc_out, use_reentrant=False,
                            preserve_rng_state=False)  # the block draws none
         else:
             x = _block_forward(bp, x, cfg, kinds, positions, enc_out)
@@ -320,10 +332,10 @@ def _prefill_cross(bp, x, cfg: ModelConfig, i: int, cache, enc_out):
     if f"l{i}_xattn" not in bp:
         return x
     xp, xkv = bp[f"l{i}_xattn"], cache[f"l{i}_xkv"]
-    for name in ("k", "v"):
-        xkv[name].copy_(L._proj(enc_out, xp[f"w{name}"]))
+    for name, t in zip(("k", "v"), L._kv_of(xp, enc_out, cfg)):
+        xkv[name].copy_(t)
     h = L.rmsnorm(bp[f"l{i}_lnx"], x, cfg.norm_eps)
-    h = L._sdpa(L._proj(h, xp["wq"]), xkv["k"], xkv["v"], cfg, "cross")
+    h = L._sdpa(L._q_of(xp, h), xkv["k"], xkv["v"], cfg, "cross")
     return x + L._out_proj(h, xp["wo"])
 
 

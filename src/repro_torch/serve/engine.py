@@ -43,11 +43,13 @@ decode and verify call runs under ``obs.profile_scope`` (``serve.prefill``,
 running the same engine and scheduler on the same request stream
 (:class:`SlotShards`):
 
-  * params follow ``models.model.place_params``: attention heads, dense
-    FFN hidden columns and the vocabulary on "model" (kernel B2 runs per
-    rank on its ``Hkv / model`` heads), and the deployed KAN-FFN bundles
-    on the runtime's mesh runner with their columns on "model" (kernel B1
-    per shard);
+  * params follow ``models.model.place_params``: query and KV heads,
+    dense FFN and MoE expert hidden columns and the vocabulary on "model"
+    (kernel B2 runs per rank on its ``Hkv / model`` heads, or, where the
+    model size divides the query heads alone, on the KV heads its query
+    heads read, and the caches hold those), and the deployed KAN-FFN
+    bundles on the runtime's mesh runner with their columns on "model"
+    (kernel B1 per shard);
   * slots split over "data" when ``data`` divides them: data rank d owns
     ``slots / data`` slots and the cache rows for them (contiguous), or its
     share of the paged pool (``ServeEngine.pools``, one ``KVBlockPool``

@@ -21,8 +21,17 @@ package reads the other's checkpoints:
   runs on a daemon thread; ``wait()`` joins before the next save.
 * **Keep-N**: the oldest complete checkpoints beyond ``keep`` are deleted.
 
-Leaves are stored whole (unsharded); restoring onto another mesh waits
-for ROADMAP A10b.
+* **Sharded** (``shardings=``, a tree of ``dist.sharding.MeshSharding``
+  from ``to_shardings``, which carries its mesh): a save gathers every
+  leaf whole on the caller's thread, at the same step on every rank (a
+  collective on the writer thread could deadlock against the next step's),
+  one rank writes, and every rank passes a barrier at the next ``wait()``;
+  the files are those an unsharded save of the gathered tree writes.  A
+  restore reads the files on every rank and keeps this rank's slab of each
+  leaf under the NEW shardings, whatever mesh saved them: the reference's
+  elastic re-shard.
+
+Leaves are stored whole (unsharded), so a checkpoint is mesh-agnostic.
 """
 
 from __future__ import annotations
@@ -34,9 +43,11 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-__all__ = ["Checkpointer", "save_pytree", "load_pytree", "latest_step",
-           "flatten", "unflatten", "treedef_str"]
+__all__ = ["Checkpointer", "save_pytree", "load_pytree", "gather_pytree",
+           "latest_step", "flatten", "flatten_shardings", "unflatten",
+           "treedef_str"]
 
 _BF16_DESCR = "<V2"
 
@@ -141,19 +152,69 @@ def save_pytree(tree, path: str) -> None:
     _save_host([_host(l) for l in flatten(tree)], treedef_str(tree), path)
 
 
-def load_pytree(path: str, like):
+def load_pytree(path: str, like, shardings=None):
     """Restore into the structure of ``like`` (names and order must
-    match); each tensor lands on the device of ``like``'s leaf there."""
+    match); each tensor lands on the device of ``like``'s leaf there.
+
+    With ``shardings`` (a tree like ``like`` of ``MeshSharding``s) each
+    leaf is this rank's slab of the saved whole leaf; ``like``'s leaves
+    then hold slab shapes, and the whole shapes they imply must be the
+    saved ones."""
+    from ..dist.sharding import global_shape, shard_tensor
+
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     likes = flatten(like)
     if manifest["num_leaves"] != len(likes):
         raise ValueError(f"structure mismatch: {manifest['num_leaves']} "
                          f"leaves saved, {len(likes)} expected")
-    out = [_read_leaf(os.path.join(path, f"leaf_{i}.npy"), m["dtype"],
-                      l.device if isinstance(l, torch.Tensor) else "cpu")
-           for i, (m, l) in enumerate(zip(manifest["leaves"], likes))]
+    shs = [None] * len(likes) if shardings is None else flatten_shardings(
+        shardings)
+    out = []
+    for i, (m, l, sh) in enumerate(zip(manifest["leaves"], likes, shs)):
+        dev = l.device if isinstance(l, torch.Tensor) else "cpu"
+        if sh is None:
+            out.append(_read_leaf(os.path.join(path, f"leaf_{i}.npy"),
+                                  m["dtype"], dev))
+            continue
+        want = global_shape(tuple(l.shape), sh)
+        if tuple(m["shape"]) != want:
+            raise ValueError(f"leaf {i}: saved shape {tuple(m['shape'])}, "
+                             f"but its slab {tuple(l.shape)} under the "
+                             f"given shardings needs {want}")
+        t = _read_leaf(os.path.join(path, f"leaf_{i}.npy"), m["dtype"],
+                       "cpu")
+        out.append(shard_tensor(t, sh).to(dev))
     return unflatten(like, out)
+
+
+def flatten_shardings(shardings) -> list:
+    """The ``MeshSharding``s of a tree in :func:`flatten` order (a
+    ``MeshSharding`` is a tuple: it is a leaf here)."""
+    from ..dist.sharding import MeshSharding
+
+    if isinstance(shardings, MeshSharding):
+        return [shardings]
+    if isinstance(shardings, dict):
+        return [s for k in sorted(shardings)
+                for s in flatten_shardings(shardings[k])]
+    return [s for v in shardings for s in flatten_shardings(v)]
+
+
+def gather_pytree(tree, shardings, host: bool = True) -> list:
+    """``(host array, dtype name)`` of every leaf of ``tree`` (this rank's
+    slabs) gathered whole over the mesh of ``shardings``, in
+    :func:`flatten` order, one leaf on the device at a time (``host``
+    False: gathered and dropped, an empty list).  Every rank must call it
+    at the same point."""
+    from ..dist.sharding import gather_tensor
+
+    out = []
+    for l, sh in zip(flatten(tree), flatten_shardings(shardings)):
+        whole = gather_tensor(l, sh)
+        if host:
+            out.append(_host(whole))
+    return out
 
 
 def latest_step(directory: str):
@@ -175,16 +236,36 @@ class Checkpointer:
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
+        self._barrier = False
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            # after a sharded save: the writing rank's files are published
+            # before any rank goes on to read them
+            self._barrier = False
+            if dist.get_backend() == "nccl":
+                dist.barrier(device_ids=[torch.cuda.current_device()])
+            else:
+                dist.barrier()
 
-    def save(self, step: int, tree, blocking: bool = False):
-        """Copies to the host now; writes on a background thread."""
+    def save(self, step: int, tree, blocking: bool = False, shardings=None):
+        """Copies to the host now; writes on a background thread.  With
+        ``shardings`` (see the module note) every rank must call it at the
+        same step; rank 0 writes."""
         self.wait()
-        leaves = [_host(l) for l in flatten(tree)]
+        if shardings is None:
+            leaves = [_host(l) for l in flatten(tree)]
+        else:
+            writer = dist.get_rank() == 0
+            leaves = gather_pytree(tree, shardings, host=writer)
+            self._barrier = True
+            if not writer:
+                if blocking:
+                    self.wait()
+                return
         treedef = treedef_str(tree)
         path = os.path.join(self.directory, f"step_{step}")
 
@@ -194,23 +275,23 @@ class Checkpointer:
 
         if blocking:
             work()
+            if shardings is not None:
+                self.wait()
         else:
             self._thread = threading.Thread(target=work, daemon=True)
             self._thread.start()
 
     def restore_latest(self, like, shardings=None):
         """Returns (tree, step) or (None, None); tensors land on the devices
-        of ``like``'s leaves."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring under new shardings is not ported yet (ROADMAP "
-                "A10b: distributed training)")
+        of ``like``'s leaves.  With ``shardings`` (a tree of
+        ``MeshSharding``s) each leaf is this rank's slab under them and
+        ``like`` holds slab shapes: the elastic re-shard."""
         self.wait()
         step = latest_step(self.directory)
         if step is None:
             return None, None
         return load_pytree(os.path.join(self.directory, f"step_{step}"),
-                           like), step
+                           like, shardings), step
 
     def _gc(self):
         steps = sorted(

@@ -26,6 +26,17 @@ leaves of two or more dimensions: an (n, m) matrix holds an (n,) row factor
 and an (m,) column factor.  Arithmetic is f32 throughout, in the
 reference's order; Python-float hyperparameters round to f32 as the
 reference's weak typing rounds them.
+
+On a mesh (a sharded train step) ``update_`` takes a tree of
+:class:`LeafShard`, one per parameter, and the gradients whole over
+"data" (summed there) and cut over "model" as their parameters are.
+AdamW and SGD-momentum run ZeRO-1 as ``dist.sharding.opt_state_pspecs
+(zero1=True)`` lays the moments out: each rank holds its "data" slab of a
+moment tree, updates it and its slab of the parameter, and all-gathers
+the parameter over "data".  Adafactor keeps its statistics whole on every
+rank, as the reference's specs replicate them: a mean over a dim cut on
+"model" is summed over the model group, a statistic whose other dim is cut
+is all-gathered, and the update's RMS sums over the group.
 """
 
 from __future__ import annotations
@@ -35,17 +46,52 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["Optimizer", "adamw", "adafactor", "sgdm", "apply_updates",
-           "global_norm", "clip_by_global_norm", "clip_by_global_norm_",
-           "tree_map", "tree_leaves", "tree_unflatten"]
+from ..dist import comm
+
+__all__ = ["Optimizer", "LeafShard", "adamw", "adafactor", "sgdm",
+           "apply_updates", "global_norm", "clip_by_global_norm",
+           "clip_by_global_norm_", "tree_map", "tree_leaves",
+           "tree_unflatten"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], tuple]  # (grads, state, params) -> (updates, state)
-    # (grads, state, params, ok) -> None: update + apply_updates in place
-    update_: Callable[[Any, Any, Any, Any], None]
+    # (grads, state, params, ok, shards=None) -> None: update +
+    # apply_updates in place
+    update_: Callable[..., None]
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafShard:
+    """How one parameter and its optimizer state are cut on a mesh:
+    ``model_dim``, the parameter's dim cut over ``model_group`` (None:
+    whole); ``data_dim``, the dim its moment slabs are cut on over
+    ``data_group`` (ZeRO-1; None: the moments are whole)."""
+
+    model_dim: int | None = None
+    model_group: Any = None
+    data_dim: int | None = None
+    data_group: Any = None
+
+
+def _data_slab(t: torch.Tensor, sh: LeafShard) -> torch.Tensor:
+    n = comm.group_size(sh.data_group)
+    w = t.shape[sh.data_dim] // n
+    return t.narrow(sh.data_dim, comm.group_rank(sh.data_group) * w, w)
+
+
+def _step_param(ok, g, p: torch.Tensor, sh: LeafShard | None, step) -> None:
+    """``p`` <- ``where(ok, step(g, p), p)``; under ZeRO-1 (``sh`` with a
+    data dim) ``step`` runs on this rank's "data" slabs of ``g`` and ``p``
+    and the new slabs are all-gathered into ``p``."""
+    if sh is None or sh.data_dim is None:
+        _commit(ok, p, step(g, p))
+        return
+    ps = _data_slab(p, sh)
+    new = torch.where(ok, step(_data_slab(g, sh), ps), ps)
+    p.copy_(comm.all_gather(new, sh.data_group, sh.data_dim))
 
 
 def tree_map(fn, tree, *rest):
@@ -123,11 +169,26 @@ def clip_by_global_norm(grads, max_norm: float):
                     * scale, grads), norm
 
 
-def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: list, max_norm: float, cut=None,
+                         group=None) -> torch.Tensor:
     """:func:`clip_by_global_norm` over a list of gradient tensors, in
     place: an f32 entry is scaled where it is, any other is replaced by its
-    f32 clipped copy (the same bits).  Returns the norm."""
-    norm = global_norm(grads)
+    f32 clipped copy (the same bits).  Returns the norm.
+
+    ``cut`` (one bool per entry) marks the entries that are this rank's
+    slab of a gradient cut over ``group``: their sums of squares are summed
+    over the group, and the whole entries count once.  Where nothing is
+    cut the norm is :func:`global_norm`'s, in its order."""
+    if cut is None or not any(cut) or comm.group_size(group) == 1:
+        norm = global_norm(grads)
+    else:
+        sq = [torch.sum(torch.square(g.to(torch.float32))) for g in grads]
+        idx = [i for i, c in enumerate(cut) if c]
+        summed = comm.all_reduce_sum(torch.stack([sq[i] for i in idx]),
+                                     group)
+        for j, i in enumerate(idx):
+            sq[i] = summed[j]
+        norm = torch.sqrt(sum(sq))
     scale = _clip_scale(norm, max_norm)
     for i, g in enumerate(grads):
         if g.dtype == torch.float32:
@@ -195,17 +256,21 @@ def adamw(
                 {"step": step, "m": tree_map(lambda pr: pr.state[0], out),
                  "v": tree_map(lambda pr: pr.state[1], out)})
 
-    def update_(grads, state, params, ok):
+    def update_(grads, state, params, ok, shards=None):
         step = state["step"] + 1
         c = coefs(step)
 
-        def one(g, m_, v_, p):
-            pr = leaf(g, m_, v_, p, *c)
-            _commit(ok, m_, pr.state[0])
-            _commit(ok, v_, pr.state[1])
-            _commit(ok, p, _apply(p, pr.update))
+        def one(g, m_, v_, p, sh=None):
+            def step_(gs, ps):
+                pr = leaf(gs, m_, v_, ps, *c)
+                _commit(ok, m_, pr.state[0])
+                _commit(ok, v_, pr.state[1])
+                return _apply(ps, pr.update)
 
-        tree_map(one, grads, state["m"], state["v"], params)
+            _step_param(ok, g, p, sh, step_)
+
+        tree_map(one, grads, state["m"], state["v"], params,
+                 *(() if shards is None else (shards,)))
         _commit(ok, state["step"], step)
 
     return Optimizer(init, update, update_)
@@ -276,17 +341,64 @@ def adafactor(
         new_v = tree_map(lambda pr: pr.state, pairs)
         return updates, {"step": step, "v": new_v}
 
-    def update_(grads, state, params, ok):
+    def leaf_cut(g, s, beta, lr_t, eps32, dim, group):
+        """:func:`leaf` for ``g``, this rank's slab of a gradient cut on
+        ``dim`` over ``group``, against the whole statistics ``s``."""
+        n, nd = comm.group_size(group), g.ndim
+        w, lo = g.shape[dim], comm.group_rank(group) * g.shape[dim]
+
+        def mean_over(x, axis, out_dim):
+            # the mean over ``axis`` of the whole gradient's g2: summed
+            # over the group where ``axis`` is the cut dim, else this
+            # slab's means gathered along ``out_dim``
+            if axis == dim:
+                return comm.all_reduce_sum(x.sum(dim=axis), group) \
+                    / (x.shape[axis] * n)
+            return comm.all_gather(x.mean(dim=axis), group, out_dim)
+
+        g = g.to(torch.float32)
+        g2 = g * g + eps
+        if "vr" in s:
+            vr = beta * s["vr"] + (1 - beta) * mean_over(g2, nd - 1, dim)
+            vc_dim = dim if dim < nd - 2 else nd - 2
+            vc = beta * s["vc"] + (1 - beta) * mean_over(g2, nd - 2, vc_dim)
+            denom = vr.mean(dim=-1, keepdim=True)[..., None]
+            vr_l, vc_l = vr, vc
+            if dim < nd - 1:
+                vr_l = vr.narrow(dim, lo, w)
+            if dim != nd - 2:
+                vc_l = vc.narrow(vc_dim, lo, w)
+            if dim < nd - 2:
+                denom = denom.narrow(dim, lo, w)
+            prec = (vr_l[..., None] * vc_l[..., None, :]) \
+                / torch.maximum(denom, eps32)
+            u = g / torch.sqrt(torch.maximum(prec, eps32))
+            new_s = {"vr": vr, "vc": vc}
+        else:
+            v = beta * s["v"] + (1 - beta) * comm.all_gather(g2, group, dim)
+            u = g / torch.sqrt(torch.maximum(v.narrow(dim, lo, w), eps32))
+            new_s = {"v": v}
+        sq = comm.all_reduce_sum(torch.sum(u * u), group)
+        rms = torch.sqrt(sq / (u.numel() * n) + eps)
+        u = u / torch.clamp(rms / clip_threshold, min=1.0)
+        return _Pair(-lr_t * u, new_s)
+
+    def update_(grads, state, params, ok, shards=None):
         step = state["step"] + 1
         c = coefs(step)
 
-        def one(g, s, p):
-            pr = leaf(g, s, *c)
+        def one(g, s, p, sh=None):
+            if sh is not None and sh.model_dim is not None \
+                    and comm.group_size(sh.model_group) > 1:
+                pr = leaf_cut(g, s, *c, sh.model_dim, sh.model_group)
+            else:
+                pr = leaf(g, s, *c)
             for k, new in pr.state.items():
                 _commit(ok, s[k], new)
             _commit(ok, p, _apply(p, pr.update))
 
-        tree_map(one, grads, state["v"], params)
+        tree_map(one, grads, state["v"], params,
+                 *(() if shards is None else (shards,)))
         _commit(ok, state["step"], step)
 
     return Optimizer(init, update, update_)
@@ -317,13 +429,17 @@ def sgdm(lr: float, momentum: float = 0.9) -> Optimizer:
                 {"step": state["step"] + 1,
                  "m": tree_map(lambda pr: pr.state, out)})
 
-    def update_(grads, state, params, ok):
-        def one(g, m_, p):
-            pr = leaf(g, m_)
-            _commit(ok, m_, pr.state)
-            _commit(ok, p, _apply(p, pr.update))
+    def update_(grads, state, params, ok, shards=None):
+        def one(g, m_, p, sh=None):
+            def step_(gs, ps):
+                pr = leaf(gs, m_)
+                _commit(ok, m_, pr.state)
+                return _apply(ps, pr.update)
 
-        tree_map(one, grads, state["m"], params)
+            _step_param(ok, g, p, sh, step_)
+
+        tree_map(one, grads, state["m"], params,
+                 *(() if shards is None else (shards,)))
         _commit(ok, state["step"], state["step"] + 1)
 
     return Optimizer(init, update, update_)

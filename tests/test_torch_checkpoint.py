@@ -171,17 +171,39 @@ def test_restore_latest_and_async(tmp_path):
 
 
 def test_restore_under_new_shardings_raises(tmp_path):
-    """The reference's elastic re-shard on restore waits for ROADMAP A10."""
+    """The reference's elastic re-shard on restore: under shardings each
+    leaf is this rank's slab of the saved whole leaf (here a one-rank
+    mesh's, so the whole leaf), and a slab whose implied whole shape is
+    not the saved one raises.  Sharded loops are held across mesh shapes
+    in tests/test_torch_meshtrain.py."""
+    from repro_torch.dist.sharding import PSpec, to_shardings
+    from repro_torch.launch.mesh import make_local_mesh
+
     ck = T.Checkpointer(str(tmp_path), keep=1)
-    t = {"w": torch.arange(16.0).reshape(4, 4)}
+    t = {"w": torch.arange(16.0).reshape(4, 4), "b": torch.arange(3.0)}
     ck.save(1, t, blocking=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        ck.restore_latest(t, shardings={"w": None})
+    mesh = make_local_mesh(1, 1, device="cpu")
+    sh = to_shardings({"w": PSpec("data", "model"), "b": PSpec()}, mesh)
+    got, step = ck.restore_latest({"w": torch.zeros(4, 4),
+                                   "b": torch.zeros(3)}, shardings=sh)
+    assert step == 1 and torch.equal(got["w"], t["w"])
+    assert torch.equal(got["b"], t["b"])
+    with pytest.raises(ValueError, match="saved shape"):
+        ck.restore_latest({"w": torch.zeros(2, 4), "b": torch.zeros(3)},
+                          shardings=sh)
+    # a sharded save of a one-rank mesh writes the unsharded save's files
+    ck2 = T.Checkpointer(str(tmp_path / "s"), keep=1)
+    ck2.save(1, t, shardings=sh)
+    ck2.wait()
+    for name in ("manifest.json", "leaf_0.npy", "leaf_1.npy"):
+        assert (tmp_path / "s" / "step_1" / name).read_bytes() == \
+            (tmp_path / "step_1" / name).read_bytes()
     cfg = smoke_config("qwen2.5-14b")
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2)
-    with pytest.raises(NotImplementedError, match="A10"):
-        TrainLoop(cfg, dcfg, str(tmp_path / "l"), shardings={"state": None},
-                  device="cpu")
+    with pytest.raises(ValueError, match="state_pspecs"):
+        TrainLoop(cfg, dcfg, str(tmp_path / "l"), device="cpu",
+                  shardings={"state": to_shardings(
+                      {"params": PSpec()}, mesh)})
 
 
 def test_watchdog_flags_stragglers():

@@ -49,6 +49,7 @@ from repro_torch.dist import compress as tcompress
 from repro_torch.dist import sharding as tsh
 from repro_torch.kernels.kan_spline import pipeline as tpipe
 from repro_torch.launch.mesh import mesh_spec_sizes
+from repro_torch.models import layers as L
 from repro_torch.models import model as TM
 from repro_torch.models.layers import kan_ffn_hidden, kan_ffn_specs
 from repro_torch.runtime import executor as texec
@@ -451,12 +452,64 @@ class _RankMesh:
 
 
 def test_place_params_refuses_what_a10b_owns():
+    """What ``place_params`` once refused it now cuts: mixtral's experts at
+    (1,2) (wi / wg / wo on their hidden dim, the router whole) and qwen's
+    4 query / 2 KV heads at (1,4) (one query head per rank, both KV heads
+    whole, the one its query head reads attended with)."""
+    from repro_torch.dist import comm
+
     cfg, params = _t_params("mixtral-8x7b")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        TM.place_params(params, cfg, _RankMesh((1, 2)))
+    placed, tp = TM.place_params(params, cfg, _RankMesh((1, 2), (0, 1)))
+    assert (tp.heads, tp.kv, tp.moe, tp.ffn, tp.vocab, tp.size, tp.rank) \
+        == (True, True, True, False, True, 2, 1)
+    moe, whole = placed["decoder"][0]["l0_moe"], params["decoder"][0]["l0_moe"]
+    f = cfg.d_ff // 2
+    assert torch.equal(moe["wi"], whole["wi"][..., f:])
+    assert torch.equal(moe["wg"], whole["wg"][..., f:])
+    assert torch.equal(moe["wo"], whole["wo"][..., f:, :])
+    assert torch.equal(moe["router"], whole["router"])
     cfg, params = _t_params("qwen2.5-14b")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        TM.place_params(params, cfg, _RankMesh((1, 4)))
+    placed, tp = TM.place_params(params, cfg, _RankMesh((1, 4), (0, 3)))
+    assert (tp.heads, tp.kv, tp.ffn, tp.vocab, tp.size, tp.rank) \
+        == (True, False, True, True, 4, 3)
+    attn, whole = placed["decoder"][0]["l0_attn"], params["decoder"][0][
+        "l0_attn"]
+    assert torch.equal(attn["wq"], whole["wq"][..., 3:4, :])
+    assert torch.equal(attn["wo"], whole["wo"][..., 3:4, :, :])
+    assert torch.equal(attn["wk"], whole["wk"])
+    assert torch.equal(attn["bk"], whole["bk"])
+    with comm.use_tp(tp):
+        assert L.kv_head_index(cfg, tp) == slice(1, 2)
+        assert L.local_kv_heads(cfg) == 1
+
+
+@pytest.mark.parametrize("hq, hkv, m, want", [
+    (4, 2, 2, [slice(0, 1), slice(1, 2)]),          # whole groups
+    (4, 1, 2, [slice(0, 1), slice(0, 1)]),          # inside one group
+    (16, 1, 2, [slice(0, 1), slice(0, 1)]),         # recurrentgemma-9b
+    (32, 8, 16, [slice(r // 2, r // 2 + 1) for r in range(16)]),
+    (6, 2, 3, [[0, 0], [0, 1], [1, 1]]),            # straddling
+])
+def test_kv_head_index_maps_query_heads_to_their_kv_heads(hq, hkv, m, want):
+    """Each rank's query heads ``[r Hq/m, (r+1) Hq/m)`` read KV heads
+    ``h // G``: a slice where they cover whole groups or fall in one, one
+    KV head per query head where they straddle groups (6 / 2 at 3: G = 3,
+    two query heads per rank)."""
+    from repro_torch.dist.comm import TPLayout
+
+    cfg = dataclasses.replace(smoke_config("qwen2.5-14b"), num_heads=hq,
+                              num_kv_heads=hkv)
+    g = hq // hkv
+    for r in range(m):
+        tp = TPLayout(heads=True, size=m, rank=r)
+        idx = L.kv_head_index(cfg, tp)
+        assert idx == want[r], (r, idx)
+        heads = range(hkv)[idx] if isinstance(idx, slice) else idx
+        q = range(r * hq // m, (r + 1) * hq // m)
+        # the local GQA grouping pairs query head j with local KV head
+        # j // (Hq' / Hkv')
+        gl = len(q) // len(heads)
+        assert [heads[j // gl] for j in range(len(q))] == [h // g for h in q]
 
 
 @pytest.mark.parametrize("arch, shape, want", [
@@ -489,3 +542,35 @@ def _leaf(tree, key):
     return found[0]
 
 
+def test_meshtrain_card_checks_run_on_the_cpu():
+    """The card's model-cut checks (``dist.cardcheck``, run by
+    ``chip_smoke.py`` phase 14 and ``tests/test_torch_gpu.py``) at small
+    widths on the CPU, so their code is exercised here: a bf16 MoE layer
+    of the smoke mixtral and a float KAN-FFN at model 2, and the autograd
+    collectives on a world-1 gloo mesh."""
+    from repro_torch.dist import cardcheck as dc
+    from repro_torch.launch.mesh import make_local_mesh
+
+    cfg = dataclasses.replace(smoke_config("mixtral-8x7b"), dtype="bfloat16")
+    r = dc.check_moe_slabs("cpu", cfg, 64)
+    assert 0 < r["tol"] == 4 * dc.bf16_ulp(r["max_abs_out"])
+    r = dc.check_kan_ffn_slabs("cpu", 64, 32, 16)
+    assert set(r["rel_err"]) == {"y", "dx", "c1", "wb1", "c2", "wb2"}
+    assert dc.bf16_ulp(1.0) == 2.0 ** -7 and dc.bf16_ulp(6.5) == 2.0 ** -5
+    r = dc.check_autograd_collectives(make_local_mesh(1, 1, device="cpu"),
+                                      "cpu")
+    assert r == {"groups": {"data": 1, "model": 1}}
+
+
+def test_remat_keeps_the_forwards_layout_on_the_cpu():
+    """``dist.cardcheck.check_remat_under_layout`` on a world-1 gloo mesh:
+    each slab of the smoke qwen2.5-14b at model 2 (KV heads cut) and 4 (KV
+    heads whole) trains alike with remat on and off when the backward runs
+    outside the layout's scope."""
+    from repro_torch.dist import cardcheck as dc
+    from repro_torch.launch.mesh import make_local_mesh
+
+    r = dc.check_remat_under_layout(make_local_mesh(1, 1, device="cpu"),
+                                    "cpu")
+    assert r == {"layouts": [(2, 0, True, True), (2, 1, True, True)]
+                 + [(4, i, True, False) for i in range(4)]}

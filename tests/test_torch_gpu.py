@@ -56,7 +56,11 @@ meshed runtime on a 1x1 NCCL mesh bit-identical to the unsharded call with
 equal B1 launches, a model shard's B1 column slabs (at the whole layer's
 feature split) bit-identical to the whole layer's columns, the NCCL
 collectives called directly on the mesh's world-1 groups, and the int8
-gradient codec on CUDA tensors equal to a numpy reckoning.  This file
+gradient codec on CUDA tensors equal to a numpy reckoning.  Meshed
+training: ``TrainLoop(shardings=)`` on the 1x1 NCCL mesh bit-equal to the
+unsharded loop (and its restart), a full-width mixtral MoE layer and the
+float KAN-FFN as two ranks' slabs added by hand (``repro_torch.dist.
+cardcheck``), and the gradient-carrying collectives.  This file
 imports only the port, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -758,3 +762,91 @@ def test_mesh_collectives_on_the_world1_nccl_groups(dev):
 
     r = check_collectives(make_local_mesh(1, 1), dev)
     assert r == {"groups": {"data": 1, "model": 1}, "calls": 12}
+
+
+# ----------------------------------------------------------------------------
+# meshed training (A10b): a 1x1 mesh over a world-1 NCCL group
+# ----------------------------------------------------------------------------
+
+
+def test_mesh_1x1_train_loop_is_unsharded_bit_for_bit(dev, tmp_path):
+    """``TrainLoop(shardings=)`` on a 1x1 NCCL mesh trains the smoke
+    KAN-FFN decoder (f32, remat, two microbatches) as the unsharded loop
+    does, bit for bit: losses, grad norms and every state tensor; and a
+    restart from its step-2 checkpoint continues bit-equal."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.lm_data import DataConfig
+    from repro_torch.dist.sharding import PSpec, to_shardings
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.train.loop import TrainLoop
+    from repro_torch.train.train_state import meta_state, state_pspecs
+
+    mesh = make_local_mesh(1, 1)
+    cfg = dataclasses.replace(smoke_config("qwen2.5-14b").kan_variant(),
+                              remat=True, microbatch=2)
+    d = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)
+    rows = PSpec("data", None)
+    sh = {"state": to_shardings(state_pspecs(meta_state(cfg), mesh), mesh),
+          "batch": to_shardings({"tokens": rows, "targets": rows}, mesh)}
+    quiet = lambda *_: None  # noqa: E731
+    plain = TrainLoop(cfg, d, str(tmp_path / "a"), ckpt_every=100)
+    meshed = TrainLoop(cfg, d, str(tmp_path / "b"), ckpt_every=2,
+                       shardings=sh)
+    want, got = plain.run(4, log=quiet), meshed.run(4, log=quiet)
+    nums = lambda h: [(m["loss"], m["grad_norm"]) for m in h]  # noqa: E731
+    assert nums(got) == nums(want)
+    for a, b in zip(flatten(meshed.state), flatten(plain.state)):
+        assert torch.equal(a, b)
+    import shutil
+
+    shutil.rmtree(tmp_path / "b" / "step_4")
+    again = TrainLoop(cfg, d, str(tmp_path / "b"), ckpt_every=100,
+                      shardings=sh)
+    assert again.start_step == 2
+    assert nums(again.run(2, log=quiet)) == nums(want)[2:]
+
+
+@pytest.mark.parametrize("tokens", [64, 1024])
+def test_moe_slabs_at_model_2_on_the_card(dev, tokens):
+    """A full-width mixtral MoE layer as two ranks' expert hidden-column
+    slabs, the partial expert outputs added by hand: within 4 bf16 ulps
+    of the whole layer's output."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist.cardcheck import check_moe_slabs
+
+    r = check_moe_slabs(dev, get_config("mixtral-8x7b"), tokens)
+    assert r["max_abs_err"] <= r["tol"]
+
+
+@pytest.mark.parametrize("d,h", [(5120, 1280), (1280, 640)])
+def test_kan_ffn_slabs_at_model_2_on_the_card(dev, d, h):
+    """The float KAN-FFN (f32) as two ranks' hidden slabs, forward and
+    backward: outputs and input gradient summed, and each slab's
+    c1 / wb1 / c2 / wb2 gradient, within 1e-5 x max of the whole block's."""
+    from repro_torch.dist.cardcheck import check_kan_ffn_slabs
+
+    r = check_kan_ffn_slabs(dev, d, h, 64)
+    assert all(e <= r["tol"] for e in r["rel_err"].values())
+
+
+def test_remat_keeps_the_forwards_layout_on_the_card(dev):
+    """On the card remat's recompute runs on the autograd engine's device
+    thread, outside the caller's ``use_tp`` scope: the smoke qwen's slabs
+    at model 2 and 4 (KV heads cut, then whole) train bit-equal with remat
+    on and off over the world-1 NCCL "model" group."""
+    from repro_torch.dist.cardcheck import check_remat_under_layout
+    from repro_torch.launch.mesh import make_local_mesh
+
+    r = check_remat_under_layout(make_local_mesh(1, 1), dev)
+    assert [kv for *_, kv in r["layouts"]] == [True] * 2 + [False] * 4
+
+
+def test_autograd_collectives_on_the_world1_nccl_groups(dev):
+    from repro_torch.dist.cardcheck import check_autograd_collectives
+    from repro_torch.launch.mesh import make_local_mesh
+
+    r = check_autograd_collectives(make_local_mesh(1, 1), dev)
+    assert r == {"groups": {"data": 1, "model": 1}}

@@ -1,6 +1,6 @@
 """Mesh serving and the meshed KAN runtime on CPU gloo ranks.
 
-One spawn per mesh shape, (1,1), (2,1), (1,2), (2,2) and (1,3), each with
+One spawn per mesh shape, (1,1), (2,1), (1,2), (2,2), (1,3) and (1,4), each with
 several checks (``torch_mesh_worker.py`` is the rank body; it imports no
 JAX).  The parent converts the JAX reference's KAN1 and residual FFN
 bundles, computes the reference's unsharded outputs (Pallas interpret
@@ -22,11 +22,14 @@ ranks with a deadline.  Per shape:
     replicated layers equal across model ranks, ``compressed_grad_sync``
     against numpy, the compress -> decompress round trip onto the mesh;
   * the smoke ``qwen2.5-14b`` ``kan_variant()`` engine serving exactly the
-    unsharded port engine's tokens (contiguous, paged, speculative, and at
-    (2,2) with "flash"), and under data alone every other family the
-    engine serves (gemma2 ``kan_variant()``, mixtral, mixtral where the
-    MoE capacity binds, olmoe paged, recurrentgemma ``kan_variant()``,
-    mamba2), mirroring
+    unsharded port engine's tokens (contiguous, paged, speculative, at
+    (2,2) with "flash", at (1,4) with one query head per rank and the KV
+    heads whole, at (1,3) with 6 / 2 heads whose query heads straddle KV
+    groups), under data every other family the engine serves (gemma2
+    ``kan_variant()``, mixtral, mixtral where the MoE capacity binds,
+    olmoe paged, recurrentgemma ``kan_variant()``, mamba2), and under
+    model mixtral and olmoe paged (experts cut) and recurrentgemma
+    ``kan_variant()`` (4 / 1 heads), mirroring
     ``tests/test_serving.py``,
     ``tests/test_kvpool.py`` and ``tests/test_attention_parity.py``'s mesh
     cases, which skip on a one-device reference run; on two ranks a
@@ -55,13 +58,14 @@ from repro_torch.models import layers as TL
 
 torch.set_num_threads(1)
 
-SHAPES = [(1, 1), (2, 1), (1, 2), (2, 2), (1, 3)]
+SHAPES = [(1, 1), (2, 1), (1, 2), (2, 2), (1, 3), (1, 4)]
 TASKS = {
     (1, 1): ("plumbing", "acim_noise", "compress", "engine"),
     (2, 1): ("acim_noise", "grad_sync", "engine"),
     (1, 2): ("acim_noise", "compress", "engine"),
     (2, 2): ("engine",),
-    (1, 3): ("acim_noise",),
+    (1, 3): ("acim_noise", "engine"),
+    (1, 4): ("engine",),
 }
 QWEN = "qwen2.5-14b"
 PAGED = {"kv_block_size": 8}
@@ -70,8 +74,8 @@ MODES = {
     "paged": (QWEN, True, {**PAGED, "prefill_chunk": 4}),
     "spec": (QWEN, True, {**PAGED, "spec_decode": 2}),
     "flash": (QWEN, True, {"attn_backend": "flash"}),
-    # the other families under data alone (MoE and recurrent blocks under
-    # model > 1 are refused: ROADMAP A10b)
+    # the other families under data, and under model with their experts,
+    # heads and vocabulary cut (recurrent blocks replicate)
     "gemma2": ("gemma2-27b", True, {}),
     "mixtral": ("mixtral-8x7b", False, {}),
     # 4 slots at capacity factor 1: the unsharded engine drops assignments
@@ -83,13 +87,22 @@ MODES = {
     "olmoe_paged": ("olmoe-1b-7b", False, PAGED),
     "recurrentgemma": ("recurrentgemma-9b", True, {}),
     "mamba2": ("mamba2-370m", False, {}),
+    # 6 query / 2 KV heads at model 3: each rank's 2 query heads straddle
+    # the groups of 3, so it attends with one KV head per query head (the
+    # vocabulary made divisible by 3, so the logits are still gathered)
+    "straddle": (QWEN, True, {"cfg": {"num_heads": 6, "vocab_size": 258}}),
 }
 ENGINE_MODES = {
     (1, 1): ("contiguous", "paged"),
     (2, 1): ("contiguous", "paged", "spec", "gemma2", "mixtral",
              "mixtral_cap", "olmoe_paged", "recurrentgemma", "mamba2"),
-    (1, 2): ("contiguous", "spec"),
+    (1, 2): ("contiguous", "spec", "mixtral", "olmoe_paged",
+             "recurrentgemma"),
     (2, 2): ("flash",),
+    (1, 3): ("straddle",),
+    # 4 query / 2 KV heads at model 4: one query head per rank, inside
+    # one KV group
+    (1, 4): ("contiguous",),
 }
 DEADLINE_S = 150
 BATCH = 37
@@ -326,7 +339,8 @@ def test_compress_roundtrip_onto_the_mesh(setup, shape, tmp_path_factory):
         assert c["mismatch"] and "does not match" in c["mismatch"]
 
 
-@pytest.mark.parametrize("shape", [(1, 1), (2, 1), (1, 2), (2, 2)],
+@pytest.mark.parametrize("shape", [(1, 1), (2, 1), (1, 2), (2, 2), (1, 3),
+                                   (1, 4)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
 def test_engine_serves_the_unsharded_tokens(setup, shape, tmp_path_factory):
     outs = _spawn(setup, shape, tmp_path_factory)

@@ -34,8 +34,11 @@ from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch import convert, runtime
 from repro_torch.configs import smoke_config
+from repro_torch.dist import comm
 from repro_torch.kernels import cuda
 from repro_torch.launch import serve as cli
+from repro_torch.models import layers as TL
+from repro_torch.models import model as TM
 from repro_torch.serve import (
     ManualClock,
     QueueFull,
@@ -203,10 +206,16 @@ class _FakeMesh:
 
 def test_engine_refuses_what_is_not_ported(setup):
     _, cfg, _, tp = setup
-    # mesh serving is ported (tests/test_torch_mesh.py); a model axis that
-    # divides the query heads (4) but not the KV heads (2) is refused
-    with pytest.raises(NotImplementedError, match="A10b"):
-        ServeEngine(tp, cfg, mesh=_FakeMesh((1, 4)), device="cpu")
+    # mesh serving is ported (tests/test_torch_mesh.py), and so is a model
+    # axis that divides the query heads (4) but not the KV heads (2): each
+    # rank keeps one query head and both KV heads, and its cache holds the
+    # one KV head its query head reads (served at (1,4) there)
+    placed, layout = TM.place_params(tp, cfg, _FakeMesh((1, 4)))
+    assert (layout.heads, layout.kv, layout.size) == (True, False, 4)
+    attn = placed["decoder"][0]["l0_attn"]
+    assert attn["wq"].shape[-2] == 1 and attn["wk"].shape[-2] == 2
+    with comm.use_tp(layout):
+        assert TL.local_kv_heads(cfg) == 1
     # speculative decoding is ported (tests/test_torch_spec.py): only its
     # inconsistent settings are refused
     with pytest.raises(ValueError, match="kan_deploy"):
