@@ -208,7 +208,21 @@ Phases (any failure exits non-zero):
      f32) at model 2 forward and backward (within 1e-5 x max); the
      gradient-carrying collectives of ``dist.comm`` on the world-1
      groups; no B1-B4 launch in the phase;
- 15. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
+ 15. the six examples (``repro_torch.examples``) in-process, the
+     launch counts set to 0 before each and read after it: quickstart
+     at its own size (KAN1, 8 rows; B3 and B1 exactly twice each, its
+     kernel and fused paths against its quantized path under the parity
+     gate, the SH-LUT's entry count), knot_e2e ``--fast`` (software and
+     both ACIM accuracies; the cost dict equal to the host's reckoning;
+     no launch), neurosim_search ``--fast`` (step 1's fronts equal a host
+     run's; no launch), tune_deploy ``--smoke`` (exit status 0; B1 with
+     its noise operand), lm_kan_train at its defaults (60 steps, a
+     restart at step 60 for 10 more; every loss finite, the last below
+     the first; no launch) and serve_demo at its own sizes (B2 on every
+     layer of every engine call, B1 on both halves of every deployed
+     call, streams equal to the final outputs, the float-vs-fused
+     ``same`` count printed, not gated); seconds per example;
+ 16. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
 
 A longer report goes to ``reports/chip_smoke_report.json`` (gitignored).
 """
@@ -4482,6 +4496,170 @@ def phase_meshtrain(dev, report) -> dict:
     return {k: now[0].get(k, 0) - idle[0].get(k, 0) for k in now[0]}
 
 
+# ----------------------------------------------------------------------------
+# phase 15: the examples (repro_torch.examples)
+# ----------------------------------------------------------------------------
+
+
+def phase_examples(dev, report) -> dict:
+    """The six example twins in-process on the card, each at the size
+    phase 15 of the module docstring names.  Counts are set to 0 just
+    before each example and read just after it (the checks that follow,
+    e.g. the quickstart's parity gate, launch B1 again outside that
+    window); returns the examples' launches summed."""
+    import os
+    import signal
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.asp_quant import ASPQuantSpec
+    from repro_torch.core.costmodel import accelerator_cost, kan_accelerator
+    from repro_torch.core.tmdv import TMDVConfig
+    from repro_torch.examples import (
+        knot_e2e,
+        lm_kan_train,
+        neurosim_search,
+        quickstart,
+        serve_demo,
+        tune_deploy,
+    )
+    from repro_torch.kernels import cuda
+    from repro_torch.tune import SearchConfig, pareto_search
+
+    lines: list = []
+
+    def log(*a):
+        lines.append(" ".join(str(v) for v in a))
+
+    total: dict = {}
+    secs: dict = {}
+    rep: dict = {}
+
+    def drive(name, fn, **kw):
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(**kw)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        launches = cuda.launch_counts()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        print(f"  {name}: {secs[name]:.2f} s, launches {launches}")
+        return out, launches
+
+    # quickstart at its own size (KAN1, 8 rows): B3 and B1 once per layer
+    q, launches = drive("quickstart", quickstart.run, device=dev, log=log)
+    n_layers = len(q["kspec"].dims) - 1
+    require(launches == {"kan_spline": n_layers,
+                         "kan_pipeline_layer": n_layers},
+            f"quickstart: launches {launches}, want B3 and B1 x {n_layers}")
+    gate = quickstart.parity_gate(q)
+    spec = q["spec"]
+    want_lut = (spec.order + 1) * 2**spec.ld // 2 + 1
+    require(q["sh_lut"]["stored"] == want_lut,
+            f"quickstart: SH-LUT {q['sh_lut']} != {want_lut} entries")
+    print(f"    quantized vs kernel {gate['kernel']}, vs fused {gate['fused']};"
+          f" max |float - quantized| {q['max_abs']['float_quant']:.3e}; "
+          f"SH-LUT {q['sh_lut']['stored']} entries")
+    rep["quickstart"] = {"gate": gate, "max_abs": q["max_abs"],
+                         "sh_lut": q["sh_lut"]}
+
+    # knot_e2e --fast: training and the simulator's plain MAC, no kernel
+    k, launches = drive("knot_e2e", knot_e2e.run, fast=True, device=dev,
+                        log=log)
+    require(launches == {}, f"knot_e2e: launches {launches}")
+    accs = [k["sw_acc"], *k["acim_acc"].values()]
+    require(all(0.0 <= a <= 1.0 for a in accs) and len(accs) == 3,
+            f"knot_e2e: accuracies {accs}")
+    cpu_cost = accelerator_cost(kan_accelerator(
+        (17, 1, 14), ASPQuantSpec(grid_size=5, order=3, n_bits=8, lut_bits=8,
+                                  lo=-1.0, hi=1.0),
+        TMDVConfig(8, 4), 128, adc_bits=8))
+    require(k["cost"] == cpu_cost, f"knot_e2e: cost {k['cost']} != "
+            f"{cpu_cost}")
+    print(f"    software accuracy {k['sw_acc']:.4f}, ACIM baseline map "
+          f"{k['acim_acc']['baseline']:.4f}, KAN-SAM "
+          f"{k['acim_acc']['kan_sam']:.4f}; stage seconds {k['seconds']}")
+    rep["knot_e2e"] = {"sw_acc": k["sw_acc"], "acim_acc": k["acim_acc"],
+                       "cost": k["cost"], "seconds": k["seconds"]}
+
+    # neurosim_search --fast: step 1's fronts equal a host run's
+    ns, launches = drive("neurosim_search", neurosim_search.run, fast=True,
+                         device=dev, log=log)
+    require(launches == {}, f"neurosim_search: launches {launches}")
+    for name, hc in neurosim_search.BUDGETS.items():
+        host = pareto_search(None, neurosim_search.SPACE, constraints=hc,
+                             dims=(17, 1, 14),
+                             config=SearchConfig(budget=40, n_init=16, seed=0))
+        require(ns["searches"][name].to_dict() == host.to_dict(),
+                f"neurosim_search: {name}'s front differs from a host run's")
+    ext = ns["extension"]
+    print(f"    max feasible G {ns['gmax']}; step 2 G={ext['G']} "
+          f"(log {[r['G'] for r in ext['log']]}) accuracy "
+          f"{ns['accuracy']:.4f}")
+    rep["neurosim_search"] = {"gmax": ns["gmax"], "G": ext["G"],
+                              "log": ext["log"], "accuracy": ns["accuracy"],
+                              "seconds": ns["seconds"]}
+
+    # tune_deploy --smoke: exit status 0 (phase 8 runs the full budgets)
+    with tempfile.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, "TUNE_artifact.json")
+        status, launches = drive("tune_deploy", tune_deploy.main,
+                                 argv=["--smoke", "--out", art])
+    require(status == 0, f"tune_deploy --smoke exited {status}")
+    require(launches.get("kan_pipeline_layer", 0) > 0
+            and launches.get("kan_pipeline_layer.noise", 0) > 0
+            and set(launches) <= {"kan_pipeline_layer",
+                                  "kan_pipeline_layer.noise"},
+            f"tune_deploy: launches {launches}")
+
+    # lm_kan_train at its defaults: 60 steps, a restart for 10
+    sigterm = signal.getsignal(signal.SIGTERM)
+    with tempfile.TemporaryDirectory() as tmp:
+        lm, launches = drive("lm_kan_train", lm_kan_train.run, device=dev,
+                             ckpt_dir=os.path.join(tmp, "ckpt"), log=log)
+    signal.signal(signal.SIGTERM, sigterm)
+    require(launches == {}, f"lm_kan_train: launches {launches}")
+    losses = [m["loss"] for m in lm["hist"] + lm["hist2"]]
+    require(lm["start_step"] == len(lm["hist"]) == 60
+            and [m["step"] for m in lm["hist2"]] == list(range(60, 70)),
+            f"lm_kan_train: restart at {lm['start_step']}, steps "
+            f"{[m['step'] for m in lm['hist2']]}")
+    require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+            f"lm_kan_train: losses {losses[0]} -> {losses[-1]}")
+    print(f"    loss {losses[0]:.4f} -> {losses[59]:.4f} (60 steps), "
+          f"{losses[-1]:.4f} after the restart at step {lm['start_step']}")
+    rep["lm_kan_train"] = {"first": losses[0], "at_60": losses[59],
+                           "last": losses[-1], "seconds": lm["seconds"]}
+    del lm
+
+    # serve_demo at its own sizes: B2 on every layer of every engine call,
+    # B1 on both halves of every deployed call
+    sd, launches = drive("serve_demo", serve_demo.run, device=dev, log=log)
+    want = serve_demo.expected_launches(sd)
+    require(launches == want, f"serve_demo: launches {launches} != {want}")
+    require(sd["stream_outputs"] == sd["streams"],
+            "serve_demo: a stream differs from its final output")
+    tps = {k: sd["tokens"][k] / sd["seconds"][k] for k in ("float", "fused")}
+    print(f"    float-vs-fused same {sd['same']}/{len(sd['fused'])} (not "
+          f"gated); tok/s float {tps['float']:.1f}, fused {tps['fused']:.1f};"
+          f" streamed {sd['stats']['tokens']} tokens at "
+          f"{sd['stats']['tokens_per_s']:.1f} tok/s")
+    rep["serve_demo"] = {"same": sd["same"], "tokens": sd["tokens"],
+                         "seconds": sd["seconds"], "tokens_per_s": tps,
+                         "stream_stats": {k: sd["stats"][k] for k in (
+                             "tokens", "completed", "tokens_per_s")},
+                         "engines": {k: {c: v[c] for c in (
+                             "prefill_calls", "decode_traces")}
+                             for k, v in sd["engines"].items()}}
+    report["examples"] = {"seconds": secs, "launches": total, **rep,
+                          "printed": lines}
+    print(f"  examples seconds: {secs}")
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -4558,7 +4736,8 @@ def main() -> int:
     by_path.update(a7c_paths)
     by_path.update(timed("13", phase_mesh, dev, report))
     mesh_train = timed("14", phase_meshtrain, dev, report)
-    print(f"[phases 3-14: {time.perf_counter() - t_all:.1f} s]")
+    by_path["examples"] = timed("15", phase_examples, dev, report)
+    print(f"[phases 3-15: {time.perf_counter() - t_all:.1f} s]")
     # phase 10's, 11's and 12's B2 and B1 shapes join the kernel line's rows
     # (its B2 ms stays the sum over phase 7's three path shapes)
     for extra in (a7a, a7b, a7c):

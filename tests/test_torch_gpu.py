@@ -60,7 +60,11 @@ gradient codec on CUDA tensors equal to a numpy reckoning.  Meshed
 training: ``TrainLoop(shardings=)`` on the 1x1 NCCL mesh bit-equal to the
 unsharded loop (and its restart), a full-width mixtral MoE layer and the
 float KAN-FFN as two ranks' slabs added by hand (``repro_torch.dist.
-cardcheck``), and the gradient-carrying collectives.  This file
+cardcheck``), and the gradient-carrying collectives.  The examples: the
+quickstart twin (B3 and B1 twice each, its kernel and fused paths
+against its quantized path under the parity gate) and the serve_demo
+twin (B2 on every layer of every engine call, B1 on both halves of
+every deployed call; streams equal their final outputs).  This file
 imports only the port, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -850,3 +854,25 @@ def test_autograd_collectives_on_the_world1_nccl_groups(dev):
 
     r = check_autograd_collectives(make_local_mesh(1, 1), dev)
     assert r == {"groups": {"data": 1, "model": 1}}
+
+
+def test_quickstart_example_on_the_card(dev):
+    from repro_torch.examples import quickstart
+
+    cuda.reset_launch_counts()
+    out = quickstart.run(device=dev, log=lambda *a: None)
+    assert cuda.launch_counts() == {"kan_spline": 2, "kan_pipeline_layer": 2}
+    gate = quickstart.parity_gate(out)
+    assert gate["kernel"]["rows"] == gate["fused"]["rows"] == 8
+    spec = out["spec"]
+    assert out["sh_lut"]["stored"] == (spec.order + 1) * 2**spec.ld // 2 + 1
+
+
+def test_serve_demo_example_on_the_card(dev):
+    from repro_torch.examples import serve_demo
+
+    cuda.reset_launch_counts()
+    out = serve_demo.run(train_steps=3, device=dev, log=lambda *a: None)
+    assert cuda.launch_counts() == serve_demo.expected_launches(out)
+    assert out["stream_outputs"] == out["streams"]
+    assert sorted(out["fused"]) == list(range(6))

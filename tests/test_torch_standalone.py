@@ -49,7 +49,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "core.mlp_baseline", "train.optimizer", "tune.space",
               "tune.search", "tune.tiles", "tune.artifact", "data.lm_data",
               "train.train_state", "train.checkpoint", "train.loop",
-              "train.cardcheck", "launch.train", "models.cardcheck"):
+              "train.cardcheck", "launch.train", "models.cardcheck",
+              "examples.quickstart", "examples.knot_e2e",
+              "examples.neurosim_search", "examples.tune_deploy",
+              "examples.lm_kan_train", "examples.serve_demo"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -135,3 +138,18 @@ def test_train_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch,
                   "--ckpt-dir", str(tmp_path / "b")])
     loop = TrainLoop(cfg, dcfg, str(tmp_path / "c"), device="cpu")
     assert loop.state["params"]["embed"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["quickstart", "knot_e2e", "neurosim_search",
+                                  "tune_deploy", "lm_kan_train",
+                                  "serve_demo"])
+def test_example_mains_need_a_card_unless_asked_for_cpu(monkeypatch,
+                                                        tmp_path, name):
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main([])
+    assert list(tmp_path.iterdir()) == []  # raised before writing anything
