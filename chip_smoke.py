@@ -222,7 +222,23 @@ Phases (any failure exits non-zero):
      layer of every engine call, B1 on both halves of every deployed
      call, streams equal to the final outputs, the float-vs-fused
      ``same`` count printed, not gated); seconds per example;
- 16. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
+ 16. the dry-run against the card: ``launch.op_analysis`` predicts phase
+     9's train step (the full-width ``qwen2.5-14b`` ``kan_variant()``, 4
+     layers, microbatch 8, remat, AdamW, 16 x 256 tokens, one rank) on the
+     meta device; the card then builds that state after the earlier
+     phases' memory is freed and steps it: the state's bytes (each tensor
+     in 512 B blocks) equal the growth of ``memory_allocated`` less the
+     tails the allocator left unsplit (at most 1 MiB), the requested bytes
+     equal the tensors' own; the predicted high-water mark is within 5% of
+     ``max_memory_allocated`` over one step; the roofline bound is at most
+     the step's profiled device time; FlopCounterMode over the card's
+     step equals the meta count.  Then ``python -m
+     repro_torch.launch.dryrun --arch qwen2.5-14b --shape decode_32k`` and
+     ``prefill_32k`` (the (16, 16) production mesh, ``--save-ops``) on the
+     host with no card visible, beside the card's work, each exiting 0,
+     and ``scripts.top_ops`` over the decode cell's ops; no B1-B4 launch
+     in the phase;
+ 17. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
 
 A longer report goes to ``reports/chip_smoke_report.json`` (gitignored).
 """
@@ -231,6 +247,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -4660,6 +4677,229 @@ def phase_examples(dev, report) -> dict:
     return total
 
 
+# ----------------------------------------------------------------------------
+# phase 16: the dry-run's prediction against the card
+# ----------------------------------------------------------------------------
+
+# the production cells the dry-run entry point runs on the host (train_4k
+# takes ~90 s of host time and is left out)
+DRY_CELLS = ("decode_32k", "prefill_32k")
+DRY_STATE_TOL = 1 << 20      # allocator bytes the state may differ by
+DRY_PEAK_TOL = 0.05          # predicted high-water mark against the card's
+
+
+def allocator_tails(tensors) -> tuple:
+    """(blocks, bytes): the blocks the caching allocator handed to
+    ``tensors`` whole, each larger than its request rounded up to 512 B (a
+    large block's tail of up to 1 MiB is not split off), and those
+    tails' sum, from ``torch.cuda.memory_snapshot()``."""
+    import torch
+
+    ptrs = {t.data_ptr() for t in tensors}
+    n = total = 0
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for blk in seg["blocks"]:
+            addr = blk.get("address", addr)
+            if addr in ptrs and blk["state"] == "active_allocated":
+                req = blk.get("requested_size", blk["size"])
+                tail = blk["size"] - -(-req // 512) * 512
+                if tail:
+                    n, total = n + 1, total + tail
+            addr += blk["size"]
+    return n, total
+
+
+def phase_dryrun(dev, report) -> None:
+    """(a) ``launch.op_analysis`` predicts phase 9's train step on the meta
+    device; the card then builds that state and takes that step: the state's
+    bytes, the step's memory high-water mark, its profiled device time
+    against the roofline bound, and FlopCounterMode's count over it against
+    the meta count.  (b) ``launch.dryrun`` on production cells, as a user
+    runs it: one subprocess per cell on the host, started first so they
+    run beside (a), and ``scripts.top_ops`` over the decode cell's ops.
+    No B1-B4 launch in the phase."""
+    from repro_torch.kernels import cuda
+    from repro_torch.scripts import top_ops
+
+    t_phase = time.perf_counter()
+    idle = dict(cuda.launch_counts())
+    out_dir = ROOT / "reports" / "dryrun_torch"
+    procs = {shape: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen2.5-14b", "--shape", shape, "--mesh", "single", "--save-ops",
+         "--out", str(out_dir)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "CUDA_VISIBLE_DEVICES": ""})   # the dry-run needs no card
+        for shape in DRY_CELLS}
+    try:
+        dryrun_card_check(dev, report)
+        cells = dryrun_cells(procs, out_dir)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    ops = f"{out_dir / 'qwen2.5-14b__decode_32k__single'}.ops.jsonl"
+    print(f"python -m repro_torch.scripts.top_ops {Path(ops).name} flops 5:")
+    top_ops.main(ops, "flops", 5)
+
+    now = dict(cuda.launch_counts())
+    require(now == idle, f"dry-run: B1-B4 launches moved: {idle} -> {now}")
+    wall = time.perf_counter() - t_phase
+    print(f"dry-run phase: no B1-B4 launch; {wall:.1f} s")
+    report["dryrun"].update(cells=cells, wall_s=wall)
+
+
+def dryrun_card_check(dev, report) -> None:
+    """Phase 16 (a): the prediction on meta, then the card (see
+    :func:`phase_dryrun`); the readings go to ``report["dryrun"]``."""
+    import dataclasses
+    import gc
+
+    import torch
+    from torch.utils._pytree import tree_leaves
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.lm_data import DataConfig, global_batch_at_step
+    from repro_torch.launch import op_analysis
+    from repro_torch.train.loop import batch_to_device
+    from repro_torch.train.train_state import (
+        init_state,
+        make_train_step,
+        meta_state,
+    )
+
+    cfg = dataclasses.replace(get_config("qwen2.5-14b"),
+                              num_layers=TRAIN_LAYERS).kan_variant()
+    b, s = 16, 256
+
+    # (a) the prediction, on the meta device
+    meta = meta_state(cfg)
+    mbatch = {k: torch.empty((b, s), dtype=torch.int32, device="meta")
+              for k in ("tokens", "targets")}
+    pred = op_analysis.analyze_step(make_train_step(cfg), meta, mbatch)
+    sizes = [t.numel() * t.element_size() for t in tree_leaves(meta)]
+    raw, rounded = sum(sizes), sum(-(-n // 512) * 512 for n in sizes)
+    pmem, prl = pred["memory"], pred["roofline"]
+    print(f"dry-run of phase 9's cell on meta ({pred['run_s']:.1f} s, "
+          f"{pred['op_count']} ops): FLOPs {pred['flops_per_dev']:.6e}, "
+          f"bytes {pred['bytes_per_dev']:.6e}, state {raw} B ({rounded} B "
+          f"in 512 B blocks, {len(sizes)} tensors), arguments "
+          f"{pmem['argument_bytes']} B, peak {pmem['peak_bytes']} B, "
+          f"roofline terms (c/m/n) {prl['compute_s']:.4f} / "
+          f"{prl['memory_s']:.4f} / {prl['collective_s']:.4f} s, bound "
+          f"{prl['step_time_lb_s']:.4f} s ({prl['dominant']})")
+
+    # the state on the card, after the earlier phases' memory is freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats
+    a0 = torch.cuda.memory_allocated()
+    r0 = stats().get("requested_bytes.all.current")
+    state = init_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                       device=dev)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - a0
+    req = stats().get("requested_bytes.all.current")
+    req = None if r0 is None or req is None else req - r0
+    tails, tail_b = allocator_tails(tree_leaves(state))
+    diff = grown - rounded
+    print(f"state on the card: memory_allocated grew {grown} B against the "
+          f"predicted {rounded} B in 512 B blocks (difference {diff} B: "
+          f"{tails} blocks the allocator handed out whole, their unsplit "
+          f"tails {tail_b} B); requested bytes grew {req} B against the "
+          f"predicted {raw} B")
+    require(diff == tail_b and abs(diff) <= DRY_STATE_TOL,
+            f"dry-run: state {grown} B on the card against {rounded} B "
+            f"predicted; {diff} B differ, {tail_b} B of it block tails")
+    require(req is None or req == raw,
+            f"dry-run: requested state bytes {req} against {raw} predicted")
+
+    batch = batch_to_device(global_batch_at_step(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=s, global_batch=b), 0), dev)
+    step = make_train_step(cfg)
+
+    # FLOPs: FlopCounterMode over the card's step against the meta count
+    with FlopCounterMode(display=False) as fcm:
+        _, m = step(state, batch)
+    float(m["loss"])
+    card_flops = fcm.get_total_flops()
+    print(f"FLOPs of the card's step (FlopCounterMode): {card_flops:.6e}, "
+          f"meta {pred['flops_per_dev']:.6e}")
+    require(card_flops == pred["flops_per_dev"],
+            f"dry-run: FLOPs {card_flops} on the card, "
+            f"{pred['flops_per_dev']} on meta")
+
+    # the step's high-water mark, over what the state was built on
+    del m
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, m = step(state, batch)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - a0
+    rel = peak / pmem["peak_bytes"] - 1.0
+    print(f"peak of one step: {peak} B above the {a0} B allocated before "
+          f"the state, predicted {pmem['peak_bytes']} B ({rel:+.4%}; "
+          f"tolerance {DRY_PEAK_TOL:.0%})")
+    require(abs(rel) <= DRY_PEAK_TOL,
+            f"dry-run: peak {peak} B against {pmem['peak_bytes']} B predicted")
+
+    # the roofline bound against the step's profiled device time
+    del m
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        w0 = time.perf_counter()
+        _, m = step(state, batch)
+        float(m["loss"])
+        wall_ms = (time.perf_counter() - w0) * 1e3
+    tp = train_profile(prof, wall_ms)
+    print(f"profiled step: device {tp['device_ms']:.2f} ms of {wall_ms:.2f} "
+          f"ms wall, {tp['kernels']} kernels; roofline bound "
+          f"{prl['step_time_lb_s'] * 1e3:.2f} ms = "
+          f"{prl['step_time_lb_s'] * 1e3 / tp['device_ms']:.4f} of the "
+          f"device time ({smi_line()})")
+    require(prl["step_time_lb_s"] * 1e3 <= tp["device_ms"],
+            f"dry-run: bound {prl['step_time_lb_s']} s above the step's "
+            f"device time {tp['device_ms']} ms")
+    del state, batch, m, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["dryrun"] = {
+        "predicted": {k: pred[k] for k in ("flops_per_dev", "bytes_per_dev",
+                                           "memory", "roofline", "op_count",
+                                           "run_s")},
+        "state": {"raw": raw, "rounded": rounded, "grown": grown,
+                  "requested": req, "tails": tails, "tail_bytes": tail_b},
+        "card_flops": card_flops, "peak_bytes": peak, "peak_rel": rel,
+        "profile": tp}
+
+
+def dryrun_cells(procs: dict, out_dir: Path) -> dict:
+    """Phase 16 (b): each production cell's subprocess exits 0; its
+    ``_fmt`` line is printed and its report read."""
+    cells = {}
+    for shape, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        print(f"python -m repro_torch.launch.dryrun --arch qwen2.5-14b "
+              f"--shape {shape} --mesh single --save-ops: exit "
+              f"{proc.returncode}")
+        for ln in out.splitlines():
+            print(f"  {ln}")
+        require(proc.returncode == 0, f"dry-run {shape}: exit "
+                f"{proc.returncode}: {err[-2000:]}")
+        tag = out_dir / f"qwen2.5-14b__{shape}__single"
+        cells[shape] = json.loads(Path(f"{tag}.json").read_text())
+    return cells
+
+
 def main() -> int:
     try:
         import torch
@@ -4737,7 +4977,8 @@ def main() -> int:
     by_path.update(timed("13", phase_mesh, dev, report))
     mesh_train = timed("14", phase_meshtrain, dev, report)
     by_path["examples"] = timed("15", phase_examples, dev, report)
-    print(f"[phases 3-15: {time.perf_counter() - t_all:.1f} s]")
+    timed("16", phase_dryrun, dev, report)
+    print(f"[phases 3-16: {time.perf_counter() - t_all:.1f} s]")
     # phase 10's, 11's and 12's B2 and B1 shapes join the kernel line's rows
     # (its B2 ms stays the sum over phase 7's three path shapes)
     for extra in (a7a, a7b, a7c):

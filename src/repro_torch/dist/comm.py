@@ -2,9 +2,16 @@
 
 Every collective the port issues on a serving, runtime or training path
 goes through one of the helpers here, which count their calls in
-:data:`COLLECTIVES` (``all_gather`` / ``all_reduce`` / ``broadcast``) so a
-caller can read how many a step paid.  A group of one rank is a no-op and
-counts nothing.
+:data:`COLLECTIVES` (``all_gather`` / ``all_reduce`` / ``broadcast``) and
+their per-device payload, the bytes of the result, in
+:data:`COLLECTIVE_BYTES` by the same kinds, so a caller can read what a
+step paid.  A group of one rank is a no-op and counts nothing.
+
+A :class:`DryGroup` stands in for a group of ``size`` ranks that does not
+exist (the dry-run, ``launch.dryrun``): a collective over it sends nothing
+and returns an uninitialized tensor of the result's shape (``new_empty``),
+so it is meant for tensors on the meta device, and it counts as a real one
+does.
 
 The collectives carry gradients in Megatron's f / g form, so a meshed
 forward trains: :func:`tp_copy` (f: identity forward, all-reduce of the
@@ -46,6 +53,8 @@ import torch.distributed as dist
 
 __all__ = [
     "COLLECTIVES",
+    "COLLECTIVE_BYTES",
+    "DryGroup",
     "reset_collectives",
     "group_size",
     "group_rank",
@@ -63,18 +72,42 @@ __all__ = [
 ]
 
 COLLECTIVES: collections.Counter = collections.Counter()
+COLLECTIVE_BYTES: collections.Counter = collections.Counter()
+
+
+@dataclasses.dataclass(frozen=True)
+class DryGroup:
+    """A group of ``size`` ranks, seen from its ``rank``-th, that has no
+    process behind it (see the module note)."""
+
+    size: int
+    rank: int = 0
 
 
 def reset_collectives() -> None:
     COLLECTIVES.clear()
+    COLLECTIVE_BYTES.clear()
+
+
+def _count(kind: str, result: torch.Tensor) -> None:
+    COLLECTIVES[kind] += 1
+    COLLECTIVE_BYTES[kind] += result.numel() * result.element_size()
 
 
 def group_size(group) -> int:
-    return 1 if group is None else dist.get_world_size(group)
+    if group is None:
+        return 1
+    if isinstance(group, DryGroup):
+        return group.size
+    return dist.get_world_size(group)
 
 
 def group_rank(group) -> int:
-    return 0 if group is None else dist.get_rank(group)
+    if group is None:
+        return 0
+    if isinstance(group, DryGroup):
+        return group.rank
+    return dist.get_rank(group)
 
 
 def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -83,11 +116,15 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     n = group_size(group)
     if n == 1:
         return t
-    t = t.movedim(dim, 0).contiguous()
-    out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype,
-                      device=t.device)
-    dist.all_gather_into_tensor(out, t, group=group)
-    COLLECTIVES["all_gather"] += 1
+    t = t.movedim(dim, 0)
+    shape = (n * t.shape[0],) + tuple(t.shape[1:])
+    if isinstance(group, DryGroup):
+        out = t.new_empty(shape)
+    else:
+        t = t.contiguous()
+        out = torch.empty(shape, dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(out, t, group=group)
+    _count("all_gather", out)
     return out.movedim(0, dim)
 
 
@@ -95,9 +132,12 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of every rank's ``t`` (a new tensor on every rank)."""
     if group_size(group) == 1:
         return t
-    t = t.contiguous().clone()
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
-    COLLECTIVES["all_reduce"] += 1
+    if isinstance(group, DryGroup):
+        t = t.new_empty(t.shape)
+    else:
+        t = t.contiguous().clone()
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    _count("all_reduce", t)
     return t
 
 
@@ -106,8 +146,10 @@ def broadcast(t: torch.Tensor, src_index: int, group) -> torch.Tensor:
     place)."""
     if group_size(group) == 1:
         return t
-    dist.broadcast(t, src=dist.get_global_rank(group, src_index), group=group)
-    COLLECTIVES["broadcast"] += 1
+    if not isinstance(group, DryGroup):
+        dist.broadcast(t, src=dist.get_global_rank(group, src_index),
+                       group=group)
+    _count("broadcast", t)
     return t
 
 

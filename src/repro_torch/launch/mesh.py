@@ -15,14 +15,17 @@ collide), ended and removed at exit. The backend is NCCL on the card and
 gloo with ``device="cpu"``. So ``python -m repro_torch.launch.serve --mesh
 data=1,model=1`` runs on one card without a launcher.
 
-The reference's ``make_production_mesh`` (its 16x16 TPU pod) belongs to
-the dry-run tooling and is not ported here.
+:func:`make_production_mesh` is the dry-run's (``launch.dryrun``): a
+:class:`DryMesh` of the reference's production shapes, (16, 16) over
+("data", "model") or (2, 16, 16) over ("pod", "data", "model"), with no
+process group and no device behind it.
 """
 
 from __future__ import annotations
 
 import atexit
 import datetime
+import math
 import os
 import shutil
 import tempfile
@@ -31,9 +34,10 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..dist.comm import DryGroup
 
-__all__ = ["ensure_process_group", "make_local_mesh", "mesh_spec_sizes",
-           "parse_mesh_spec"]
+__all__ = ["DryMesh", "ensure_process_group", "make_local_mesh",
+           "make_production_mesh", "mesh_spec_sizes", "parse_mesh_spec"]
 
 # a collective that waits longer than this raises instead of hanging
 PG_TIMEOUT = datetime.timedelta(seconds=300)
@@ -67,6 +71,49 @@ def _end_world1(tmp: str) -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     shutil.rmtree(tmp, ignore_errors=True)
+
+
+class DryMesh:
+    """A mesh of ``shape`` over ``names`` seen from the rank at ``coords``
+    (rank 0 by default), with no process group and no device: as much of a
+    ``DeviceMesh`` as the port's sharding and model code read
+    (``mesh_dim_names``, ``shape``, ``get_local_rank``, ``get_group``,
+    ``mesh[name]``).  Each axis's group is a ``dist.comm.DryGroup``, so a
+    collective over it sends nothing and counts its payload."""
+
+    def __init__(self, shape, names=("data", "model"), coords=None):
+        if len(shape) != len(names):
+            raise ValueError(f"mesh shape {tuple(shape)} against axes "
+                             f"{tuple(names)}")
+        self.shape = tuple(int(n) for n in shape)
+        self.mesh_dim_names = tuple(names)
+        coords = (0,) * len(names) if coords is None else tuple(coords)
+        if not all(0 <= c < n for c, n in zip(coords, self.shape)):
+            raise ValueError(f"coordinates {coords} outside {self.shape}")
+        self.coords = coords
+
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def get_local_rank(self, name: str) -> int:
+        return self.coords[self.mesh_dim_names.index(name)]
+
+    def get_group(self, name: str) -> DryGroup:
+        i = self.mesh_dim_names.index(name)
+        return DryGroup(self.shape[i], self.coords[i])
+
+    def __getitem__(self, name: str) -> "DryMesh":
+        i = self.mesh_dim_names.index(name)
+        return DryMesh((self.shape[i],), (name,), (self.coords[i],))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DryMesh:
+    """The reference's production meshes as :class:`DryMesh` es: (16, 16)
+    over ("data", "model"), or (2, 16, 16) over ("pod", "data", "model").
+    "pod" replicates everything: no sharding rule names it."""
+    if multi_pod:
+        return DryMesh((2, 16, 16), ("pod", "data", "model"))
+    return DryMesh((16, 16), ("data", "model"))
 
 
 def make_local_mesh(data: int = 1, model: int = 1, *, device=None):

@@ -82,9 +82,6 @@ from ..models.model import init_params, tokens_only_refusal
 from ..serve.engine import Request, ServeEngine
 from ..serve.scheduler import QueueFull, SamplingParams, Scheduler
 
-# reference flags that wait for a later slice -> their ROADMAP item
-NOT_PORTED: dict = {}
-
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
@@ -173,18 +170,11 @@ def parse_args(argv=None):
                          "with the runtime plan cache")
     ap.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu'")
-    for flag in NOT_PORTED:
-        ap.add_argument("--" + flag.replace("_", "-"), default=None,
-                        help=argparse.SUPPRESS)
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    for flag, item in NOT_PORTED.items():
-        if getattr(args, flag) is not None:
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
-                             f"(ROADMAP {item})")
     if args.log_level:
         os.environ[obs.ENV_LOG_LEVEL_VAR] = args.log_level
     if args.metrics_port is not None or args.metrics_dump:

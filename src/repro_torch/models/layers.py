@@ -19,8 +19,8 @@ role was cut (query / KV heads, FFN or expert hidden columns) runs on its
 local slab and sums the partial output over the group, through the
 collectives of ``dist.comm`` that carry gradients (f at the cut region's
 input, g after it), so the same code trains.  Where the query heads are
-cut and the KV heads are not, each rank computes the whole KV heads and
-keeps those its query heads read (:func:`kv_head_index`).  Under
+cut and the KV heads are not, each rank projects only the KV heads its
+query heads read (:func:`kv_head_index`).  Under
 ``dist.comm.use_row_split`` MoE routes this rank's rows as its slab of the
 batch split over "data".
 
@@ -232,30 +232,34 @@ def local_kv_heads(cfg: ModelConfig) -> int:
     return cfg.phys_kv_heads
 
 
-def _kv_local(t, cfg: ModelConfig):
-    """(B, S, Hkv, D) of the whole KV heads -> this rank's (see
-    :func:`kv_head_index`); every rank's gradient of the whole heads is
-    summed over the group, so ``wk`` / ``wv`` (replicated) get all of
-    it."""
+def _kv_local(w, cfg: ModelConfig):
+    """A whole KV-head weight or bias (heads on dim -2) -> the heads this
+    rank's query heads read (see :func:`kv_head_index`), so the projection
+    computes only those; every rank's gradient of the whole tensor is
+    summed over the group, so ``wk`` / ``wv`` / ``bk`` / ``bv``
+    (replicated) get all of it."""
     tp = comm.tp_layout()
-    t = comm.tp_copy(t, tp.group)
+    w = comm.tp_copy(w, tp.group)
     idx = kv_head_index(cfg, tp)
     if isinstance(idx, slice):
-        return t[:, :, idx]
-    return torch.cat([t[:, :, h:h + 1] for h in idx], dim=2)
+        return w[..., idx, :]
+    return torch.cat([w[..., h:h + 1, :] for h in idx], dim=-2)
 
 
 def _kv_of(p, x, cfg: ModelConfig, xin=None):
     """K and V (B, S, Hkv', D) of ``x`` (biases added, no RoPE) for this
     rank; ``xin`` is ``x`` already entered into the cut heads."""
     tp = comm.tp_layout()
-    if tp.kv:
+    wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
+    if tp.kv or tp.heads:
         x = _tp_enter(x, True) if xin is None else xin
-    k, v = _proj(x, p["wk"]), _proj(x, p["wv"])
-    if "bk" in p:
-        k, v = k + p["bk"], v + p["bv"]
     if tp.heads and not tp.kv:
-        k, v = _kv_local(k, cfg), _kv_local(v, cfg)
+        wk, wv = _kv_local(wk, cfg), _kv_local(wv, cfg)
+        if bk is not None:
+            bk, bv = _kv_local(bk, cfg), _kv_local(bv, cfg)
+    k, v = _proj(x, wk), _proj(x, wv)
+    if bk is not None:
+        k, v = k + bk, v + bv
     return k, v
 
 
@@ -441,6 +445,11 @@ def _put_rows(dst, idx: tuple, keep, src) -> None:
     JAX's ``.at[...].set(..., mode="drop")`` drops writes whose index is
     out of range; PyTorch indexing has no such mode and would fault, so the
     dropped rows are filtered out first."""
+    if dst.is_meta:
+        # a meta tensor holds no values to filter by (the filter's nonzero
+        # has no meta kernel): the dry-run writes every row
+        dst.index_put_(idx, src.to(dst.dtype))
+        return
     idx = tuple(i[keep] for i in idx)
     dst.index_put_(idx, src[keep].to(dst.dtype))
 
@@ -797,7 +806,10 @@ def moe_route(p, xt, cfg: ModelConfig):
     group = comm.row_split_group()
     n = comm.group_size(group)
     if n > 1:
-        counts = torch.bincount(flat_e, minlength=e)
+        # bincount's length depends on the values, so it has no meta
+        # kernel; ids are < e, so on meta it is (e,)
+        counts = (flat_e.new_empty((e,)) if flat_e.is_meta
+                  else torch.bincount(flat_e, minlength=e))
         every = comm.all_gather(counts[None], group, 0)         # (n, E)
         pos = pos + every[:comm.group_rank(group)].sum(0)[flat_e]
         t = t * n  # the slabs are equal: the engine splits only then

@@ -48,7 +48,7 @@ from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.dist import compress as tcompress
 from repro_torch.dist import sharding as tsh
 from repro_torch.kernels.kan_spline import pipeline as tpipe
-from repro_torch.launch.mesh import mesh_spec_sizes
+from repro_torch.launch.mesh import DryMesh, mesh_spec_sizes
 from repro_torch.models import layers as L
 from repro_torch.models import model as TM
 from repro_torch.models.layers import kan_ffn_hidden, kan_ffn_specs
@@ -430,27 +430,6 @@ def test_partitioned_pool_shares_and_stats():
     b.check_consistent()
 
 
-class _RankMesh:
-    """A (data, model) mesh at one rank's coordinates, as much of it as
-    ``place_params`` reads (no process group: the layout's group is
-    None)."""
-
-    mesh_dim_names = ("data", "model")
-
-    def __init__(self, shape, coords=(0, 0)):
-        self.shape = tuple(shape)
-        self._coords = dict(zip(self.mesh_dim_names, coords))
-
-    def get_local_rank(self, name):
-        return self._coords[name]
-
-    def get_group(self, name):
-        return None
-
-    def __getitem__(self, name):
-        return self
-
-
 def test_place_params_refuses_what_a10b_owns():
     """What ``place_params`` once refused it now cuts: mixtral's experts at
     (1,2) (wi / wg / wo on their hidden dim, the router whole) and qwen's
@@ -459,7 +438,8 @@ def test_place_params_refuses_what_a10b_owns():
     from repro_torch.dist import comm
 
     cfg, params = _t_params("mixtral-8x7b")
-    placed, tp = TM.place_params(params, cfg, _RankMesh((1, 2), (0, 1)))
+    placed, tp = TM.place_params(params, cfg,
+                                 DryMesh((1, 2), coords=(0, 1)))
     assert (tp.heads, tp.kv, tp.moe, tp.ffn, tp.vocab, tp.size, tp.rank) \
         == (True, True, True, False, True, 2, 1)
     moe, whole = placed["decoder"][0]["l0_moe"], params["decoder"][0]["l0_moe"]
@@ -469,7 +449,8 @@ def test_place_params_refuses_what_a10b_owns():
     assert torch.equal(moe["wo"], whole["wo"][..., f:, :])
     assert torch.equal(moe["router"], whole["router"])
     cfg, params = _t_params("qwen2.5-14b")
-    placed, tp = TM.place_params(params, cfg, _RankMesh((1, 4), (0, 3)))
+    placed, tp = TM.place_params(params, cfg,
+                                 DryMesh((1, 4), coords=(0, 3)))
     assert (tp.heads, tp.kv, tp.ffn, tp.vocab, tp.size, tp.rank) \
         == (True, False, True, True, 4, 3)
     attn, whole = placed["decoder"][0]["l0_attn"], params["decoder"][0][
@@ -523,7 +504,8 @@ def test_place_params_records_the_cut_roles(arch, shape, want):
     cut leaf is this rank's slab of the rule's dim."""
     cfg, params = _t_params(arch)
     m = shape[1]
-    placed, tp = TM.place_params(params, cfg, _RankMesh(shape, (0, m - 1)))
+    placed, tp = TM.place_params(params, cfg,
+                                 DryMesh(shape, coords=(0, m - 1)))
     assert {r: getattr(tp, r) for r in want} == want
     wq = _leaf(params, "wq")
     got = _leaf(placed, "wq")

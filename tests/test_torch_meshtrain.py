@@ -63,7 +63,7 @@ TASKS = {
     (1, 1): ("train",),
     (2, 1): ("train", "nan", "inf_patches", "odd"),
     (1, 2): ("train", "restore", "memory", "families", "collectives"),
-    (2, 2): ("train", "nan", "inf_patches"),
+    (2, 2): ("train", "nan", "inf_patches", "dry_collectives"),
     (1, 4): ("train",),
 }
 # (arch, kan_variant): experts cut (mixtral, olmoe), the query heads cut
@@ -392,6 +392,20 @@ def test_families_train_under_a_model_axis(setup, family):
         counts = _close(got, want, cfg, family)
     assert outs[0]["families"][family]["collectives"].get("all_reduce", 0) > 0
     print(f"{family} at (1,2): {counts}")
+
+
+def test_dryrun_collectives_equal_the_real_steps(setup):
+    """``launch.dryrun`` on a (2,2) ``DryMesh`` at each rank's coordinates
+    issues the collectives a real (2,2) gloo step issues there: the same
+    counts and bytes, kind by kind."""
+    outs = _spawn(setup, (2, 2))
+    for o in outs:
+        d = o["dry_collectives"]
+        assert d["dry"] == d["real"], d
+        counts, nbytes = d["real"]
+        assert counts.get("all_reduce", 0) > 0
+        assert counts.get("all_gather", 0) > 0
+        assert set(counts) == set(nbytes) and all(nbytes.values())
 
 
 def test_autograd_collectives_on_the_model_group(setup):

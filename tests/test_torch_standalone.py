@@ -52,7 +52,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "train.cardcheck", "launch.train", "models.cardcheck",
               "examples.quickstart", "examples.knot_e2e",
               "examples.neurosim_search", "examples.tune_deploy",
-              "examples.lm_kan_train", "examples.serve_demo"):
+              "examples.lm_kan_train", "examples.serve_demo",
+              "launch.dryrun", "launch.op_analysis", "scripts.top_ops",
+              "scripts.roofline_md", "scripts.check_obs"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -153,3 +155,18 @@ def test_example_mains_need_a_card_unless_asked_for_cpu(monkeypatch,
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mod.main([])
     assert list(tmp_path.iterdir()) == []  # raised before writing anything
+
+
+def test_the_dryrun_needs_no_card(monkeypatch):
+    """The dry-run runs on the meta device, so without a card it runs."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dataclasses.asdict(smoke_config("qwen2.5-14b"))
+    r = dryrun.run_cell("qwen2.5-14b", "decode_32k", make_production_mesh(),
+                        overrides=cfg)
+    assert r["flops_per_dev"] > 0 and r["devices"] == 256

@@ -345,9 +345,50 @@ def _collectives(mesh, inp) -> dict:
     return out
 
 
+def _dry_collectives(mesh, inp) -> dict:
+    """One real step of the smoke qwen cell (``qwen_cfg``, step 0's batch)
+    on this rank, and ``launch.dryrun``'s run of the same step on the meta
+    device at this rank's coordinates of a ``DryMesh``: the collectives
+    each counted, by kind, and their bytes."""
+    from repro_torch.data.lm_data import global_batch_at_step
+    from repro_torch.dist import comm
+    from repro_torch.dist.sharding import to_shardings
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import DryMesh
+    from repro_torch.runtime.meshexec import mesh_index
+    from repro_torch.train.train_state import (
+        init_state,
+        local_rows,
+        make_train_step,
+        microbatch_pspec,
+    )
+
+    cfg = qwen_cfg()
+    spec = to_shardings(microbatch_pspec(mesh, BATCH, cfg.microbatch), mesh)
+    state = init_state(torch.Generator().manual_seed(0), cfg, device="cpu",
+                       mesh=mesh)
+    batch = local_rows(global_batch_at_step(data_cfg(cfg), 0),
+                       cfg.microbatch, spec)
+    comm.reset_collectives()
+    make_train_step(cfg, microbatch_spec=spec)(state, {
+        k: torch.from_numpy(np.ascontiguousarray(v))
+        for k, v in batch.items()})
+    real = (dict(comm.COLLECTIVES), dict(comm.COLLECTIVE_BYTES))
+    names = mesh.mesh_dim_names
+    dry_mesh = DryMesh(tuple(mesh.shape), names,
+                       tuple(mesh_index(mesh, n) for n in names))
+    cell = {"seq_len": SEQ, "global_batch": BATCH, "kind": "train"}
+    rep = dryrun.run_cell("qwen2.5-14b", cell, dry_mesh,
+                          overrides=dataclasses.asdict(cfg))
+    dry = (rep["collective_counts"],
+           {k: v for k, v in rep["collectives"].items() if k != "total"})
+    return {"real": real, "dry": dry}
+
+
 TASKS = {"train": _train, "restore": _restore, "nan": _nan,
          "inf_patches": _inf_patches, "odd": _odd, "memory": _memory,
-         "families": _families, "collectives": _collectives}
+         "families": _families, "collectives": _collectives,
+         "dry_collectives": _dry_collectives}
 
 
 def cards(argv=None) -> None:
