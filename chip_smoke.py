@@ -35,6 +35,12 @@ Phases (any failure exits non-zero):
      zero-IR 24-bit case against the plain matmul, the wide path's
      R-chunks, ragged stream tiles, and 32-row slices whose bits equal
      the full call's;
+  3b. the PACT baseline (``core.asp_quant``'s ``pact_quantize``,
+     ``pact_dense_basis``) and ``quantized_dense_basis`` on the card
+     against the CPU, bit for bit, at the CPU tests' twelve specs over
+     inputs that hold every exact half step of the PACT grid and both
+     clip edges, at the spec's clip and at 0.75 of it (plain PyTorch: the
+     reference has no kernel there);
   4. the slice end to end: KAN1, KAN2, mixed (8, 4) KAN1 and the (64,128,64)
      G=8 FFN stack, initialized on the card, quantized and deployed, answer
      knot-surrogate requests of 1..65536 rows through ``runtime.execute``
@@ -194,7 +200,13 @@ Phases (any failure exits non-zero):
      B1 column slabs of gemma2's full-width halves at the whole layer's
      feature split bit-identical to the whole layer's columns, and NCCL's
      collectives called directly on the world-1 groups;
-     ``launch.serve --mesh data=1,model=1`` in-process;
+     ``launch.serve --mesh data=1,model=1`` in-process; then phase 6's
+     contiguous requests once more, plus one with a 1 ms deadline behind
+     the busy slots and one arriving at 0.05 s (phase 6's 5-token prompt),
+     through a scheduler on ``MeshClock`` (its NCCL broadcast forced on
+     the world-1 group): exactly one expiry, phase 6's streams token for
+     token (the late request's too), the arrival admitted no earlier than
+     its offset, broadcasts per decode step and the cost of one read;
  14. training on a 1x1 ``DeviceMesh`` over a world-1 NCCL group: phase
      9's cell (the full-width ``qwen2.5-14b`` ``kan_variant()``, 4 layers,
      microbatch 8, remat, 16 x 256 tokens, 6 steps) through
@@ -605,6 +617,84 @@ def phase_kernels(dev, report) -> dict:
                                zero_ir_err}
     return {"kan_pipeline_layer": max(b1_err, ffn_err), "kan_spline": b3_err,
             "flash_attention": b2_err, "cim_mac_fwd": b4_err}
+
+
+# ----------------------------------------------------------------------------
+# phase 3b: the PACT baseline and quantized_dense_basis, card against CPU
+# ----------------------------------------------------------------------------
+
+# (G, n_bits, lo, hi): tests/test_torch_asp_quant.py's PACT_SPECS
+PACT_SPECS = [(g, n, lo, hi) for g in (5, 8, 68) for n in (8, 10)
+              for lo, hi in ((0.0, 1.0), (-1.0, 1.0))]
+PACT_DRAWS = 4096  # seeded uniform inputs per spec beside the half steps
+
+
+def phase_pact(dev, report) -> None:
+    """``pact_quantize``, ``pact_dense_basis`` and ``quantized_dense_basis``
+    on the card equal the CPU's bit for bit (the CPU's equal the
+    reference's: ``tests/test_torch_asp_quant.py``).  Also counted, not
+    gated: the codes a division by the reciprocal (CUDA's way with a
+    scalar divisor) would move."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import asp_quant as aq
+
+    t0 = time.perf_counter()
+    halves = elems = 0
+    moved = {True: 0, False: 0}
+    for g, n, lo, hi in PACT_SPECS:
+        spec = aq.ASPQuantSpec(grid_size=g, order=3, n_bits=n, lo=lo, hi=hi,
+                               signed=lo < 0)
+        rng = np.random.default_rng(g * 100 + n + int(lo < 0))
+        draws = rng.uniform(lo - 0.2, hi + 0.2, PACT_DRAWS)
+        label = f"PACT G={g} n={n} [{lo}, {hi}]"
+        # the spec's clip, then one whose reciprocal is not exact
+        for alpha in (hi - lo, 0.75 * (hi - lo)):
+            half = lo + (np.arange(2**n - 1) + 0.5) * alpha / (2**n - 1)
+            x = np.concatenate([half, [lo, lo + alpha, lo - 0.3,
+                                       lo + alpha + 0.3], draws])
+            xc = torch.from_numpy(x.astype(np.float32))
+            xd = xc.to(dev)
+            want = aq.pact_quantize(xc - aq.f32(lo), alpha, n)
+            got = aq.pact_quantize(xd - aq.f32(lo), alpha, n)
+            require(got.dtype == torch.int32
+                    and torch.equal(got.cpu(), want),
+                    f"{label} alpha={alpha}: card codes differ from the "
+                    f"CPU's at {int((got.cpu() != want).sum())} inputs")
+            a = aq.f32(alpha)
+            recip = torch.round(torch.clamp(xd - aq.f32(lo), 0.0, a) / a
+                                * (2**n - 1)).to(torch.int32)
+            moved[alpha == hi - lo] += int((recip.cpu() != want).sum())
+            halves += half.size
+            elems += x.size
+            if alpha == hi - lo:
+                xs = (xc, xd)
+        xc, xd = xs
+        tables = aq.pact_basis_tables(spec)
+        for name, fn in (
+                ("pact_dense_basis",
+                 lambda v: aq.pact_dense_basis(v, spec, tables)),
+                ("quantized_dense_basis",
+                 lambda v: aq.quantized_dense_basis(v, spec))):
+            b_cpu, b_dev = fn(xc), fn(xd)
+            require(b_dev.dtype == torch.float32
+                    and b_dev.shape == (xc.numel(), spec.num_basis)
+                    and torch.equal(b_dev.cpu(), b_cpu),
+                    f"{label}: {name} on the card differs from the CPU's")
+    wall = time.perf_counter() - t0
+    print(f"PACT on the card: {len(PACT_SPECS)} specs x 2 clips, {elems} "
+          f"inputs of which {halves} exact half steps and "
+          f"{8 * len(PACT_SPECS)} at or past the clip edges: pact_quantize "
+          "codes equal the CPU's bit for bit, and pact_dense_basis and "
+          "quantized_dense_basis at the spec's clip; a reciprocal multiply "
+          f"would have moved {moved[True]} codes at the spec's clip "
+          f"(alpha 1 or 2) and {moved[False]} at 0.75 of it; {wall:.2f} s")
+    report["pact"] = {"specs": len(PACT_SPECS), "inputs": elems,
+                      "half_steps": halves,
+                      "reciprocal_moved": {"spec_clip": moved[True],
+                                           "clip_0.75": moved[False]},
+                      "wall_s": wall}
 
 
 # ----------------------------------------------------------------------------
@@ -1269,14 +1359,14 @@ def _timed(eng, name: str, sink: list) -> None:
 def serve_once(params, cfg, prompts, dev, mode: str, profile: bool = False,
                kan_backend: str | None = None, spec_decode: int = 0,
                sched_kw: dict | None = None, hook=None,
-               engine_kw: dict | None = None):
+               engine_kw: dict | None = None, extra: list = ()):
     """One engine serves the requests through the scheduler; returns its
     streams, counters and times.  ``spec_decode``: k of a speculative
     engine (paged; ``params`` then the FLOAT tree the drafter refits);
     ``sched_kw``: Scheduler options (``trace``); ``hook(eng)`` runs after
     the warm-up (e.g. to wrap the engine's calls); ``engine_kw``:
     ServeEngine options over phase 6's (``max_len``, ``kan_deploy``,
-    ``attn_backend``)."""
+    ``attn_backend``); ``extra``: requests submitted after the prompts'."""
     import gc
 
     import torch
@@ -1306,7 +1396,7 @@ def serve_once(params, cfg, prompts, dev, mode: str, profile: bool = False,
            decode_ms)
     base = eng.compile_stats()
     reqs = [Request(rid=i, prompt=list(p), max_new_tokens=SERVE_NEW)
-            for i, p in enumerate(prompts)]
+            for i, p in enumerate(prompts)] + list(extra)
     sched = Scheduler(eng, **(sched_kw or {}))
     for r in reqs:
         sched.submit(r)
@@ -1350,6 +1440,8 @@ def serve_once(params, cfg, prompts, dev, mode: str, profile: bool = False,
         "engine_bytes": engine_bytes,
         "prefill_ms": prefill_ms, "decode_ms": decode_ms,
         "ttft_s": {r.rid: r.ttft_s for r in done}, "prof": prof,
+        "decode_steps": sched.decode_steps,
+        "arrival_s": {r.rid: r.arrival_s for r in done},
     }
 
 
@@ -4221,6 +4313,8 @@ def mesh_serve(dev, mesh, report) -> dict:
               f"{info['decode_calls']} decode steps (a group of one rank "
               "skips its collective)")
     report["mesh"]["serve"] = out
+    launches["mesh_lm_clock"] = mesh_clock_serve(qparams, cfg, prompts, dev,
+                                                 mesh, base, report)
 
     # compress -> decompress of the full-width KAN-FFN bundle onto the mesh
     dep = qparams["decoder"][0]["l0_ffn"]["deployed"][0]
@@ -4276,6 +4370,90 @@ def mesh_serve(dev, mesh, report) -> dict:
         "rel_err_vs_original": rel}
     del qparams, dep, dep_mesh, dep_host
     torch.cuda.empty_cache()
+    return launches
+
+
+# the scheduler's shared clock (phase 13): a request behind the busy slots
+# with a 1 ms deadline, and one with phase 6's 5-token prompt arriving later
+CLOCK_EXPIRE_RID, CLOCK_LATE_RID = 100, 101
+CLOCK_ARRIVAL_S = 0.05
+CLOCK_READS = 200  # reads timed for the cost of one
+
+
+def mesh_clock_serve(qparams, cfg, prompts, dev, mesh, base, report) -> dict:
+    """Phase 6's contiguous requests plus a deadline and a future arrival
+    through a scheduler on ``MeshClock(mesh)``, whose NCCL broadcast runs
+    on the 1x1 mesh's world-1 group: exactly one expiry, phase 6's
+    streams, the arrival admitted no earlier than its offset.  Returns
+    the run's launches."""
+    import torch
+
+    from repro_torch.dist import comm
+    from repro_torch.serve import Request
+    from repro_torch.serve.scheduler import MeshClock
+
+    late_src = SERVE_LENS.index(min(SERVE_LENS))
+    extra = [Request(rid=CLOCK_EXPIRE_RID, prompt=list(prompts[0][:8]),
+                     max_new_tokens=SERVE_NEW, deadline_s=1e-3),
+             Request(rid=CLOCK_LATE_RID, prompt=list(prompts[late_src]),
+                     max_new_tokens=SERVE_NEW, arrival_s=CLOCK_ARRIVAL_S)]
+    clock = MeshClock(mesh)
+    comm.reset_collectives()
+    run = serve_once(qparams, cfg, prompts, dev, "contiguous",
+                     sched_kw={"clock": clock, "trace": True},
+                     engine_kw={"mesh": mesh}, extra=extra)
+    coll = dict(comm.COLLECTIVES)
+    label = "mesh clock"
+    status = dict(run["status"])
+    require(status.pop(CLOCK_EXPIRE_RID, None) == "expired"
+            and run["sched"]["expired"] == 1,
+            f"{label}: expiries {run['sched']['expired']}, statuses "
+            f"{run['status']}")
+    check_counts({**run, "status": status}, label, cfg.num_layers,
+                 requests=len(SERVE_LENS) + 1)
+    want = dict(base["contiguous"]["streams"])
+    want[CLOCK_LATE_RID] = want[late_src]
+    streams = {k: v for k, v in run["streams"].items()
+               if k != CLOCK_EXPIRE_RID}
+    require(streams == want, f"{label}: streams differ from phase 6's")
+    admitted = {r["rid"]: r["t1"] for r in run["tracer"].records()
+                if r["name"] == "queued"}
+    late_admit = admitted[CLOCK_LATE_RID]
+    require(run["arrival_s"][CLOCK_LATE_RID] == CLOCK_ARRIVAL_S
+            and late_admit >= CLOCK_ARRIVAL_S,
+            f"{label}: arrival {run['arrival_s'][CLOCK_LATE_RID]} admitted "
+            f"at {late_admit}")
+    require(clock.reads > 0 and coll.get("broadcast", 0) == clock.reads,
+            f"{label}: {clock.reads} clock reads, collectives {coll}")
+    steps = max(run["decode_steps"], 1)
+    reads = clock.reads
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CLOCK_READS):
+        clock.share(0.0)
+    read_us = (time.perf_counter() - t0) / CLOCK_READS * 1e6
+    dec = sorted(run["decode_ms"])
+    info = {"reads": reads, "broadcasts": coll.get("broadcast", 0),
+            "decode_steps": run["decode_steps"],
+            "broadcasts_per_decode_step": coll.get("broadcast", 0) / steps,
+            "read_us": read_us, "late_admitted_s": late_admit,
+            "late_ttft_s": run["ttft_s"][CLOCK_LATE_RID],
+            "decode_ms_median": dec[len(dec) // 2],
+            "tokens_per_s": run["sched"]["tokens_per_s"],
+            "wall_s": run["wall_s"]}
+    print(f"  mesh clock (MeshClock, NCCL broadcast on the world-1 group): "
+          f"1 of {len(SERVE_LENS) + 2} requests expired (1 ms deadline "
+          f"behind busy slots), the others' streams equal phase 6's token "
+          f"for token (the late request's its prompt's); arrival "
+          f"{CLOCK_ARRIVAL_S} s admitted at {late_admit:.4f} s; "
+          f"{info['broadcasts']} broadcasts over {run['decode_steps']} "
+          f"decode steps ({info['broadcasts_per_decode_step']:.3f} per "
+          f"step); one read {read_us:.1f} us; decode ms/step (median) "
+          f"{info['decode_ms_median']:.2f}, tokens/s "
+          f"{info['tokens_per_s']:.1f}")
+    report["mesh"]["clock"] = info
+    launches = run["launches"]
+    del run
     return launches
 
 
@@ -4955,6 +5133,7 @@ def main() -> int:
         return out
 
     errs = timed("3", phase_kernels, dev, report)
+    timed("3b", phase_pact, dev, report)
     models = build_models(dev)
     by_path = {"kan_slice": timed("4", phase_slice, dev, models, report)}
     totals = timed("5", phase_times, dev, models, report)

@@ -10,11 +10,14 @@ splits into bit fields::
 and ONE shared LUT of ``(2**LD, K+1)`` bump values serves every basis
 function; its mirror symmetry halves storage (the SH-LUT).
 
-Host-side construction (``build_lut``, ``hemi_fold``) runs in numpy float64
-exactly as the reference does, so codes, scales and tables are bit-identical
-to it.  Tensor functions take and return ``torch`` tensors on the caller's
-device; f32 constants are rounded from the Python doubles exactly as JAX's
-weak typing rounds them.
+Beside it, the conventional PACT baseline (misaligned grids, one table per
+basis function: the paper's Fig. 2).
+
+Host-side construction (``build_lut``, ``hemi_fold``, ``pact_basis_tables``)
+runs in numpy float64 exactly as the reference does, so codes, scales and
+tables are bit-identical to it.  Tensor functions take and return
+``torch`` tensors on the caller's device; f32 constants are rounded from
+the Python doubles exactly as JAX's weak typing rounds them.
 """
 
 from __future__ import annotations
@@ -40,6 +43,10 @@ __all__ = [
     "hemi_unfold",
     "lookup_active",
     "dense_basis_from_codes",
+    "quantized_dense_basis",
+    "pact_quantize",
+    "pact_basis_tables",
+    "pact_dense_basis",
 ]
 
 
@@ -245,3 +252,65 @@ def dense_basis_from_codes(codes: torch.Tensor, lut: torch.Tensor,
     picked = torch.gather(vals, -1, dd)
     return torch.where(active, picked, torch.zeros((), dtype=lut.dtype,
                                                    device=lut.device))
+
+
+def quantized_dense_basis(x: torch.Tensor, spec: ASPQuantSpec,
+                          lut_entry: dict | None = None) -> torch.Tensor:
+    """float x -> quantize -> dense dequantized basis (..., G+K) f32."""
+    if lut_entry is None:
+        lut_entry = build_lut(spec)
+    lut = torch.from_numpy(np.asarray(lut_entry["lut_q"] * lut_entry["scale"],
+                                      dtype=np.float32)).to(x.device)
+    return dense_basis_from_codes(quantize_input(x, spec), lut, spec)
+
+
+# ----------------------------------------------------------------------------
+# Conventional (PACT-style) baseline: misaligned grids
+# ----------------------------------------------------------------------------
+
+
+def pact_quantize(x: torch.Tensor, alpha: float, n_bits: int) -> torch.Tensor:
+    """PACT quantization (Choi et al. 2018): clip to [0, alpha], uniform
+    n-bit, as int32.
+
+    The quantization step alpha/(2**n - 1) is in general NOT an integer
+    multiple of the knot step, so the two grids are misaligned and each
+    B_i(x) needs its own code->value table.  The division is element by
+    element against a full-shape divisor (CUDA multiplies by the reciprocal
+    of a broadcast scalar), and ``torch.round`` rounds half to even as
+    ``jnp.round`` does, so the card gives the reference's codes bit for bit.
+    """
+    a = f32(alpha)
+    c = torch.clamp(x, 0.0, a)
+    q = torch.round(torch.div(c, torch.full_like(c, a)) * (2**n_bits - 1))
+    return q.to(torch.int32)
+
+
+def pact_basis_tables(spec: ASPQuantSpec,
+                      alpha: float | None = None) -> np.ndarray:
+    """Per-basis LUTs of the conventional path: a (G+K, 2**n) float64 table.
+
+    table[i, q] = B_i(x(q)) with x(q) = q * alpha / (2**n - 1) + lo, rounded
+    to the ``lut_bits`` grid.  Distinct per i because of the grid
+    misalignment (paper Fig. 2): G+K programmable LUTs on silicon.
+    """
+    if alpha is None:
+        alpha = spec.hi - spec.lo
+    n = spec.n_bits
+    q = np.arange(2**n, dtype=np.float64)
+    x = spec.lo + q * alpha / (2**n - 1)
+    tau = (x - spec.lo) / spec.knot_step  # [0, G]
+    tables = np.stack(
+        [cardinal_bump(tau - i + spec.order, spec.order)
+         for i in range(spec.num_basis)], axis=0)
+    step = lut_scale(spec)
+    return np.round(tables / step) * step
+
+
+def pact_dense_basis(x: torch.Tensor, spec: ASPQuantSpec,
+                     tables: np.ndarray) -> torch.Tensor:
+    """Baseline dense basis (..., G+K) f32: one gather per basis function
+    from its own table."""
+    codes = pact_quantize(x - f32(spec.lo), spec.hi - spec.lo, spec.n_bits)
+    t = torch.from_numpy(np.asarray(tables, dtype=np.float32)).to(x.device)
+    return t.T[codes.to(torch.int64)]

@@ -141,10 +141,12 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     return t
 
 
-def broadcast(t: torch.Tensor, src_index: int, group) -> torch.Tensor:
+def broadcast(t: torch.Tensor, src_index: int, group,
+              one_rank: bool = False) -> torch.Tensor:
     """``t`` of the group's ``src_index``-th rank, on every rank (in
-    place)."""
-    if group_size(group) == 1:
+    place).  ``one_rank``: issue (and count) it on a group of one rank too,
+    where a world-1 group still runs the collective."""
+    if group is None or (group_size(group) == 1 and not one_rank):
         return t
     if not isinstance(group, DryGroup):
         dist.broadcast(t, src=dist.get_global_rank(group, src_index),

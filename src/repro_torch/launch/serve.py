@@ -61,7 +61,8 @@ quantization, and its tile plan is registered with the plan cache.
 slots and KV on "data", attention heads, the vocabulary and the KAN-FFN
 columns on "model".  One card takes ``--mesh data=1,model=1`` without a
 launcher; a larger mesh runs one process per device under ``torchrun
---nproc-per-node N``, every rank on the same request stream.
+--nproc-per-node N``, every rank on the same request stream; ``--deadline``
+there expires requests on rank 0's clock (``serve.scheduler.MeshClock``).
 """
 
 from __future__ import annotations
@@ -236,10 +237,6 @@ def main(argv=None) -> None:
             mesh = parse_mesh_spec(args.mesh, device=dev)
         except ValueError as e:
             raise SystemExit(f"--mesh {args.mesh}: {e}")
-        if args.deadline is not None and mesh.mesh.numel() > 1:
-            raise SystemExit(f"--deadline with --mesh {args.mesh}: each of "
-                             f"the {mesh.mesh.numel()} ranks would expire "
-                             "requests by its own clock")
         if dev.type == "cuda":  # this rank's card (LOCAL_RANK under torchrun)
             dev = torch.device("cuda", torch.cuda.current_device())
 

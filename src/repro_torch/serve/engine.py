@@ -62,10 +62,9 @@ running the same engine and scheduler on the same request stream
 
 Host state (positions, block tables, pool bookkeeping, the scheduler)
 stays identical on every rank, so every rank takes the same decisions; a
-request ``deadline_s`` or future ``arrival_s`` would read each rank's
-wall clock, so the scheduler refuses them on a mesh of more than one rank
-(unless it runs on a clock every rank advances alike).  A 1x1 mesh serves
-the same tokens as no mesh.
+request ``deadline_s`` or future ``arrival_s`` is decided on rank 0's
+clock, which the scheduler broadcasts (``scheduler.MeshClock``).  A 1x1
+mesh serves the same tokens as no mesh.
 
 An audio or vlm model is refused: its prefill needs stub embeddings beside
 the tokens, which the engine does not carry (the reference's engine raises

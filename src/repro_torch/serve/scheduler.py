@@ -33,7 +33,9 @@ pool and the KV cache; this module owns *when* its steps run:
     ``stats_interval_s=`` adds a periodic one-line stats summary.
 
 Time comes from an injectable clock; :class:`ManualClock` makes arrivals
-and deadlines deterministic.
+and deadlines deterministic.  On a mesh of more than one rank with no
+clock given, the decisions that hang on time read :class:`MeshClock`, rank
+0's clock broadcast to every rank, so every rank expires and admits alike.
 """
 
 from __future__ import annotations
@@ -47,9 +49,11 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..dist import comm
 
 __all__ = [
     "ManualClock",
+    "MeshClock",
     "QueueFull",
     "SamplingParams",
     "Scheduler",
@@ -102,6 +106,46 @@ class ManualClock:
         if dt < 0:
             raise ValueError("time only moves forward")
         self._t += float(dt)
+
+
+class MeshClock:
+    """One clock for every rank of a mesh: rank 0's reading on each.
+
+    :meth:`share` broadcasts rank 0's value of a float64 reading to every
+    rank of ``mesh`` through ``dist.comm.broadcast``, over each axis group
+    in turn from the last axis to the first, so the value of the rank at
+    (0, 0) lands everywhere.  The tensor lives on the mesh's device (a CUDA
+    tensor under NCCL, so a read is a host sync).  It is a collective:
+    every rank must read at the same point, in the same order.  An axis of
+    one rank is skipped, except on a mesh whose every axis has one rank
+    (the scheduler makes no MeshClock there unless it is given one): its
+    first axis's world-1 group then runs the broadcast.  ``reads`` counts
+    the reads.
+    """
+
+    def __init__(self, mesh):
+        names = tuple(mesh.mesh_dim_names)
+        groups = [mesh.get_group(n) for n in reversed(names)]
+        wide = [g for g in groups if comm.group_size(g) > 1]
+        self._groups = wide or groups[-1:]
+        self._one_rank = not wide
+        if mesh.device_type == "cuda":
+            self._device = torch.device("cuda", torch.cuda.current_device())
+        else:
+            self._device = torch.device(mesh.device_type)
+        self.reads = 0
+
+    def share(self, value: float) -> float:
+        """Rank 0's ``value`` on every rank (a collective)."""
+        t = torch.tensor([value], dtype=torch.float64, device=self._device)
+        for g in self._groups:
+            comm.broadcast(t, 0, g, one_rank=self._one_rank)
+        self.reads += 1
+        return float(t.item())
+
+    def now(self) -> float:
+        """Rank 0's ``time.perf_counter()`` on every rank (a collective)."""
+        return self.share(time.perf_counter())
 
 
 def _draw_seed(seed: int, rid: int, position: int) -> int:
@@ -176,6 +220,20 @@ class Scheduler:
     bare callable (every line, debug included) or None for the
     structured ``obs`` logger; ``trace`` / ``tracer``: span recording on
     :meth:`elapsed`; ``stats_interval_s``: a periodic stats line.
+
+    Time: :meth:`elapsed` reads ``clock`` (``time.perf_counter`` when None).
+    On a mesh of more than one rank (``engine.shards.ranks``) with no
+    ``clock``, and whenever ``clock`` is a :class:`MeshClock`, the reads a
+    decision hangs on are rank 0's through :meth:`MeshClock.share`, one
+    read each: :meth:`submit` of a request with a deadline or an
+    ``arrival_s`` above 0, and :meth:`step` while the queue holds a request
+    with a deadline or one whose arrival was still ahead at submission.
+    Only those requests wait on time: any other queued request counts as
+    arrived, and none expires.  Every other read (token and admission
+    times, the tracer, stats, the length of the wait for an arrival) drives
+    no decision and stays this rank's own, so latencies on a rank other
+    than 0 may be off by the skew between the ranks' clocks.  With no mesh
+    or a one-rank mesh nothing is broadcast.
     """
 
     def __init__(self, engine, max_queue: int | None = None, clock=None,
@@ -183,9 +241,15 @@ class Scheduler:
                  tracer=None, stats_interval_s: float | None = None):
         self.engine = engine
         self.max_queue = max_queue
+        shards = getattr(engine, "shards", None)
+        if clock is None and getattr(shards, "ranks", 1) > 1:
+            clock = MeshClock(shards.mesh)
         self._clock = clock
-        self._now = clock.now if clock is not None else time.perf_counter
+        self._share = clock.share if isinstance(clock, MeshClock) else None
+        self._now = (clock.now if clock is not None and self._share is None
+                     else time.perf_counter)
         self._t0 = self._now()
+        self._ahead: set = set()               # queued rids not yet arrived
         # bare callables keep their legacy everything-forwarded behavior;
         # None routes through the structured process logger (info threshold,
         # REPRO_LOG_LEVEL) where per-request chatter sits at debug level
@@ -265,8 +329,22 @@ class Scheduler:
     # -- time -------------------------------------------------------------
 
     def elapsed(self) -> float:
-        """Seconds since scheduler construction (the arrival_s timebase)."""
+        """Seconds since scheduler construction (the arrival_s timebase),
+        on this rank's clock."""
         return self._now() - self._t0
+
+    def _decision_now(self, timed: bool) -> float:
+        """:meth:`elapsed` for a decision: rank 0's on a mesh clock when
+        ``timed`` (a deadline or an arrival hangs on it)."""
+        now = self.elapsed()
+        if timed and self._share is not None:
+            now = self._share(now)
+        return now
+
+    def _queue_timed(self) -> bool:
+        return self._share is not None and any(
+            r.deadline_s is not None or r.rid in self._ahead
+            for r in self.queue)
 
     def _wait(self, dt: float) -> None:
         if dt <= 0:
@@ -287,21 +365,9 @@ class Scheduler:
         request invisible to admission until that offset — the hook the
         sustained-load benchmark drives its deterministic arrival schedule
         through.
-
-        On a mesh of more than one rank every rank must take the same
-        decisions, so with the wall clock (no ``clock``) a deadline or a
-        future arrival, which each rank would read off its own clock, is
-        refused with ``ValueError``.
         """
-        now = self.elapsed()
-        ranks = getattr(getattr(self.engine, "shards", None), "ranks", 1)
-        if (ranks > 1 and self._clock is None
-                and (req.deadline_s is not None or req.arrival_s > now)):
-            raise ValueError(
-                f"request {req.rid}: a deadline or a future arrival reads "
-                f"each rank's wall clock, and the {ranks} ranks of the mesh "
-                "would part ways; pass a clock every rank advances alike "
-                "(ManualClock) or serve it without a mesh")
+        now = self._decision_now(req.deadline_s is not None
+                                 or req.arrival_s > 0)
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             self.rejected += 1
             if self._mx is not None:
@@ -310,6 +376,8 @@ class Scheduler:
                 f"queue full ({len(self.queue)}/{self.max_queue}); "
                 f"request {req.rid} rejected"
             )
+        if req.arrival_s > now:
+            self._ahead.add(req.rid)
         req.arrival_s = max(float(req.arrival_s), now)
         req.status = "queued"
         self.queue.append(req)
@@ -345,7 +413,7 @@ class Scheduler:
         False means the scheduler is idle right now — either fully drained,
         or every queued request has a future arrival time.
         """
-        now = self.elapsed()
+        now = self._decision_now(self._queue_timed())
         self._expire(now)
         progressed = self._admit_arrived(now)
         progressed = self._advance_prefills() or progressed
@@ -392,6 +460,7 @@ class Scheduler:
                     and now - r.arrival_s > r.deadline_s):
                 r.done = True
                 r.status = "expired"
+                self._ahead.discard(r.rid)
                 self.expired += 1
                 if self._mx is not None:
                     self._mx["expired"].inc()
@@ -413,12 +482,14 @@ class Scheduler:
             if slot is None:
                 break
             idx = next(
-                (i for i, r in enumerate(self.queue) if r.arrival_s <= now),
+                (i for i, r in enumerate(self.queue)
+                 if r.rid not in self._ahead or r.arrival_s <= now),
                 None,
             )
             if idx is None:
                 break
             req = self.queue.pop(idx)
+            self._ahead.discard(req.rid)
             if eng.prefill_chunk is not None:
                 # chunked prefill: claim the slot now, advance one chunk per
                 # round (_advance_prefills) — the first token is emitted

@@ -119,3 +119,95 @@ def test_invalid_spec_raises_alike():
             jq.ASPQuantSpec(**kw)
         with pytest.raises(ValueError):
             tq.ASPQuantSpec(**kw)
+
+
+# -- the PACT baseline and quantized_dense_basis ------------------------------
+
+# (G, n_bits, lo, hi): the grids of test_asp_quant.py's sweep at both input
+# widths, on the unsigned [0, 1] and the signed [-1, 1] domain
+PACT_SPECS = [(g, n, lo, hi) for g in (5, 8, 68) for n in (8, 10)
+              for lo, hi in ((0.0, 1.0), (-1.0, 1.0))]
+
+
+def _pact_pair(g, n, lo, hi):
+    kw = dict(grid_size=g, order=3, n_bits=n, lo=lo, hi=hi, signed=lo < 0)
+    return jq.ASPQuantSpec(**kw), tq.ASPQuantSpec(**kw)
+
+
+def _pact_inputs(g, n, lo, hi, alpha=None):
+    """Every exact half step lo + (q + 0.5) * alpha / (2**n - 1), both clip
+    edges (lo, lo + alpha) and points past them, and seeded uniform draws,
+    as f32."""
+    alpha = hi - lo if alpha is None else alpha
+    half = lo + (np.arange(2**n - 1) + 0.5) * alpha / (2**n - 1)
+    rng = np.random.default_rng(g * 100 + n + int(lo < 0))
+    top = lo + alpha
+    edges = [lo, top, np.nextafter(lo, top), np.nextafter(top, lo), lo - 0.3,
+             top + 0.3]
+    x = np.concatenate([half, edges, rng.uniform(lo - 0.2, hi + 0.2, 2048)])
+    return x.astype(np.float32), len(half)
+
+
+@pytest.mark.parametrize("g,n,lo,hi", PACT_SPECS, ids=str)
+def test_pact_quantize_codes_equal(g, n, lo, hi):
+    """Codes bit for bit, half steps and clip edges included: the same f32
+    ops in the same order, an IEEE division and round half to even; at the
+    spec's clip and at a clip whose reciprocal is not exact."""
+    for alpha in (hi - lo, 0.75 * (hi - lo)):
+        x, n_half = _pact_inputs(g, n, lo, hi, alpha)
+        jc = np.asarray(jq.pact_quantize(jnp.asarray(x) - lo, alpha, n))
+        tc = tq.pact_quantize(torch.from_numpy(x) - tq.f32(lo), alpha, n)
+        assert tc.dtype == torch.int32
+        np.testing.assert_array_equal(tc.numpy(), jc)
+        # a half step's code is its lower or upper neighbour; on [0, 1]
+        # the f32 quotient lands on the tie itself and rounds to even
+        assert np.isin(jc[:n_half] - np.arange(n_half), (0, 1)).all()
+        assert jc[n_half] == 0 and jc[n_half + 1] == 2**n - 1
+        if lo == 0.0 and alpha == 1.0:
+            assert not (jc[:n_half] % 2).any()
+
+
+@pytest.mark.parametrize("g,n,lo,hi", PACT_SPECS, ids=str)
+def test_pact_basis_tables_equal(g, n, lo, hi):
+    js, ts = _pact_pair(g, n, lo, hi)
+    for alpha in (None, 0.75 * (hi - lo)):
+        jt, tt = jq.pact_basis_tables(js, alpha), tq.pact_basis_tables(ts, alpha)
+        assert tt.dtype == jt.dtype and tt.shape == (js.num_basis, 2**n)
+        assert tt.tobytes() == jt.tobytes()
+
+
+@pytest.mark.parametrize("g,n,lo,hi", PACT_SPECS, ids=str)
+def test_pact_and_quantized_dense_basis_equal(g, n, lo, hi):
+    """Both bases are gathers of equal tables: tolerance 0, in the
+    reference's axis order (..., G+K), on a 2-D input."""
+    js, ts = _pact_pair(g, n, lo, hi)
+    x, _ = _pact_inputs(g, n, lo, hi)
+    x = x[: x.size // 4 * 4].reshape(4, -1)
+    tables = jq.pact_basis_tables(js)
+    jb = np.asarray(jq.pact_dense_basis(jnp.asarray(x), js, tables))
+    tb = tq.pact_dense_basis(torch.from_numpy(x), ts, tables)
+    assert tb.dtype == torch.float32 and tuple(tb.shape) == jb.shape
+    np.testing.assert_array_equal(tb.numpy(), jb)
+    jd = np.asarray(jq.quantized_dense_basis(jnp.asarray(x), js))
+    td = tq.quantized_dense_basis(torch.from_numpy(x), ts)
+    assert td.dtype == torch.float32 and tuple(td.shape) == jd.shape
+    np.testing.assert_array_equal(td.numpy(), jd)
+    entry = jq.build_lut(js)
+    np.testing.assert_array_equal(
+        tq.quantized_dense_basis(torch.from_numpy(x), ts, entry).numpy(), jd)
+
+
+def test_pact_baseline_needs_distinct_tables():
+    """The port's twin of test_asp_quant.py's: every B_i has its own table
+    (misaligned grids), and the baseline stays within 0.02 of the float
+    basis."""
+    from repro.core.bspline import bspline_basis
+
+    spec = tq.ASPQuantSpec(grid_size=5, order=3, n_bits=8, lo=0.0, hi=1.0)
+    tables = tq.pact_basis_tables(spec)
+    assert len({tables[i].tobytes() for i in range(spec.num_basis)}) == \
+        spec.num_basis
+    x = np.linspace(0.0, 1.0, 97, dtype=np.float32)
+    pb = tq.pact_dense_basis(torch.from_numpy(x), spec, tables).numpy()
+    fb = np.asarray(bspline_basis(jnp.asarray(x), 0.0, 1.0, 5, 3))
+    assert np.abs(pb - fb).max() < 0.02

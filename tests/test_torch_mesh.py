@@ -32,12 +32,19 @@ ranks with a deadline.  Per shape:
     ``kan_variant()`` (4 / 1 heads), mirroring
     ``tests/test_serving.py``,
     ``tests/test_kvpool.py`` and ``tests/test_attention_parity.py``'s mesh
-    cases, which skip on a one-device reference run; on two ranks a
-    request deadline is refused.
+    cases, which skip on a one-device reference run;
+  * the scheduler's clock: at (2,1) and (1,2), on the wall clock, a request
+    that expires behind busy slots and a future arrival, decided on rank
+    0's clock (``MeshClock``), alike on every rank and with the unsharded
+    engine's streams, and ``launch.serve --mesh ... --deadline``; at 1x1
+    and with no mesh, nothing broadcast and the ManualClock trace as
+    before.
 """
 
 import multiprocessing as mp
 import os
+import subprocess
+import sys
 import time
 
 import jax
@@ -60,9 +67,9 @@ torch.set_num_threads(1)
 
 SHAPES = [(1, 1), (2, 1), (1, 2), (2, 2), (1, 3), (1, 4)]
 TASKS = {
-    (1, 1): ("plumbing", "acim_noise", "compress", "engine"),
-    (2, 1): ("acim_noise", "grad_sync", "engine"),
-    (1, 2): ("acim_noise", "compress", "engine"),
+    (1, 1): ("plumbing", "acim_noise", "compress", "engine", "one_rank"),
+    (2, 1): ("acim_noise", "grad_sync", "engine", "clock"),
+    (1, 2): ("acim_noise", "compress", "engine", "clock"),
     (2, 2): ("engine",),
     (1, 3): ("acim_noise", "engine"),
     (1, 4): ("engine",),
@@ -363,13 +370,109 @@ def test_engine_serves_the_unsharded_tokens(setup, shape, tmp_path_factory):
           f"{ {m: outs[0]['engine'][m + '/collectives'] for m in ENGINE_MODES[shape]} }")
 
 
-def test_meshed_scheduler_refuses_wall_clock_decisions(setup,
-                                                       tmp_path_factory):
-    """A deadline or a future arrival would be read off each rank's own
-    clock: on a mesh of two ranks the scheduler and the serve CLI refuse
-    them instead of letting the ranks part ways."""
-    for o in _spawn(setup, (2, 1), tmp_path_factory):
-        refused = o["engine"]["refused"]
-        assert set(refused) == {"deadline", "arrival", "cli"}, refused
-        assert "2 ranks" in refused["deadline"]
-        assert "--deadline" in refused["cli"]
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_meshed_scheduler_decides_on_rank0_clock(setup, shape,
+                                                 tmp_path_factory):
+    """On the wall clock, behind two busy slots: the request with a 1 ms
+    deadline expires and the one arriving at 0.05 s is served, alike on
+    every rank (statuses, expiry count, completion order, streams), with
+    the unsharded engine's streams; the arrival is admitted no earlier
+    than its offset on rank 0's clock, and each of the clock's reads is one
+    broadcast over the mesh's axis of two ranks."""
+    outs = _spawn(setup, shape, tmp_path_factory)
+    want = setup["streams"]["contiguous"]
+    c0 = outs[0]["clock"]
+    for o in outs:
+        c = o["clock"]
+        assert c["clock"] == "MeshClock"
+        assert c["status"] == {0: "done", 1: "done", 2: "expired",
+                               3: "done"}, c["status"]
+        assert c["expired"] == 1
+        for k in ("order", "status", "streams", "expired", "decode_steps",
+                  "reads", "now"):
+            assert c[k] == c0[k], (k, c[k], c0[k])
+        # the arrivals a decision hangs on are rank 0's; the others are
+        # each rank's own submission instants
+        for rid in (2, 3):
+            assert c["arrival_s"][rid] == c0["arrival_s"][rid], rid
+        assert c["streams"] == {0: want[0], 1: want[1], 2: [],
+                                3: want[2]}, (c["streams"], want)
+        assert c["arrival_s"][3] == W.ARRIVAL_S
+        assert c["reads"] > 0
+        assert c["collectives"].get("broadcast", 0) >= c["reads"]
+    assert c0["admitted_s"][3] >= W.ARRIVAL_S, c0["admitted_s"]
+    print(f"mesh {shape} clock: {c0['reads']} shared reads over "
+          f"{c0['decode_steps']} decode steps, collectives "
+          f"{c0['collectives']}")
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_meshed_serve_cli_takes_a_deadline(setup, shape, tmp_path_factory):
+    """``launch.serve --mesh data=D,model=M --deadline 5`` runs to its end
+    on every rank, with the same scheduler line on each."""
+    outs = _spawn(setup, shape, tmp_path_factory)
+    lines = []
+    for o in outs:
+        c = o["clock"]
+        assert c["cli_return"] is None
+        sched = [ln for ln in c["cli_lines"] if "scheduler submitted=" in ln]
+        assert sched == ["serve: scheduler submitted=4 completed=4 "
+                         "expired=0 rejected=0"], c["cli_lines"]
+        assert any(f"data={shape[0]} x model={shape[1]}" in ln
+                   for ln in c["cli_lines"]), c["cli_lines"]
+        lines.append(sched)
+    assert lines[0] == lines[1]
+
+
+def test_serve_cli_under_torchrun_takes_a_deadline(tmp_path):
+    """``torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh
+    data=2 --deadline 5 --device cpu`` exits 0, both ranks serving every
+    request (gloo; a hang fails at the join deadline)."""
+    env = dict(os.environ)
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    logs = tmp_path / "logs"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "--log-dir", str(logs), "--redirects",
+           "1", "-m", "repro_torch.launch.serve",
+           "--arch", "qwen2.5-14b", "--mesh", "data=2", "--deadline", "5",
+           "--device", "cpu", "--requests", "4", "--max-new", "4"]
+    p = subprocess.run(cmd, env=env, cwd=tmp_path, capture_output=True,
+                       text=True, timeout=DEADLINE_S)
+    assert p.returncode == 0, (p.stdout[-4000:], p.stderr[-4000:])
+    outs = sorted(logs.rglob("stdout.log"))
+    assert len(outs) == 2, outs
+    for path in outs:
+        lines = [ln for ln in path.read_text().splitlines()
+                 if "scheduler submitted=" in ln]
+        assert lines == ["serve: scheduler submitted=4 completed=4 "
+                         "expired=0 rejected=0"], path.read_text()[-4000:]
+
+
+# sha256 of the JSONL trace of torch_mesh_worker.one_rank_trace, as the
+# scheduler wrote it before it had a mesh clock
+ONE_RANK_TRACE_SHA256 = (
+    "3af8895bbff8ef35368c8098f7eba0ac2100a88c7576e7b1c9b54593b64d52d9")
+
+
+def test_one_rank_scheduler_broadcasts_nothing(setup, tmp_path_factory):
+    """With no mesh and on a 1x1 mesh the scheduler makes no MeshClock and
+    no broadcast: the ManualClock trace hashes as before, and a wall-clock
+    deadline and future arrival leave ``dist.comm.COLLECTIVES`` empty."""
+    res = _spawn(setup, (1, 1), tmp_path_factory)[0]["one_rank"]
+    want = setup["streams"]["contiguous"]
+    for name in ("none", "mesh"):
+        digest, status, coll = res[name + "/trace"]
+        assert digest == ONE_RANK_TRACE_SHA256, name
+        assert status == {0: "done", 1: "expired", 2: "done"}, status
+        assert coll == {}, (name, coll)
+        wall = res[name + "/wall"]
+        assert not wall["mesh_clock"], name
+        assert wall["collectives"] == {}, (name, wall["collectives"])
+        assert wall["status"] == {0: "done", 1: "done", 2: "expired",
+                                  3: "done"}, wall["status"]
+        assert wall["streams"] == {0: want[0], 1: want[1], 2: [],
+                                   3: want[2]}, name

@@ -10,8 +10,12 @@ timeout, so a rank that dies cannot leave the others waiting for longer.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import hashlib
+import io
 import os
+import tempfile
 import traceback
 
 import numpy as np
@@ -181,17 +185,16 @@ def _compress(mesh, inp) -> dict:
     }
 
 
-def serve_streams(arch: str, kan: bool, kw: dict, prompts, mesh=None):
+def smoke_engine(arch: str, kan: bool, kw: dict, mesh=None):
     """One smoke engine of ``arch`` (its ``kan_variant()`` on the deployed
     KAN path when ``kan``), 2 slots unless ``kw`` names them, on ``mesh``;
     ``kw`` may also hold ``cfg`` (config fields to replace) and
-    ``max_new``.  Returns (engine, streams by rid).  The parent calls it
-    without a mesh for the wanted streams."""
+    ``max_new``.  Returns (engine, max_new)."""
     import dataclasses
 
     from repro_torch.configs.registry import smoke_config
     from repro_torch.models.model import init_params
-    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.engine import ServeEngine
 
     kw = dict(kw)
     cfg = dataclasses.replace(smoke_config(arch), **kw.pop("cfg", {}))
@@ -200,6 +203,16 @@ def serve_streams(arch: str, kan: bool, kw: dict, prompts, mesh=None):
     params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     eng = ServeEngine(params, cfg, **{"slots": 2, "max_len": 32, **kw},
                       kan_deploy=kan, mesh=mesh, device="cpu")
+    return eng, max_new
+
+
+def serve_streams(arch: str, kan: bool, kw: dict, prompts, mesh=None):
+    """:func:`smoke_engine` serving ``prompts`` (rid = index); returns
+    (engine, streams by rid).  The parent calls it without a mesh for the
+    wanted streams."""
+    from repro_torch.serve.engine import Request
+
+    eng, max_new = smoke_engine(arch, kan, kw, mesh)
     reqs = [Request(rid=i, prompt=list(p), max_new_tokens=max_new)
             for i, p in enumerate(prompts)]
     return eng, {r.rid: list(r.output) for r in eng.run(reqs)}
@@ -208,13 +221,9 @@ def serve_streams(arch: str, kan: bool, kw: dict, prompts, mesh=None):
 def _engine(mesh, inp) -> dict:
     """The smoke engines on the mesh, in each mode the parent asks for
     (``{mode: (arch, kan, engine kwargs)}``); returns the streams by rid,
-    the layout, the collectives of the run and the pool stats.  On a mesh
-    of more than one rank, also what a request deadline meets: the
-    scheduler's and the serve CLI's refusals."""
+    the layout, the collectives of the run and the pool stats."""
     from repro_torch import runtime
     from repro_torch.dist import comm
-    from repro_torch.serve.engine import Request
-    from repro_torch.serve.scheduler import Scheduler
 
     out = {}
     eng = None
@@ -228,30 +237,125 @@ def _engine(mesh, inp) -> dict:
             for pool in eng.pools:
                 pool.check_consistent()
             out[mode + "/kv"] = eng.kv_stats()
-    if eng is not None and eng.shards.ranks > 1:
-        refused = {}
-        for name, req in (("deadline", Request(rid=0, prompt=[5, 6],
-                                               deadline_s=30.0)),
-                          ("arrival", Request(rid=1, prompt=[5, 6],
-                                              arrival_s=1e6))):
-            try:
-                Scheduler(eng).submit(req)
-            except ValueError as e:
-                refused[name] = str(e)
-        try:
-            from repro_torch.launch import serve
+    return out
 
-            serve.main(["--arch", "qwen2.5-14b", "--device", "cpu",
-                        "--mesh", f"data={mesh.shape[0]},model="
-                        f"{mesh.shape[1]}", "--deadline", "5"])
-        except SystemExit as e:
-            refused["cli"] = str(e)
-        out["refused"] = refused
+
+# the arrival offset of the clock task's future request (seconds)
+ARRIVAL_S = 0.05
+
+
+def clock_requests(prompts, max_new: int, deadline_s: float = 1e-3):
+    """Two requests that fill the 2 slots, one behind them that must
+    expire (``deadline_s``) and one arriving ``ARRIVAL_S`` after start, with
+    the third prompt."""
+    from repro_torch.serve.engine import Request
+
+    return [Request(rid=0, prompt=list(prompts[0]), max_new_tokens=max_new),
+            Request(rid=1, prompt=list(prompts[1]), max_new_tokens=max_new),
+            Request(rid=2, prompt=list(prompts[2]), max_new_tokens=max_new,
+                    deadline_s=deadline_s),
+            Request(rid=3, prompt=list(prompts[2]), max_new_tokens=max_new,
+                    arrival_s=ARRIVAL_S)]
+
+
+def _clock(mesh, inp) -> dict:
+    """A deadline and a future arrival on the wall clock: the scheduler
+    decides them on rank 0's clock (its ``MeshClock``).  Returns the
+    statuses, streams and completion order, the expiry count, the clock's
+    reads and the collectives of the run, the admission instant of the
+    future arrival and one ``MeshClock.now()``; then ``launch.serve --mesh
+    ... --deadline 5`` on these ranks, its return and printed lines."""
+    from repro_torch.dist import comm
+    from repro_torch.launch import serve
+    from repro_torch.serve.scheduler import MeshClock, Scheduler
+
+    eng, max_new = smoke_engine("qwen2.5-14b", True, {}, mesh)
+    now = MeshClock(mesh).now()
+    comm.reset_collectives()
+    sched = Scheduler(eng, trace=True)
+    for r in clock_requests(inp["prompts"], max_new):
+        sched.submit(r)
+    done = sched.run_until_idle()
+    admitted = {rec["rid"]: rec["t1"] for rec in sched.tracer.records()
+                if rec["name"] == "queued"}
+    out = {"clock": type(sched._clock).__name__, "now": now,
+           "reads": sched._clock.reads,
+           "collectives": dict(comm.COLLECTIVES),
+           "order": [r.rid for r in done],
+           "status": {r.rid: r.status for r in done},
+           "streams": {r.rid: list(r.output) for r in done},
+           "expired": sched.expired, "decode_steps": sched.decode_steps,
+           "arrival_s": {r.rid: r.arrival_s for r in done},
+           "admitted_s": admitted}
+    spec = f"data={mesh.shape[0]},model={mesh.shape[1]}"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out["cli_return"] = serve.main(
+            ["--arch", "qwen2.5-14b", "--device", "cpu", "--mesh", spec,
+             "--deadline", "5", "--requests", "4", "--max-new", "4"])
+    out["cli_lines"] = buf.getvalue().splitlines()
+    return out
+
+
+def one_rank_trace(mesh=None) -> tuple:
+    """A ManualClock workload, traced, on the float smoke qwen2.5-14b with
+    one slot (``mesh`` or none): a request that keeps the slot for four
+    tokens, one behind it that expires (0.5 s deadline) and one arriving
+    at 3 s; the clock moves 0.25 s per emitted token, and no stream stops
+    early (``eos_id=-1``).  Returns (sha256 of the JSONL trace, statuses
+    by rid, the collectives of the run)."""
+    from repro_torch.dist import comm
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.scheduler import ManualClock, Scheduler
+
+    eng, _ = smoke_engine("qwen2.5-14b", False, {"slots": 1}, mesh)
+    clock = ManualClock()
+    comm.reset_collectives()
+    sched = Scheduler(eng, clock=clock, trace=True)
+    reqs = [Request(rid=0, prompt=[5, 6, 7, 8], max_new_tokens=4, eos_id=-1),
+            Request(rid=1, prompt=[9, 10, 11], max_new_tokens=3, eos_id=-1,
+                    deadline_s=0.5),
+            Request(rid=2, prompt=[12, 13], max_new_tokens=3, eos_id=-1,
+                    arrival_s=3.0)]
+    for r in reqs:
+        sched.submit(r, on_token=lambda r, t: clock.advance(0.25))
+    sched.run_until_idle()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.jsonl")
+        sched.tracer.export_jsonl(path)
+        with open(path, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+    return (digest, {r.rid: r.status for r in sched.finished},
+            dict(comm.COLLECTIVES))
+
+
+def _one_rank(mesh, inp) -> dict:
+    """No mesh and this 1x1 mesh: the ManualClock trace, and a wall-clock
+    deadline and future arrival (:func:`clock_requests`) with the
+    collectives of each run; no ``MeshClock`` is made."""
+    from repro_torch.dist import comm
+    from repro_torch.serve.scheduler import MeshClock, Scheduler
+
+    out = {}
+    for name, m in (("none", None), ("mesh", mesh)):
+        out[name + "/trace"] = one_rank_trace(m)
+        eng, max_new = smoke_engine("qwen2.5-14b", True, {}, m)
+        comm.reset_collectives()
+        sched = Scheduler(eng)
+        for r in clock_requests(inp["prompts"], max_new):
+            sched.submit(r)
+        done = sched.run_until_idle()
+        out[name + "/wall"] = {
+            "mesh_clock": isinstance(sched._clock, MeshClock),
+            "collectives": dict(comm.COLLECTIVES),
+            "status": {r.rid: r.status for r in done},
+            "streams": {r.rid: list(r.output) for r in done}}
     return out
 
 
 TASKS = {"plumbing": _plumbing, "acim_noise": _acim_noise,
-         "grad_sync": _grad_sync, "compress": _compress, "engine": _engine}
+         "grad_sync": _grad_sync, "compress": _compress, "engine": _engine,
+         "clock": _clock, "one_rank": _one_rank}
 
 
 def reference_quantize(g: np.ndarray):
