@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
+from ..obs.metrics import setup_phase
 from .kan_layer import quantize_kan_layer
 from .kan_network_deploy import deploy_kan_ffn_stack, kan_network_deploy_apply
 
@@ -45,14 +46,16 @@ def quantize_kan_ffn(ffn_params: dict, cfg: ModelConfig) -> dict:
 
     ffn_params: {"c1","wb1","c2","wb2"}.  Returns {"l1": qparams, "l2":
     qparams} (see ``kan_layer.quantize_kan_layer``), on the params' device.
+    Host seconds count as ``setup.seconds{phase=quantize}``.
     """
     from ..models.layers import kan_ffn_specs
 
     s1, s2 = kan_ffn_specs(cfg)
-    l1 = quantize_kan_layer({"c": ffn_params["c1"], "w_b": ffn_params["wb1"]},
-                            s1)
-    l2 = quantize_kan_layer({"c": ffn_params["c2"], "w_b": ffn_params["wb2"]},
-                            s2)
+    with setup_phase("quantize"):
+        l1 = quantize_kan_layer({"c": ffn_params["c1"],
+                                 "w_b": ffn_params["wb1"]}, s1)
+        l2 = quantize_kan_layer({"c": ffn_params["c2"],
+                                 "w_b": ffn_params["wb2"]}, s2)
     return {"l1": l1, "l2": l2}
 
 

@@ -35,6 +35,7 @@ from ..kernels.kan_spline.pipeline import (
     packs_weights,
     pad_layer_weights,
 )
+from ..obs.metrics import setup_phase
 from .asp_quant import ASPQuantSpec, quantize_input
 from .kan_layer import KANSpec, quantize_kan_layer
 
@@ -118,9 +119,11 @@ def place_deployed_kan(dep: DeployedKAN, mesh) -> DeployedKAN:
 
 
 def quantize_kan_network(params_list, kspec: KANSpec) -> list:
-    """Post-training-quantize every layer of a stack at its own spec."""
-    return [quantize_kan_layer(p, spec)
-            for p, spec in zip(params_list, kspec.layer_specs())]
+    """Post-training-quantize every layer of a stack at its own spec (host
+    seconds counted as ``setup.seconds{phase=quantize}``)."""
+    with setup_phase("quantize"):
+        return [quantize_kan_layer(p, spec)
+                for p, spec in zip(params_list, kspec.layer_specs())]
 
 
 def _dequant_layer(qp: dict) -> tuple:
@@ -153,32 +156,35 @@ def deploy_kan_ffn_stack(qparams_list, dims: tuple, spec, *, batch: int = 8,
 
 def _deploy(qparams_list, dims, specs, batch, *, residual_raw,
             device) -> DeployedKAN:
-    if len(dims) != len(qparams_list) + 1:
-        raise ValueError(f"dims {dims} vs {len(qparams_list)} layers")
-    dev = resolve_device(device)
-    plan = runtime.PLAN_CACHE.plan(batch, dims, specs,
-                                   residual_raw=residual_raw)
-    layers = []
-    for qp, lp in zip(qparams_list, plan.layers):
-        if tuple(qp["c_q"].shape) != (lp.f, lp.spec.num_basis, lp.o):
-            raise ValueError(
-                f"layer weights {tuple(qp['c_q'].shape)} != plan {lp}")
-        qp = {k: v.to(dev) for k, v in qp.items()}
-        wb = qp["w_b_q"].to(torch.float32) * qp["w_b_scale"]
-        if packs_weights(lp.spec):
-            # <=4-bit layer: keep the weight CODES, two per int8 lane
-            layer = {
-                "lut": qp["lut"],
-                **pack_layer_weights(qp["c_q"], qp["c_scale"], wb, lp),
-            }
-            if packs_lut(lp.spec):
-                layer["lutp"] = pack_lut(qp["lut_q"], lp.spec)
-        else:
-            wc, _ = _dequant_layer(qp)
-            layer = {"lut": qp["lut"], **pad_layer_weights(wc, wb, lp)}
-        layers.append(layer)
-    return DeployedKAN(plan=plan, layers=tuple(layers), specs=specs,
-                       dims=dims, residual_raw=residual_raw)
+    """The body both deploy paths share; its host seconds count as
+    ``setup.seconds{phase=deploy}``."""
+    with setup_phase("deploy"):
+        if len(dims) != len(qparams_list) + 1:
+            raise ValueError(f"dims {dims} vs {len(qparams_list)} layers")
+        dev = resolve_device(device)
+        plan = runtime.PLAN_CACHE.plan(batch, dims, specs,
+                                       residual_raw=residual_raw)
+        layers = []
+        for qp, lp in zip(qparams_list, plan.layers):
+            if tuple(qp["c_q"].shape) != (lp.f, lp.spec.num_basis, lp.o):
+                raise ValueError(
+                    f"layer weights {tuple(qp['c_q'].shape)} != plan {lp}")
+            qp = {k: v.to(dev) for k, v in qp.items()}
+            wb = qp["w_b_q"].to(torch.float32) * qp["w_b_scale"]
+            if packs_weights(lp.spec):
+                # <=4-bit layer: keep the weight CODES, two per int8 lane
+                layer = {
+                    "lut": qp["lut"],
+                    **pack_layer_weights(qp["c_q"], qp["c_scale"], wb, lp),
+                }
+                if packs_lut(lp.spec):
+                    layer["lutp"] = pack_lut(qp["lut_q"], lp.spec)
+            else:
+                wc, _ = _dequant_layer(qp)
+                layer = {"lut": qp["lut"], **pad_layer_weights(wc, wb, lp)}
+            layers.append(layer)
+        return DeployedKAN(plan=plan, layers=tuple(layers), specs=specs,
+                           dims=dims, residual_raw=residual_raw)
 
 
 def kan_network_deploy_apply(dep: DeployedKAN, x, *, xraw=None,

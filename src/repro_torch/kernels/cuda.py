@@ -29,6 +29,8 @@ from pathlib import Path
 
 import torch
 
+from ..obs.metrics import setup_phase
+
 __all__ = [
     "FILL_BLOCKS",
     "LAUNCHES",
@@ -166,11 +168,14 @@ def build() -> dict:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library with every entry point's argtypes set."""
+    """The loaded kernel library with every entry point's argtypes set.
+    The first call's build (or cache check) and load count as
+    ``setup.seconds{phase=kernel_build}``."""
     global _LIB
     if _LIB is None:
-        info = build()
-        lib = ctypes.CDLL(info["path"])
+        with setup_phase("kernel_build"):
+            info = build()
+            lib = ctypes.CDLL(info["path"])
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -20,7 +20,16 @@ Port of ``repro.models.model``.  Families:
            positions count its patch rows (the first token at
            ``num_patches``)
 
-Caches are written in place and returned.
+Caches are written in place and returned.  In the serving entry points
+(prefill, decode, verify, paged chunk) each attention layer's mixer and
+each FFN sublayer run under the ``obs.profile_scope`` ranges
+``model.attention`` / ``model.ffn`` (``models.transformer``), and
+:func:`prefill`'s final norm and LM head under ``model.head``.  Decode,
+verify and a paged chunk keep their head outside any nested range: a
+``torch.profiler`` trace puts each kernel on the device span of its
+innermost range only, so a head range would end the device span of the
+engine's enclosing step (``serve.decode_step``, ...) before its last
+layer's FFN.
 
 Tensor parallelism: :func:`place_params` cuts a param tree to this rank's
 slabs on a mesh's ``"model"`` axis where ``dist.sharding.param_pspecs``
@@ -47,6 +56,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..dist import comm
+from ..obs.trace import profile_scope
 from . import layers as L
 from .transformer import (
     init_stack,
@@ -333,13 +343,14 @@ def prefill(p, batch, cfg: ModelConfig, max_len: int, last_index=None):
     h, cache = stack_prefill(p["decoder"], cache, h, cfg,
                              positions=_positions(b, s, h.device),
                              enc_out=enc_out)
-    h = L.rmsnorm(p["final_norm"], h, cfg.norm_eps)
-    if last_index is None:
-        sel = h[:, -1:, :]
-    else:
-        idx = torch.as_tensor(last_index, device=h.device).to(torch.int64)
-        sel = h[torch.arange(b, device=h.device), n_prefix + idx][:, None]
-    return _lm_logits(p, sel, cfg)[:, 0], cache
+    with profile_scope("model.head"):
+        h = L.rmsnorm(p["final_norm"], h, cfg.norm_eps)
+        if last_index is None:
+            sel = h[:, -1:, :]
+        else:
+            idx = torch.as_tensor(last_index, device=h.device).to(torch.int64)
+            sel = h[torch.arange(b, device=h.device), n_prefix + idx][:, None]
+        return _lm_logits(p, sel, cfg)[:, 0], cache
 
 
 @torch.no_grad()

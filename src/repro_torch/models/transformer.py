@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..dist import comm
 from ..dist.sharding import map_with_path
+from ..obs.trace import profile_scope
 from ..runtime.attention import resolve_attn_backend, use_attn_backend
 from . import layers as L
 
@@ -309,15 +310,17 @@ def stack_decode(groups, caches, x, pos, cfg: ModelConfig, block_table=None):
         for i, kind in enumerate(kinds):
             h = L.rmsnorm(bp[f"l{i}_ln1"], x, cfg.norm_eps)
             if kind in _ATTN_KINDS:
-                h, _ = L.attention_decode(
-                    bp[f"l{i}_attn"], h, cache[f"l{i}_kv"], pos, cfg,
-                    "local" if kind == "local" else "global",
-                    block_table=block_table)
+                with profile_scope("model.attention"):
+                    h, _ = L.attention_decode(
+                        bp[f"l{i}_attn"], h, cache[f"l{i}_kv"], pos, cfg,
+                        "local" if kind == "local" else "global",
+                        block_table=block_table)
             else:
                 h = _recurrent(bp, h, cfg, i, kind, cache, decode=True)
             x = _post_attn(bp, x, h, cfg, i)
             x = _cross_sublayer(bp, x, cfg, i, xkv=cache.get(f"l{i}_xkv"))
-            x = _ffn_sublayer(bp, x, cfg, i)
+            with profile_scope("model.ffn"):
+                x = _ffn_sublayer(bp, x, cfg, i)
     return x, caches
 
 
@@ -356,23 +359,26 @@ def stack_prefill(groups, caches, x, cfg: ModelConfig, positions=None,
                 h = _recurrent(bp, h, cfg, i, kind, cache)
                 x = _post_attn(bp, x, h, cfg, i)
                 x = _prefill_cross(bp, x, cfg, i, cache, enc_out)
-                x = _ffn_sublayer(bp, x, cfg, i)
+                with profile_scope("model.ffn"):
+                    x = _ffn_sublayer(bp, x, cfg, i)
                 continue
-            q, k, v = L._qkv(bp[f"l{i}_attn"], h, cfg, kind != "bidir",
-                             positions)
-            kv = cache[f"l{i}_kv"]
-            t = kv["k"].shape[1]
-            for name, new in (("k", k), ("v", v)):
-                if kind == "local" and t < s:
-                    kv[name].copy_(torch.roll(new[:, s - t:], (s - t) % t,
-                                              dims=1))
-                else:
-                    kv[name][:, :s] = new.to(kv[name].dtype)
-            h = L._sdpa(q, k, v, cfg, kind)
-            h = L._out_proj(h, bp[f"l{i}_attn"]["wo"])
+            with profile_scope("model.attention"):
+                q, k, v = L._qkv(bp[f"l{i}_attn"], h, cfg, kind != "bidir",
+                                 positions)
+                kv = cache[f"l{i}_kv"]
+                t = kv["k"].shape[1]
+                for name, new in (("k", k), ("v", v)):
+                    if kind == "local" and t < s:
+                        kv[name].copy_(torch.roll(new[:, s - t:],
+                                                  (s - t) % t, dims=1))
+                    else:
+                        kv[name][:, :s] = new.to(kv[name].dtype)
+                h = L._sdpa(q, k, v, cfg, kind)
+                h = L._out_proj(h, bp[f"l{i}_attn"]["wo"])
             x = _post_attn(bp, x, h, cfg, i)
             x = _prefill_cross(bp, x, cfg, i, cache, enc_out)
-            x = _ffn_sublayer(bp, x, cfg, i)
+            with profile_scope("model.ffn"):
+                x = _ffn_sublayer(bp, x, cfg, i)
     return x, caches
 
 
@@ -385,13 +391,15 @@ def stack_prefill_paged(groups, caches, x, cfg: ModelConfig, block_table,
     for bp, cache, kinds in _each_layer(groups, caches, cfg):
         for i, kind in enumerate(kinds):
             h = L.rmsnorm(bp[f"l{i}_ln1"], x, cfg.norm_eps)
-            q, k, v = L._qkv(bp[f"l{i}_attn"], h, cfg, True, positions)
-            _, gk, gv = L.paged_prefill_update(cache[f"l{i}_kv"], k, v,
-                                               block_table, start, real_end)
-            t = gk.shape[1]
-            h = L._sdpa(q, gk, gv, cfg, "global", qpos=positions[0],
-                        kpos=torch.arange(t, device=x.device))
-            h = L._out_proj(h, bp[f"l{i}_attn"]["wo"])
+            with profile_scope("model.attention"):
+                q, k, v = L._qkv(bp[f"l{i}_attn"], h, cfg, True, positions)
+                _, gk, gv = L.paged_prefill_update(
+                    cache[f"l{i}_kv"], k, v, block_table, start, real_end)
+                t = gk.shape[1]
+                h = L._sdpa(q, gk, gv, cfg, "global", qpos=positions[0],
+                            kpos=torch.arange(t, device=x.device))
+                h = L._out_proj(h, bp[f"l{i}_attn"]["wo"])
             x = _post_attn(bp, x, h, cfg, i)
-            x = _ffn_sublayer(bp, x, cfg, i)
+            with profile_scope("model.ffn"):
+                x = _ffn_sublayer(bp, x, cfg, i)
     return x, caches

@@ -27,7 +27,10 @@ Metric names, the span taxonomy and the exposition formats are the
 reference's (``docs/observability.md``), with two differences of name in
 what the collectors feed: ``plan_cache.traces`` counts the port's plan
 builds, and ``runtime.backend_dispatch`` labels the fused backend
-``fused`` where the reference says ``pallas``.
+``fused`` where the reference says ``pallas``.  The port's collectors also
+feed series the reference has not: ``runtime.rows{kind=real|pad}``,
+``runtime.h2d_bytes``, ``serve.prompt_tokens{kind=real|pad}`` and
+``setup.seconds{phase=quantize|deploy|kernel_build}``.
 
     from repro_torch import obs
     obs.enable()
@@ -60,6 +63,7 @@ from .metrics import (
     disable,
     enable,
     enabled,
+    setup_phase,
 )
 from .trace import (
     Span,
@@ -67,6 +71,7 @@ from .trace import (
     disable_profiler_annotations,
     enable_profiler_annotations,
     profile_scope,
+    profiled_counts,
     profiler_annotations_enabled,
 )
 
@@ -93,7 +98,9 @@ __all__ = [
     "get_logger",
     "parse_prometheus_text",
     "profile_scope",
+    "profiled_counts",
     "profiler_annotations_enabled",
     "prometheus_text",
+    "setup_phase",
     "start_metrics_server",
 ]

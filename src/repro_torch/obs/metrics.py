@@ -38,9 +38,12 @@ on pay nothing extra.
 from __future__ import annotations
 
 import bisect
+import collections
+import contextlib
 import dataclasses
 import os
 import threading
+import time
 
 __all__ = [
     "Counter",
@@ -52,6 +55,8 @@ __all__ = [
     "enable",
     "disable",
     "enabled",
+    "SETUP_PHASES",
+    "setup_phase",
 ]
 
 ENV_OBS_VAR = "REPRO_OBS"
@@ -324,3 +329,30 @@ class MetricsRegistry:
 
 # The process-wide registry every subsystem records into.
 REGISTRY = MetricsRegistry()
+
+
+# Host seconds of the program's set-up phases: quantizing a KAN stack or a
+# KAN-FFN block, deploying a quantized stack into its padded bundle, and
+# building and loading the kernel library.  Plain process counters, always
+# kept (one clock read at each end of a phase), exported as
+# ``setup.seconds{phase=...}`` at snapshot time.
+SETUP_PHASES = ("quantize", "deploy", "kernel_build")
+SETUP_SECONDS: collections.Counter = collections.Counter()
+
+
+@contextlib.contextmanager
+def setup_phase(phase: str):
+    """Add the host seconds of the ``with`` body to ``phase``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        SETUP_SECONDS[phase] += time.perf_counter() - t0
+
+
+def _setup_collect() -> dict:
+    return {("setup.seconds", (("phase", p),)): SETUP_SECONDS[p]
+            for p in SETUP_PHASES}
+
+
+REGISTRY.register_collector(_setup_collect)

@@ -23,13 +23,16 @@ Two export formats:
     JSON (complete ``"X"`` events, microsecond timestamps, one row per
     request id), so a served workload can be read as a timeline.
 
-For on-device visibility, :func:`profile_scope` wraps host-side dispatch
-sites (the engine's prefill / decode / verify calls, the drafter's
-propose loop, the executor's kernel dispatch) in
+For on-device visibility, :func:`profile_scope` wraps host-side sites
+(the scheduler's round, its sampling and token emission, the engine's
+prefill / decode / verify calls, each layer's attention and FFN and a
+whole-prompt prefill's LM head, the drafter's propose loop, and the
+executor's host copy, plan lookup, entry coding and kernel dispatch) in
 ``torch.profiler.record_function`` when profiling is enabled
 (:func:`enable_profiler_annotations`), so the kernels each launches nest
 under the serving spans in a ``torch.profiler`` trace.  Off by default and
-a no-op context manager when off.
+a shared no-op context manager when off.  :func:`profiled_counts` gives
+what the registry's counters gained while annotations were on.
 
 Port of ``repro.obs.trace``; the span tree, ids, timestamps and both
 export formats are the reference's.
@@ -48,6 +51,7 @@ __all__ = [
     "profile_scope",
     "enable_profiler_annotations",
     "disable_profiler_annotations",
+    "profiled_counts",
     "profiler_annotations_enabled",
 ]
 
@@ -229,17 +233,40 @@ class Tracer:
 # -- torch.profiler annotation hooks ----------------------------------------
 
 _PROFILER_ANNOTATIONS = False
+# one shared null context: an off scope costs a flag check and nothing else
+_NULL_SCOPE = contextlib.nullcontext()
+# numeric registry series read when annotations were last turned on, and
+# their change over the last annotated interval (profiled_counts)
+_COUNTS_AT_ENABLE: dict = {}
+_PROFILED_COUNTS: dict = {}
+
+
+def _numeric_series() -> dict:
+    """Every numeric series of ``obs.REGISTRY`` (collector-fed counters
+    included; histograms left out), by exported series name."""
+    from .metrics import REGISTRY, format_series
+
+    return {format_series(name, labels): value
+            for name, labels, _, value in REGISTRY.collect()
+            if isinstance(value, (int, float))}
 
 
 def enable_profiler_annotations() -> None:
     """Turn host-side ``torch.profiler.record_function`` ranges on for the
-    instrumented dispatch sites (engine steps, drafter, executor)."""
-    global _PROFILER_ANNOTATIONS
+    instrumented sites (scheduler rounds, engine steps, model layers,
+    drafter, executor), and read the registry's numeric series so that
+    :func:`profiled_counts` can give what the annotated interval added."""
+    global _PROFILER_ANNOTATIONS, _COUNTS_AT_ENABLE
+    _COUNTS_AT_ENABLE = _numeric_series()
     _PROFILER_ANNOTATIONS = True
 
 
 def disable_profiler_annotations() -> None:
-    global _PROFILER_ANNOTATIONS
+    global _PROFILER_ANNOTATIONS, _PROFILED_COUNTS
+    if _PROFILER_ANNOTATIONS:
+        now = _numeric_series()
+        _PROFILED_COUNTS = {k: v - _COUNTS_AT_ENABLE.get(k, 0)
+                            for k, v in now.items()}
     _PROFILER_ANNOTATIONS = False
 
 
@@ -247,14 +274,22 @@ def profiler_annotations_enabled() -> bool:
     return _PROFILER_ANNOTATIONS
 
 
-def profile_scope(name: str, **kwargs):
+def profiled_counts() -> dict:
+    """The change of every numeric registry series (``runtime.rows{kind=
+    real}``, ``serve.prompt_tokens{kind=pad}``, ...) over the last
+    interval in which profiler annotations were on, by series name: what
+    the program did while a profiler watched it.  Empty before the first
+    such interval has ended."""
+    return dict(_PROFILED_COUNTS)
+
+
+def profile_scope(name: str):
     """``torch.profiler.record_function(name)`` when annotations are
-    enabled; a free null context otherwise, safe to wrap hot dispatch sites
-    unconditionally.  ``kwargs`` (the reference's annotation metadata) are
-    accepted and not recorded: a ``record_function`` range has a name
-    only."""
+    enabled; one shared null context otherwise, safe to wrap hot dispatch
+    sites unconditionally.  A ``record_function`` range has a name only:
+    call sites pass a constant string."""
     if not _PROFILER_ANNOTATIONS:
-        return contextlib.nullcontext()
+        return _NULL_SCOPE
     import torch
 
     return torch.profiler.record_function(name)

@@ -31,10 +31,12 @@ from .executor import (
     available_backends,
     dispatch_counts,
     get_executor,
+    io_counts,
     quiet_cim_config,
     ref_composition,
     register_executor,
     reset_dispatch_counts,
+    reset_io_counts,
     resolve_backend,
     use_backend,
 )
@@ -65,6 +67,7 @@ __all__ = [
     "dispatch_counts",
     "execute",
     "get_executor",
+    "io_counts",
     "mesh_axis_sizes",
     "quiet_cim_config",
     "ref_composition",
@@ -73,6 +76,7 @@ __all__ = [
     "register_executor",
     "reset_cache",
     "reset_dispatch_counts",
+    "reset_io_counts",
     "resolve_attn_backend",
     "resolve_backend",
     "resolve_mesh",

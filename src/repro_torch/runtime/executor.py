@@ -20,8 +20,13 @@ Selection precedence: explicit argument > :func:`use_backend` scope >
 ``REPRO_KAN_BACKEND`` > the call site's default.  Every backend shares the
 :mod:`plancache` (pow2 batch bucketing + LRU of built entries).  Each
 dispatch is counted per backend (fed to the obs registry as
-``runtime.backend_dispatch{backend=...}``) and runs under
-``obs.profile_scope("kan_spline.<backend>")``.
+``runtime.backend_dispatch{backend=...}``), with its real and bucket-pad
+rows (``runtime.rows{kind=real|pad}``) and the bytes of host data it
+copied to the device (``runtime.h2d_bytes``).  Its host phases run under
+``obs.profile_scope`` ranges: ``runtime.h2d`` (the copy of host rows),
+``runtime.plan`` (bucket, key, plan-cache lookup or build),
+``runtime.entry`` (entry coding) and ``kan_spline.<backend>`` (padding
+to the bucket and the kernels).
 
 Every backend also has a MESH dimension (:mod:`.meshexec`): when a mesh is
 bound (explicit ``mesh=`` argument > :func:`use_mesh` scope > the bundle's
@@ -77,6 +82,8 @@ __all__ = [
     "ENV_BACKEND_VAR",
     "dispatch_counts",
     "reset_dispatch_counts",
+    "io_counts",
+    "reset_io_counts",
     "register_executor",
     "available_backends",
     "resolve_backend",
@@ -104,6 +111,22 @@ def dispatch_counts() -> dict:
 
 def reset_dispatch_counts() -> None:
     DISPATCH_COUNTS.clear()
+
+
+# What the dispatches moved: "rows_real" (the requests' rows), "rows_pad"
+# (rows added to reach the bucket) and "h2d_bytes" (host data copied to
+# the bundle's device).
+IO_COUNTS: collections.Counter = collections.Counter()
+
+
+def io_counts() -> dict:
+    """Rows (real, pad) and host bytes copied since start or the last
+    reset."""
+    return {k: IO_COUNTS[k] for k in ("rows_real", "rows_pad", "h2d_bytes")}
+
+
+def reset_io_counts() -> None:
+    IO_COUNTS.clear()
 
 
 # ----------------------------------------------------------------------------
@@ -178,12 +201,16 @@ def use_backend(backend: str | None):
 def _as_input(x, device: torch.device) -> torch.Tensor:
     """A request as f32 (the reference computes in f32 whatever it is
     given) on the bundle's device.  Host data (numpy, lists) is copied
-    there; a tensor already on another device is refused."""
+    there, under the ``runtime.h2d`` range, and its f32 bytes counted; a
+    tensor already on another device is refused."""
     if isinstance(x, torch.Tensor):
         if x.device != device:
             raise ValueError(f"input on {x.device}, bundle on {device}")
         return x.to(torch.float32)
-    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+    with profile_scope("runtime.h2d"):
+        a = np.asarray(x, np.float32)
+        IO_COUNTS["h2d_bytes"] += a.nbytes
+        return torch.as_tensor(a, device=device)
 
 
 def _entry_codes(dep, x, xraw):
@@ -283,6 +310,12 @@ class _CachedExecutor:
     """
 
     name = "?"
+    range_name = "kan_spline.?"
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        # the kernels' profiler range, named once per backend
+        cls.range_name = f"kan_spline.{cls.name}"
 
     def _flags(self, cim=None, sam_perms=None) -> tuple:
         return ()  # deterministic backends ignore the acim options
@@ -294,32 +327,36 @@ class _CachedExecutor:
         x = _as_input(x, device)
         if xraw is not None:
             xraw = _as_input(xraw, device)
-        codes, xraw = _entry_codes(dep, x, xraw)
-        b = codes.shape[0]
-        if mesh is None:
-            bucket = bucket_batch(b)
-            mesh_fp = ()
-        else:
-            dsize, msize = mesh_axis_sizes(mesh)
-            # every data shard's slab holds at least one 8-row tile, and
-            # the bucket divides by any data size
-            bucket = bucket_batch(b, lo=8 * dsize)
-            mesh_fp = _mesh_key_fingerprint(
-                mesh, dsize, msize, tuple(dep.dims), tuple(dep.specs),
-                bucket, dep.residual_raw)
-        key = PlanKey(
-            dims=tuple(dep.dims),
-            specs=tuple(dep.specs),
-            bucket=bucket,
-            residual_raw=dep.residual_raw,
-            device=str(codes.device),
-            backend=self.name,
-            flags=self._flags(**opts),
-            mesh=mesh_fp,
-        )
-        _, apply = PLAN_CACHE.get(key, self._build)
+        b = x.shape[0]
+        with profile_scope("runtime.plan"):
+            if mesh is None:
+                bucket = bucket_batch(b)
+                mesh_fp = ()
+            else:
+                dsize, msize = mesh_axis_sizes(mesh)
+                # every data shard's slab holds at least one 8-row tile,
+                # and the bucket divides by any data size
+                bucket = bucket_batch(b, lo=8 * dsize)
+                mesh_fp = _mesh_key_fingerprint(
+                    mesh, dsize, msize, tuple(dep.dims), tuple(dep.specs),
+                    bucket, dep.residual_raw)
+            key = PlanKey(
+                dims=tuple(dep.dims),
+                specs=tuple(dep.specs),
+                bucket=bucket,
+                residual_raw=dep.residual_raw,
+                device=str(x.device),
+                backend=self.name,
+                flags=self._flags(**opts),
+                mesh=mesh_fp,
+            )
+            _, apply = PLAN_CACHE.get(key, self._build)
+        with profile_scope("runtime.entry"):
+            codes, xraw = _entry_codes(dep, x, xraw)
         DISPATCH_COUNTS[self.name] += 1
-        with profile_scope(f"kan_spline.{self.name}"):
+        IO_COUNTS["rows_real"] += b
+        IO_COUNTS["rows_pad"] += bucket - b
+        with profile_scope(self.range_name):
             out = self._run(key, apply, _pad_batch(codes, bucket),
                             _pad_batch(xraw, bucket), dep.layers, generator,
                             return_intermediates)
@@ -782,3 +819,15 @@ def _obs_collect() -> dict:
 
 
 _OBS_REGISTRY.register_collector(_obs_collect)
+
+
+def _io_collect() -> dict:
+    """The dispatches' rows and host bytes (the port's own series)."""
+    return {
+        ("runtime.rows", (("kind", "real"),)): IO_COUNTS["rows_real"],
+        ("runtime.rows", (("kind", "pad"),)): IO_COUNTS["rows_pad"],
+        "runtime.h2d_bytes": IO_COUNTS["h2d_bytes"],
+    }
+
+
+_OBS_REGISTRY.register_collector(_io_collect)

@@ -37,6 +37,9 @@ drive; ``draft_spec`` sets the drafter's deployment point.  Every prefill,
 decode and verify call runs under ``obs.profile_scope`` (``serve.prefill``,
 ``serve.prefill_chunk``, ``serve.decode_step``, ``serve.verify``): a
 ``torch.profiler`` range while annotations are on, nothing otherwise.
+Every prefill call counts its prompt's real tokens and the padding that
+reaches its bucket (``PROMPT_TOKENS``, the series
+``serve.prompt_tokens{kind=real|pad}``).
 
 ``mesh=`` (a ``DeviceMesh`` with axes ("data", "model"), e.g.
 ``launch.mesh.make_local_mesh``) serves SPMD, one process per device, each
@@ -74,6 +77,7 @@ the tokens, which the engine does not carry (the reference's engine raises
 from __future__ import annotations
 
 import bisect
+import collections
 import contextlib
 import dataclasses
 from typing import Any, Callable
@@ -86,12 +90,27 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..dist import comm
 from ..models import model as M
+from ..obs import REGISTRY as _OBS_REGISTRY
 from ..obs.trace import profile_scope
 from ..runtime.meshexec import mesh_axis_sizes, mesh_index
 from .kvpool import KVBlockPool, merged_stats
 
 __all__ = ["Request", "ServeEngine", "SlotShards",
            "prefill_bucketing_supported", "paged_kv_supported"]
+
+
+# Prompt tokens of every prefill call (whole or chunked): "real" (the
+# prompt's) and "pad" (added to reach the power-of-two bucket), exported as
+# ``serve.prompt_tokens{kind=...}``.
+PROMPT_TOKENS: collections.Counter = collections.Counter()
+
+
+def _prompt_collect() -> dict:
+    return {("serve.prompt_tokens", (("kind", k),)): PROMPT_TOKENS[k]
+            for k in ("real", "pad")}
+
+
+_OBS_REGISTRY.register_collector(_prompt_collect)
 
 
 def prefill_bucketing_supported(cfg: ModelConfig) -> bool:
@@ -127,6 +146,7 @@ class Request:
     status: str = "pending"      # pending -> queued -> running -> done|expired
     latency_s: float = 0.0       # admission -> last token
     ttft_s: float = 0.0          # arrival -> first token
+    queue_s: float = 0.0         # arrival -> admission
 
 
 class SlotShards:
@@ -498,6 +518,8 @@ class ServeEngine:
         padded = self._padded_prompt(req.prompt)
         self._prefill_buckets_seen.add(len(padded))
         self.prefill_calls += 1
+        PROMPT_TOKENS["real"] += plen
+        PROMPT_TOKENS["pad"] += len(padded) - plen
         logits = None
         with self._scope(), profile_scope("serve.prefill"):
             if self.shards.owns(slot):
@@ -537,6 +559,8 @@ class ServeEngine:
         chunk = req.prompt[start:start + take] + [0] * (c - take)
         self._prefill_buckets_seen.add(c)
         self.prefill_calls += 1
+        PROMPT_TOKENS["real"] += take
+        PROMPT_TOKENS["pad"] += c - take
         logits = None
         with self._scope(), profile_scope("serve.prefill_chunk"):
             if self.shards.owns(slot):

@@ -26,7 +26,13 @@ pool and the KV cache; this module owns *when* its steps run:
     request (``request`` > ``queued`` / ``prefill`` / ``decode`` and a
     ``first_token`` event) through :class:`repro_torch.obs.Tracer` on the
     scheduler's own clock (:meth:`Scheduler.elapsed`), so a
-    :class:`ManualClock` workload exports byte-identical JSONL run to run;
+    :class:`ManualClock` workload exports byte-identical JSONL run to run.
+    Whatever the tracer, each admitted request carries ``queue_s``
+    (arrival to admission) beside ``ttft_s`` (arrival to first token), and
+    ``latency_s`` runs from admission to the last token.  With profiler
+    annotations on, each round runs under the ``serve.round`` range, and a
+    decode round's argmax or logits transfer under ``serve.sample`` and its
+    per-slot token emission under ``serve.emit``;
   * **logging**: ``log=`` takes a bare callable (every line forwarded) or
     None for the structured ``repro_torch.obs`` logger, where per-request
     lines sit at debug level under ``REPRO_LOG_LEVEL``;
@@ -413,28 +419,29 @@ class Scheduler:
         False means the scheduler is idle right now — either fully drained,
         or every queued request has a future arrival time.
         """
-        now = self._decision_now(self._queue_timed())
-        self._expire(now)
-        progressed = self._admit_arrived(now)
-        progressed = self._advance_prefills() or progressed
-        depth = len(self.queue)
-        self._depth_samples.append((now, depth))
-        self._depth_rounds += 1
-        self._depth_sum += depth
-        self._depth_max = max(self._depth_max, depth)
-        if self._mx is not None:
-            self._sample_gauges(depth)
-        if (self.stats_interval_s is not None
-                and now - self._last_stats_line >= self.stats_interval_s):
-            self._last_stats_line = now
-            self._stats_line(now)
-        if any(r is not None for r in self.engine.active):
-            if self.engine.spec_k:
-                self._spec_round()
-            else:
-                self._decode_round()
-            progressed = True
-        return progressed
+        with obs.profile_scope("serve.round"):
+            now = self._decision_now(self._queue_timed())
+            self._expire(now)
+            progressed = self._admit_arrived(now)
+            progressed = self._advance_prefills() or progressed
+            depth = len(self.queue)
+            self._depth_samples.append((now, depth))
+            self._depth_rounds += 1
+            self._depth_sum += depth
+            self._depth_max = max(self._depth_max, depth)
+            if self._mx is not None:
+                self._sample_gauges(depth)
+            if (self.stats_interval_s is not None
+                    and now - self._last_stats_line >= self.stats_interval_s):
+                self._last_stats_line = now
+                self._stats_line(now)
+            if any(r is not None for r in self.engine.active):
+                if self.engine.spec_k:
+                    self._spec_round()
+                else:
+                    self._decode_round()
+                progressed = True
+            return progressed
 
     def run_until_idle(self) -> list:
         """Drive :meth:`step` until queue and pool drain; returns finished.
@@ -490,6 +497,9 @@ class Scheduler:
                 break
             req = self.queue.pop(idx)
             self._ahead.discard(req.rid)
+            # the admission instant: the request's wait ends, its prefill
+            # (whole, or its first chunk) starts
+            req.queue_s = self.elapsed() - req.arrival_s
             if eng.prefill_chunk is not None:
                 # chunked prefill: claim the slot now, advance one chunk per
                 # round (_advance_prefills) — the first token is emitted
@@ -548,7 +558,8 @@ class Scheduler:
                 sp["decode"] = self.tracer.begin("decode",
                                                  parent=sp["request"])
         self._rec[req.rid] = {
-            "arrival": req.arrival_s, "admit": t, "token_times": [t],
+            "arrival": req.arrival_s, "admit": req.arrival_s + req.queue_s,
+            "token_times": [t],
         }
         if self._span_start is None or t < self._span_start:
             self._span_start = t
@@ -569,30 +580,33 @@ class Scheduler:
         # device-side argmax — transferring B ints per step, not the whole
         # (slots, vocab) logits matrix; the full rows come to host only
         # when some active request actually samples
-        if any(getattr(r, "sampling", None) is not None
-               for r in eng.active if r is not None):
-            rows, nxt = logits.cpu().numpy(), None
-        else:
-            rows, nxt = None, logits.argmax(dim=-1).cpu().numpy()
-        t = self.elapsed()
-        self._span_end = t
-        for i, r in enumerate(eng.active):
-            if r is None:
-                continue
-            eng.pos[i] += 1
-            tok = int(nxt[i]) if rows is None else self._select(r, rows[i])
-            # a slot admitted behind the scheduler's back (direct
-            # ServeEngine._admit) is adopted on its first decode: timing
-            # starts now, its prefill token predates the record
-            rec = self._rec.setdefault(
-                r.rid, {"arrival": r.arrival_s, "admit": t, "token_times": []}
-            )
-            self._round_tokens += 1
-            self._round_slots += 1
-            self._emit_tokens(r, rec, [tok], t)
-            if (tok == r.eos_id or len(r.output) >= r.max_new_tokens
-                    or eng.pos[i] >= eng.max_len - 1):
-                self._finish_request(r, i, t, rec)
+        with obs.profile_scope("serve.sample"):
+            if any(getattr(r, "sampling", None) is not None
+                   for r in eng.active if r is not None):
+                rows, nxt = logits.cpu().numpy(), None
+            else:
+                rows, nxt = None, logits.argmax(dim=-1).cpu().numpy()
+        with obs.profile_scope("serve.emit"):
+            t = self.elapsed()
+            self._span_end = t
+            for i, r in enumerate(eng.active):
+                if r is None:
+                    continue
+                eng.pos[i] += 1
+                tok = (int(nxt[i]) if rows is None
+                       else self._select(r, rows[i]))
+                # a slot admitted behind the scheduler's back (direct
+                # ServeEngine._admit) is adopted on its first decode:
+                # timing starts now, its prefill token predates the record
+                rec = self._rec.setdefault(
+                    r.rid,
+                    {"arrival": r.arrival_s, "admit": t, "token_times": []})
+                self._round_tokens += 1
+                self._round_slots += 1
+                self._emit_tokens(r, rec, [tok], t)
+                if (tok == r.eos_id or len(r.output) >= r.max_new_tokens
+                        or eng.pos[i] >= eng.max_len - 1):
+                    self._finish_request(r, i, t, rec)
 
     def _spec_round(self) -> None:
         """One speculative decode round: propose -> verify -> accept/emit.
@@ -643,12 +657,14 @@ class Scheduler:
         # pure-greedy pools take the device-side argmax — (slots, k+1) ints
         # per round, not the logits cube; full rows come to host only when
         # some active request actually samples
-        if any(getattr(r, "sampling", None) is not None for _, r in active):
-            rows = logits.cpu().numpy()                     # (slots, k+1, V)
-            g = np.argmax(rows, axis=-1)
-        else:
-            rows = None
-            g = logits.argmax(dim=-1).cpu().numpy()         # (slots, k+1)
+        with obs.profile_scope("serve.sample"):
+            if any(getattr(r, "sampling", None) is not None
+                   for _, r in active):
+                rows = logits.cpu().numpy()                 # (slots, k+1, V)
+                g = np.argmax(rows, axis=-1)
+            else:
+                rows = None
+                g = logits.argmax(dim=-1).cpu().numpy()     # (slots, k+1)
         t2 = time.perf_counter()
         self._draft_s.append(t1 - t0)
         self._verify_s.append(t2 - t1)

@@ -264,8 +264,7 @@ class DraftModel:
         drafts = {i: [] for i in queues}
         chain = np.zeros(self.slots, np.int32)   # last argmax per slot
         pos = self.pos.copy()
-        with self._scope(split_rows=True), profile_scope("serve.draft",
-                                                         steps=nsteps):
+        with self._scope(split_rows=True), profile_scope("serve.draft"):
             for step in range(nsteps):
                 feed = np.zeros(self.slots, np.int32)
                 for i, q in queues.items():
