@@ -93,8 +93,11 @@ Phases (any failure exits non-zero):
      serving path gives it, at decode over 4096 keys and at the k = 4
      verify pass (with its KV split count), of B1 at the full-width FFN
      halves of the target and of the drafter (with their feature split
-     count) and at each row tile (16, 32, 64; bits checked equal) on the
-     target's halves at 8 and 1024 rows, beside bounds, plain versions and
+     count), at each row tile (16, 32, 64; bits checked equal) on the
+     target's halves at 8 and 1024 rows, and in both band loops (gather and
+     register loop, bits checked equal, with the loop the launch code takes)
+     at the G=8 halves of every decoder from 8 to 8192 rows, beside bounds,
+     plain versions and
      ``scaled_dot_product_attention`` (warm) from the same run; and of B4
      at the simulator path's six shapes and the reference's largest case,
      L2-cold and warm (events, graph replay), beside its bound, its plain
@@ -323,6 +326,16 @@ LOGIT_TOL = 0.125
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+# the B1 launches that took the register loop, counted among
+# ``kan_pipeline_layer``'s: the loop follows each call's shape
+REGS_KEY = "kan_pipeline_layer.regs"
+
+
+def by_kernel(counts: dict) -> dict:
+    """Launch counts by kernel, without :data:`REGS_KEY`."""
+    return {k: v for k, v in counts.items() if k != REGS_KEY}
 
 
 def smi_line() -> str:
@@ -1090,8 +1103,8 @@ def phase_acim(dev, models, report) -> dict:
     print(f"acim path: {len(runs)} requests; dispatch {dispatch}; launches "
           f"{launches}")
     require(dispatch == {"acim": len(runs)}, f"acim dispatch {dispatch}")
-    require(launches == {"kan_pipeline_layer": n_b1,
-                         "kan_pipeline_layer.noise": n_noisy},
+    require(by_kernel(launches) == {"kan_pipeline_layer": n_b1,
+                                    "kan_pipeline_layer.noise": n_noisy},
             f"acim launches {launches} != B1 {n_b1} (noise operand on "
             f"{n_noisy}: every layer of every noisy call)")
 
@@ -1466,7 +1479,7 @@ def check_counts(run: dict, mode: str, layers: int, backend: str = "fused",
         want["kan_pipeline_layer"] = 2 * calls * nf
     if noise:
         want["kan_pipeline_layer.noise"] = 2 * calls * nf
-    require(run["launches"] == want,
+    require(by_kernel(run["launches"]) == want,
             f"{mode}: launches {run['launches']} != {want} ({calls} calls x "
             f"{na} attention / {nf} KAN-FFN layers; B1 twice per KAN-FFN)")
     require(run["attn"] == ({attn: calls * na} if na else {}),
@@ -1838,6 +1851,14 @@ def phase_serve(dev, report) -> dict:
     for mode in ("contiguous", "paged"):
         run = serve_once(qparams, cfg, prompts, dev, mode)
         check_counts(run, mode, cfg.num_layers)
+        # prefills of 64 rows and more (buckets or 256-token chunks) take
+        # B1's register loop, the 4-row decode steps its gather
+        regs = run["launches"].get(REGS_KEY, 0)
+        require(0 < regs < run["launches"]["kan_pipeline_layer"],
+                f"{mode}: B1 register-loop launches {regs} of "
+                f"{run['launches']['kan_pipeline_layer']}")
+        print(f"{mode}: B1 register loop on {regs} of "
+              f"{run['launches']['kan_pipeline_layer']} B1 launches")
         if mode == "paged":
             require(run["kv"]["prefix_hits"] > 0,
                     f"paged: no prefix-cache hit {run['kv']}")
@@ -2363,6 +2384,7 @@ def phase_times_lm(dev, report) -> tuple:
     for grid, f, o, flags, nrows in cc.B1_FFN_FULL + cc.B1_FFN_DRAFT:
         rows.append(b1_time_row(dev, gen, grid, f, o, flags, nrows))
     report["b1_row_tiles"] = b1_row_tile_times(dev)
+    report["b1_loops"] = b1_loop_times(dev)
     report["times_lm"] = rows
     report["times_b4"] = phase_times_b4(dev)
     # the kernel line sums the three path shapes (as in earlier runs); the
@@ -2383,10 +2405,79 @@ def phase_times_lm(dev, report) -> tuple:
     return b2, [r for r in rows if r["kernel"] == "kan_pipeline_layer"]
 
 
+# B1's two band loops timed at the full-width G=8 halves: qwen2.5-14b's at
+# a decode bucket, reason's 256-row decode and rag's prefill buckets, the
+# other decoders' at the rows PERF.md's B1 row lists, and the slice's G=8
+# FFN stack at 65536 rows: (f, o, emit, rows)
+B1_LOOP_SHAPES = (
+    tuple((f, o, emit, rows)
+          for f, o, emit in ((5120, 1280, True), (1280, 5120, False))
+          for rows in (8, 256, 1024, 2048, 4096))
+    + tuple((f, o, emit, rows)
+            for (f, o, emit), rows_ in (
+                ((4608, 3456, True), (8, 1024)), ((3456, 4608, False), (8, 1024)),
+                ((4096, 1152, True), (8, 4096)), ((1152, 4096, False), (8, 4096)),
+                ((512, 256, True), (8, 8192)), ((256, 512, False), (8, 8192)),
+                ((5120, 1408, True), (8, 2048)), ((1408, 5120, False), (8, 2048)),
+                ((64, 128, True), (65536,)), ((128, 64, False), (65536,)))
+            for rows in rows_))
+
+
+def b1_loop_times(dev) -> list:
+    """B1's gather and register loops at :data:`B1_LOOP_SHAPES`, each
+    forced through the launch code's test-only entry, L2-cold and warm,
+    beside the bound and the loop the launch code takes there; raises if
+    the two loops' y or codes differ in a bit."""
+    import torch
+
+    from repro_torch.kernels.kan_spline import cardcheck as cc
+    from repro_torch.kernels.kan_spline import pipeline as pl
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows_out = []
+    print("B1's loops at the G=8 halves (raw residual): half rows | rule | "
+          "gather ms L2-cold / warm | register loop ms L2-cold / warm | "
+          "bound ms (by) | cold speed-up")
+    for f, o, emit, nrows in B1_LOOP_SHAPES:
+        flags = (True, False, False, False, emit)
+        lp, lw, _, codes, xraw, _ = cc.b1_case(dev, gen, pl.REGS_GRID, f, o,
+                                               flags, nrows)
+        splits = pl.feature_split_plan(lp.f, lp.o)[0]
+        times, outs = {}, {}
+        for loop, tile in (("gather", pl.ROW_TILES[-1]),
+                           ("regs", pl.REGS_ROW_TILE)):
+            def run(loop=loop, tile=tile):
+                return pl._run_layer(codes, xraw, lw, lp, nrows, None, tile,
+                                     splits, loop)
+
+            outs[loop] = run()
+            times[loop] = (cold_ms(run, reps=10), graph_ms(run, 10))
+        torch.cuda.synchronize()
+        (gy, gc), (ry, rc) = outs["gather"], outs["regs"]
+        require(torch.equal(gy, ry) and (gc is None or torch.equal(gc, rc)),
+                f"B1 {f}x{o} at {nrows} rows: the register loop differs "
+                f"from the gather")
+        b_ms, by = bound(*b1_work(lp, lw, nrows))
+        rule = pl.b1_loop(nrows, lp.o, lp.spec)[0]
+        gcold, gwarm = times["gather"]
+        rcold, rwarm = times["regs"]
+        print(f"  {f}x{o} rows={nrows} | {rule} | {gcold:.4f} / {gwarm:.4f} |"
+              f" {rcold:.4f} / {rwarm:.4f} | {b_ms:.4f} ({by}) | "
+              f"{gcold / rcold:.3f}")
+        rows_out.append({"layer": f"ffn {f}x{o}", "rows": nrows,
+                         "feature_splits": splits, "rule": rule,
+                         "gather_cold_ms": gcold, "gather_warm_ms": gwarm,
+                         "regs_cold_ms": rcold, "regs_warm_ms": rwarm,
+                         "bound_ms": b_ms, "bound_by": by})
+        del lw, codes, xraw, outs
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 def b1_row_tile_times(dev) -> list:
-    """B1 at each row tile (``pipeline.ROW_TILES``) on the full-width G=8
-    FFN halves at 8 and 1024 rows, L2-cold and warm, after the card check
-    of the tiles' bits (``cardcheck.check_b1_row_tiles``)."""
+    """B1's gather loop at each row tile (``pipeline.ROW_TILES``) on the
+    full-width G=8 FFN halves at 8 and 1024 rows, L2-cold and warm, after
+    the card check of the tiles' bits (``cardcheck.check_b1_row_tiles``)."""
     import torch
 
     from repro_torch.kernels.kan_spline import cardcheck as cc
@@ -2394,7 +2485,8 @@ def b1_row_tile_times(dev) -> list:
 
     gen = torch.Generator(device=dev).manual_seed(19)
     rows = []
-    print("B1 row tiles at the full-width G=8 halves: half rows | row tile |"
+    print("B1's gather loop at each row tile, full-width G=8 halves: half "
+          "rows | row tile |"
           " kernel ms L2-cold | warm (graph) (bits equal across tiles)")
     for grid, f, o, flags, nrows in cc.B1_FFN_FULL:
         cc.check_b1_row_tiles(dev, gen, grid, f, o, flags, nrows)
@@ -2402,8 +2494,8 @@ def b1_row_tile_times(dev) -> list:
                                                nrows)
         for tile in pl.ROW_TILES:
             def run(tile=tile):
-                return pl.run_pipeline_layer(codes, xraw, lw, lp, nrows,
-                                             row_tile=tile)
+                return pl._run_layer(codes, xraw, lw, lp, nrows, None, tile,
+                                     None, "gather")
 
             cold, ms = cold_ms(run, reps=10), graph_ms(run, 10)
             rows.append({"layer": f"ffn {f}x{o}", "rows": nrows,
@@ -3936,7 +4028,7 @@ def a7c_run(dev, params, cfg, label: str, batches: list, new: int,
     wall = time.perf_counter() - t_run
     launches = cuda.launch_counts()
     peak = torch.cuda.max_memory_allocated() - stats["base_bytes"]
-    require(launches == want, f"{label}: launches {launches} != {want} "
+    require(by_kernel(launches) == want, f"{label}: launches {launches} != {want} "
             f"({calls} calls; B2 on every self- and cross-attention layer, "
             "B1 twice per KAN-FFN layer, encoder at prefill)")
     kept = sum(r.numel() * r.element_size() for _, r in outs)
@@ -4807,7 +4899,7 @@ def phase_examples(dev, report) -> dict:
     require(launches.get("kan_pipeline_layer", 0) > 0
             and launches.get("kan_pipeline_layer.noise", 0) > 0
             and set(launches) <= {"kan_pipeline_layer",
-                                  "kan_pipeline_layer.noise"},
+                                  "kan_pipeline_layer.noise", REGS_KEY},
             f"tune_deploy: launches {launches}")
 
     # lm_kan_train at its defaults: 60 steps, a restart for 10
@@ -4834,7 +4926,8 @@ def phase_examples(dev, report) -> dict:
     # B1 on both halves of every deployed call
     sd, launches = drive("serve_demo", serve_demo.run, device=dev, log=log)
     want = serve_demo.expected_launches(sd)
-    require(launches == want, f"serve_demo: launches {launches} != {want}")
+    require(by_kernel(launches) == want,
+            f"serve_demo: launches {launches} != {want}")
     require(sd["stream_outputs"] == sd["streams"],
             "serve_demo: a stream differs from its final output")
     tps = {k: sd["tokens"][k] / sd["seconds"][k] for k in ("float", "fused")}
@@ -5234,6 +5327,7 @@ def main() -> int:
                 "warm_ms", "plain_ms", "bound_ms", "bound_by")}
                 for r in ffn_full]
             row["row_tiles"] = report["b1_row_tiles"]
+            row["loops"] = report["b1_loops"]
         require(row["launches"] > 0, f"{k}: no launch on any main path")
         kernels.append(row)
     print(smi)

@@ -26,13 +26,15 @@
 // Design.  The TPU kernel builds a dense (rows, F*NB) basis with a one-hot
 // LUT matmul and runs the whole band through the MXU.  Only K+1 of the NB
 // basis entries of a (b, f) pair are non-zero, so here the band is gathered
-// directly.  The grid is (row tiles, column tiles of 128, feature
-// splits); a row tile is 64 rows unless a tuned plan says otherwise (see
-// "Row tile" below).  A block streams its split's features in chunks of kf (sized
-// from NB so that a chunk's weight rows fit a ~24 KB stage: 4 for the FFN's
-// NB = 11, 1 for KAN2's 71): for each chunk it copies the band's whole
-// weight rows W[f*NB .. (f+1)*NB) and wb[f] of its column tile, with the
-// chunk's codes (and raw inputs), into shared memory with cp.async, double
+// directly, by one of two loops that give the same bits (the gather and the
+// register loop, below).  The grid is (row tiles, column tiles of 128,
+// feature splits); a row tile is 64 rows unless a tuned plan says
+// otherwise (see "Row tile" below).  A block streams its split's features
+// in chunks of kf (sized from NB so that a chunk's weight rows fit a ~24 KB
+// stage: 4 for the FFN's NB = 11, 1 for KAN2's 71): for each chunk it
+// copies the band's whole weight rows W[f*NB .. (f+1)*NB) and wb[f] of its
+// column tile, with the chunk's codes (and raw inputs), into shared memory
+// with cp.async, double
 // buffered, so the copy (which does not depend on the data) streams while
 // the previous chunk is computed.  int4-packed rows are decoded while they
 // are staged, nibble times wscale with __fmul_rn as the unpacked bundle
@@ -50,20 +52,42 @@
 // against them, exact because off-band entries are 0, did 2.6x the FMAs
 // and measured slower at 1024 rows.)
 //
+// The register loop (G = 8: every KAN-FFN half) serves the larger calls.  A
+// warp reads a feature's NB = K+8 band rows of its lanes' columns into
+// registers once and runs its 8 rows against them.  A row takes one of 4
+// windows of K+2 band rows (starting at 0, 2, 4, 6) by a two-level branch
+// on g/2; g is the same in every lane of the warp (lanes differ only in
+// columns), so the branch never diverges.  The row's record holds the
+// window, the relu residual and the window's K+2 coefficients: g's K+1 LUT
+// values, g%2 rows in, and a zero.  A zero term leaves the sum as it is
+// (the sum starts at +0, so it is never -0, and the weights are finite),
+// so every output sums the gather's band terms in the gather's order.  Per
+// (row, feature) it reads 2 broadcast float4s of record and 11/8 float4s of
+// weights where the gather reads 6 float4s, for 24 FMAs instead of 20.  A
+// warp decodes its own rows' records, so a chunk takes one barrier, not
+// three, and the next row's record is read before a row's branch.  (Tried
+// on the card and dropped, all with the same bits: a leaf per g, by a
+// switch or a tree; 16 rows a warp; lanes that own rows, whose band reads
+// then hit up to 8 rows at once; the dense basis row.)
+//
 // Row tile.  kRowsB, the batch rows of one block, is a template argument:
 // 64 (the default, every untuned plan) or 16 or 32, picked by a tile tuner
 // through PipelinePlan.row_tile (the reference's tuned batch block bb,
-// clamped to 16..64).  It is the one knob of the schedule that changes no
-// bit: every output element still sums its features in order, chunk by
-// chunk (the chunk size kf depends on NB alone), and its K+1 band terms and
-// the residual in order, whatever the row tile; only the staging of codes
-// and raw inputs (2 * kRowsB * kf floats a stage) and the rows a warp owns
-// (kRowsB / 8) change.  A smaller tile gives more blocks (a small batch
-// fills more SMs) at the price of re-staging each weight row once per row
-// tile.  The reference's other tile sizes, bo and bf, keep their meaning
-// for padding and plan validation only and do not reach this kernel: its
-// column tile is 128 and its feature chunks and splits depend on the
-// layer's widths alone.
+// clamped to 16..64); the register loop runs at 64.  The row tile and the
+// loop are the knobs of the schedule that change no bit: every output
+// element still sums its features in order, chunk by chunk (the chunk size
+// kf depends on NB alone), and its K+1 band terms and the residual in
+// order, whatever the row tile; only the staging of codes and raw inputs
+// (2 * kRowsB * kf floats a stage) and the rows a warp owns (kRowsB / 8)
+// change.  The launch code (pipeline.b1_loop) takes the register loop for
+// G = 8 calls of 64 rows or more over 64 live columns or more, from the
+// card's times of both loops (chip_smoke.py's B1 loop rows, H100: the
+// gather is faster at 32 rows and below, the register loop from 64).  A
+// smaller tile gives more blocks (a small batch fills more SMs) at the
+// price of re-staging each weight row once per row tile.  The reference's
+// other tile sizes, bo and bf, keep their meaning for padding and plan
+// validation only and do not reach this kernel: its column tile is 128 and
+// its feature chunks and splits depend on the layer's widths alone.
 //
 // Feature splits.  The split count is a function of the layer's logical
 // (f, o) alone (pipeline.feature_split_plan): one split per 256 features,
@@ -83,11 +107,18 @@
 // halves (NB = 11, 288 MB of f32 weights) decode (8 rows) is bound by the
 // weight bytes, 0.094 ms at 3.35 TB/s, and a 1024-row prefill bucket by
 // the FMAs, 1.0 ms at 67 TFLOP/s; the KAN slice's layers at 65536 rows by
-// the padded bytes or the FFN stack's FMAs, 0.290 ms for all 8.  The band
-// gather costs one 16-byte shared-memory read per 4 FMAs, so at large
-// batch the shared-memory bandwidth (128 B per clock per SM) caps the MAC
-// near a quarter of the FMA peak.  Not yet used: int8 weight codes (a
-// quarter of the weight bytes) and tensor cores at prefill.
+// the padded bytes or the FFN stack's FMAs, 0.290 ms for all 8.  On the
+// H100 a warp's float4 read of shared memory takes about 2 SM clocks
+// broadcast and 3.5 otherwise, whatever else the addresses do, so the
+// count of reads per FMA binds the MAC.  At 8 rows the gather stays and
+// the weight bytes bind it (0.143 ms).  At 64 rows and more the register
+// loop reads 3.4 float4s and runs ~31 instructions, 24 of them FMAs, per
+// (row, feature): the instruction rate and shared-memory reads bind it
+// together, 3.90 ms for a 5120 x 1280 half at 1024 rows (26% of the FMA
+// bound) against the gather's 4.81 (21%), which 6 reads per 20 FMAs bind.
+// Not yet used: int8 weight codes (a quarter of the weight bytes) and
+// tensor cores at prefill (exact integer MMAs would outrun the f32 FMA
+// bound the benchmark counts B1's work against).
 //
 // Numerics.  The requantizer and lo + code*step are written with explicit
 // __fmul_rn/__fadd_rn so nvcc does not contract them into FMAs: the
@@ -106,6 +137,8 @@ constexpr int kRowsDefault = 64;  // batch rows per block, untuned
 constexpr int kMaxF = 8;       // features per chunk, at most
 constexpr int kStageBytes = 24 * 1024;  // weight rows of one chunk, about
 constexpr int kRec = 8;        // floats of one (row, feature) record
+constexpr int kRegsG = 8;      // the register loop's grid: NB = K + 8
+constexpr int kRegsWin = 4;    // its windows, of kRegsG / kRegsWin band starts
 
 struct LayerArgs {
   const int32_t* codes;   // (B, F)
@@ -121,7 +154,7 @@ struct LayerArgs {
   int32_t* codes_out;     // (B, O) or null: no requantizer
   float* ws;              // (splits, B, O) split partials, splits > 1 only
   int B, F, O, f_log, o_log, nb, ld;
-  int splits, fps, kf, vec;
+  int splits, fps, kf, vec, vec_codes;
   float lo, code_step, lut_scale;
   float nx_half_span, nx_mid, nx_lo, nx_scale;
   int nx_num_codes;
@@ -146,7 +179,9 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
+__host__ __device__ __forceinline__ constexpr int round4(int x) {
+  return (x + 3) & ~3;
+}
 
 // floats of one chunk's stage: kf*NB weight rows and kf wb rows of kCols,
 // then (rows, kf) codes and raw inputs
@@ -175,13 +210,39 @@ __device__ __forceinline__ void fma4(float v, const float4 w, float4& s) {
   s.w = fmaf(v, w.w, s.w);
 }
 
-template <bool kPackedW, int KK, int kRowsB>
+// The register loop's band: window kLo of kN, leaf by leaf.  Window wi
+// holds the band rows wi*kStep .. wi*kStep + kW - 1 of the registers w[],
+// the coefficients are h[2 ..]; the branches take the same side in every
+// lane of the warp.
+template <int kLo, int kN, int kStep, int kW, int N, int R>
+__device__ __forceinline__ void win_mac(int wi, const float4 (&w)[N],
+                                        const float (&h)[R], float4& s) {
+  if constexpr (kN == 1) {
+#pragma unroll
+    for (int j = 0; j < kW; ++j) fma4(h[2 + j], w[kLo * kStep + j], s);
+  } else {
+    constexpr int kHalf = kN / 2;
+    if (wi < kLo + kHalf)
+      win_mac<kLo, kHalf, kStep, kW>(wi, w, h, s);
+    else
+      win_mac<kLo + kHalf, kN - kHalf, kStep, kW>(wi, w, h, s);
+  }
+}
+
+// kRegs false: the gather loop; true: the register loop (G = 8)
+template <bool kPackedW, int KK, int kRowsB, bool kRegs>
 __global__ void __launch_bounds__(kThreads, 2) kan_layer_kernel(LayerArgs a) {
   constexpr int kRpw = kRowsB / kWarps;  // rows per warp
+  constexpr int kStep = kRegsG / kRegsWin;  // band starts of a window
+  constexpr int kW = kStep + KK - 1;        // band rows of a window
+  constexpr int kNbr = kRegsG + KK - 1;     // band rows of a feature
+  constexpr int kRecT = kRegs ? round4(2 + kW) : kRec;
   extern __shared__ __align__(16) float smem[];
-  // one record per (row, feature) of the chunk, read as two broadcast
-  // float4s: band start g (int bits), relu residual, K+1 <= 6 LUT values
-  __shared__ __align__(16) float s_rec[kRowsB][kMaxF][kRec];
+  // one record per (row, feature) of the chunk, read as broadcast float4s:
+  // the gather's band start g (int bits), relu residual and K+1 <= 6 LUT
+  // values; the register loop's window (int bits), relu residual and the
+  // window's kW coefficients
+  __shared__ __align__(16) float s_rec[kRowsB][kMaxF][kRecT];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b0 = blockIdx.x * kRowsB, col0 = blockIdx.y * kCols;
@@ -266,11 +327,50 @@ __global__ void __launch_bounds__(kThreads, 2) kan_layer_kernel(LayerArgs a) {
           swb[ff * kCols + cc] = 0.f;
       }
     }
+    if (kRegs && a.vec_codes && nf == kf && (f0 & 3) == 0) {
+      // 16-byte copies of 4 features of a row (kf % 4 == 0): 4% of the
+      // register loop's time at 1024 rows against 4-byte ones
+      const int kq = kf >> 2;
+      for (int i = tid; i < rows * kq; i += kThreads) {
+        const int r = i / kq, fi = (i % kq) * 4;
+        const long long at = (long long)(b0 + r) * a.F + f0 + fi;
+        cp_async16(scode + r * kf + fi, a.codes + at);
+        if (a.xraw != nullptr) cp_async16(sx + r * kf + fi, a.xraw + at);
+      }
+      return;
+    }
     for (int i = tid; i < rows * nf; i += kThreads) {
       const int r = i / nf, fi = i % nf;
       const long long at = (long long)(b0 + r) * a.F + f0 + fi;
       cp_async4(scode + r * kf + fi, a.codes + at);
       if (a.xraw != nullptr) cp_async4(sx + r * kf + fi, a.xraw + at);
+    }
+  };
+
+  // the (row r, feature fi) record of the chunk from its code: the gather's
+  // (g, relu, K+1 LUT values); the register loop's (window, relu, window
+  // coefficients: g's K+1 LUT values g % kStep rows in, zeros around them;
+  // a code past the grid, g = NB, leaves every coefficient 0)
+  auto decode = [&](const int* scode, const float* sx, int r, int fi) {
+    const int code = scode[r * kf + fi];
+    const unsigned gu = (unsigned)code >> a.ld;  // logical shift
+    const int local = code & (n_local - 1);
+    float* rec = s_rec[r][fi];
+    const int g = gu < (unsigned)nb ? (int)gu : nb;
+    const float x = a.xraw != nullptr
+                        ? sx[r * kf + fi]
+                        : __fadd_rn(a.lo, __fmul_rn((float)code, a.code_step));
+    rec[1] = fmaxf(x, 0.f);
+    if (kRegs) {
+      const int wi = min(g / kStep, kRegsWin - 1), sh = g - wi * kStep;
+      rec[0] = __int_as_float(wi);
+#pragma unroll
+      for (int j = 0; j < kW; ++j)
+        rec[2 + j] = j >= sh && j - sh < KK ? s_lut[local * KK + j - sh] : 0.f;
+    } else {
+      rec[0] = __int_as_float(g);
+#pragma unroll
+      for (int d = 0; d < KK; ++d) rec[2 + d] = s_lut[local * KK + d];
     }
   };
 
@@ -284,32 +384,71 @@ __global__ void __launch_bounds__(kThreads, 2) kan_layer_kernel(LayerArgs a) {
     stage(0, 0);
     cp_commit();
     for (int c = 0; c < n_chunks; ++c) {
-      if (c + 1 < n_chunks) stage(c + 1, (c + 1) & 1);
-      cp_commit();
-      cp_wait<1>();
-      __syncthreads();  // chunk c (and the LUT) visible to every thread
+      if (kRegs) {
+        cp_wait<0>();
+        // chunk c (and the LUT) visible to every thread, and every warp
+        // done with chunk c - 1, whose stage the copy of chunk c + 1 takes
+        __syncthreads();
+        if (c + 1 < n_chunks) stage(c + 1, (c + 1) & 1);
+        cp_commit();
+      } else {
+        if (c + 1 < n_chunks) stage(c + 1, (c + 1) & 1);
+        cp_commit();
+        cp_wait<1>();
+        __syncthreads();  // chunk c (and the LUT) visible to every thread
+      }
       const float* sw = s_stage + (c & 1) * st_floats;
       const float* swb = sw + kf * nb * kCols;
       const int* scode = (const int*)(swb + kf * kCols);
       const float* sx = (const float*)(scode + kRowsB * kf);
       const int nf = min(kf, f_end - (f_begin + c * kf));
-      for (int i = tid; i < rows * nf; i += kThreads) {
-        const int r = i / nf, fi = i % nf;
-        const int code = scode[r * kf + fi];
-        const unsigned gu = (unsigned)code >> a.ld;  // logical shift
-        const int local = code & (n_local - 1);
-        float* rec = s_rec[r][fi];
-        const int g = gu < (unsigned)nb ? (int)gu : nb;
-        const float x = a.xraw != nullptr
-                            ? sx[r * kf + fi]
-                            : __fadd_rn(a.lo, __fmul_rn((float)code, a.code_step));
-        rec[0] = __int_as_float(g);
-        rec[1] = fmaxf(x, 0.f);
-#pragma unroll
-        for (int d = 0; d < KK; ++d) rec[2 + d] = s_lut[local * KK + d];
+      if (kRegs) {
+        // a warp decodes the records of its own rows, warp + 8 ri
+        for (int i = lane; i < kRpw * nf; i += 32) {
+          const int r = warp + kWarps * (i / nf);
+          if (r < rows) decode(scode, sx, r, i % nf);
+        }
+        __syncwarp();
+      } else {
+        for (int i = tid; i < rows * nf; i += kThreads)
+          decode(scode, sx, i / nf, i % nf);
+        __syncthreads();
       }
-      __syncthreads();
-      if (c4 < ncols) {
+      if (kRegs && c4 < ncols) {
+        for (int fi = 0; fi < nf; ++fi) {
+          // the feature's NB band rows of the lane's 4 columns, read once
+          // for all the warp's rows
+          const float* wf = sw + fi * nb * kCols + c4;
+          float4 w[kNbr];
+#pragma unroll
+          for (int j = 0; j < kNbr; ++j)
+            w[j] = *reinterpret_cast<const float4*>(wf + j * kCols);
+          const float4 wbv =
+              *reinterpret_cast<const float4*>(swb + fi * kCols + c4);
+          // every row of the tile, also past `rows` (a stale record there
+          // only fills an accumulator that is never written out); the next
+          // row's record is read before this row's branch
+          auto load_rec = [&](int ri, float (&h)[kRecT]) {
+            const float* rp = s_rec[warp + kWarps * ri][fi];
+#pragma unroll
+            for (int q = 0; q < kRecT; q += 4)
+              *reinterpret_cast<float4*>(h + q) =
+                  *reinterpret_cast<const float4*>(rp + q);
+          };
+          float h[kRecT], hn[kRecT];
+          load_rec(0, h);
+#pragma unroll
+          for (int ri = 0; ri < kRpw; ++ri) {
+            if (ri + 1 < kRpw) load_rec(ri + 1, hn);
+            float4 s = acc[ri];
+            win_mac<0, kRegsWin, kStep, kW>(__float_as_int(h[0]), w, h, s);
+            fma4(h[1], wbv, s);
+            acc[ri] = s;
+#pragma unroll
+            for (int q = 0; q < kRecT; ++q) h[q] = hn[q];
+          }
+        }
+      } else if (c4 < ncols) {
         for (int fi = 0; fi < nf; ++fi) {
           const float4 wbv =
               *reinterpret_cast<const float4*>(swb + fi * kCols + c4);
@@ -344,7 +483,8 @@ __global__ void __launch_bounds__(kThreads, 2) kan_layer_kernel(LayerArgs a) {
           }
         }
       }
-      __syncthreads();  // this stage and the decode buffers are consumed
+      // the gather's stage and decode buffers are consumed
+      if (!kRegs) __syncthreads();
     }
     cp_wait<0>();
   }
@@ -382,22 +522,24 @@ __global__ void __launch_bounds__(kThreads) kan_layer_combine(LayerArgs a) {
   finish(a, i, yv);
 }
 
-template <bool kPackedW, int KK, int kRowsB>
+template <bool kPackedW, int KK, int kRowsB, bool kRegs>
 int launch_kk(const LayerArgs& a, cudaStream_t stream) {
+  if (kRegs && a.nb != kRegsG + KK - 1) return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * ((size_t)round4((1 << a.ld) * KK) +
                        2 * (size_t)stage_floats(a.kf, a.nb, kRowsB));
   static size_t attr = 0;  // per instance: the largest size set so far
   if (smem > attr) {       // static + dynamic over 48 KB needs the opt-in
     cudaError_t err = cudaFuncSetAttribute(
-        kan_layer_kernel<kPackedW, KK, kRowsB>,
+        kan_layer_kernel<kPackedW, KK, kRowsB, kRegs>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     attr = smem;
   }
   const dim3 grid((a.B + kRowsB - 1) / kRowsB, (a.O + kCols - 1) / kCols,
                   a.splits);
-  kan_layer_kernel<kPackedW, KK, kRowsB><<<grid, kThreads, smem, stream>>>(a);
+  kan_layer_kernel<kPackedW, KK, kRowsB, kRegs>
+      <<<grid, kThreads, smem, stream>>>(a);
   if (a.splits > 1) {
     const long long n = (long long)a.B * a.O;
     kan_layer_combine<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
@@ -406,29 +548,36 @@ int launch_kk(const LayerArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool kPackedW, int kRowsB>
+template <bool kPackedW, int kRowsB, bool kRegs>
 int launch(const LayerArgs& a, int kk, cudaStream_t stream) {
   switch (kk) {
-    case 2: return launch_kk<kPackedW, 2, kRowsB>(a, stream);
-    case 3: return launch_kk<kPackedW, 3, kRowsB>(a, stream);
-    case 4: return launch_kk<kPackedW, 4, kRowsB>(a, stream);
-    case 5: return launch_kk<kPackedW, 5, kRowsB>(a, stream);
-    case 6: return launch_kk<kPackedW, 6, kRowsB>(a, stream);
+    case 2: return launch_kk<kPackedW, 2, kRowsB, kRegs>(a, stream);
+    case 3: return launch_kk<kPackedW, 3, kRowsB, kRegs>(a, stream);
+    case 4: return launch_kk<kPackedW, 4, kRowsB, kRegs>(a, stream);
+    case 5: return launch_kk<kPackedW, 5, kRowsB, kRegs>(a, stream);
+    case 6: return launch_kk<kPackedW, 6, kRowsB, kRegs>(a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// loop 0: the gather at row tiles 16, 32, 64; loop 1: the register loop
+// at row tile 64
 template <bool kPackedW>
-int launch_rows(const LayerArgs& a, int kk, int rows, cudaStream_t stream) {
+int launch_rows(const LayerArgs& a, int kk, int rows, int loop,
+                cudaStream_t stream) {
+  if (loop == 1)
+    return rows == 64 ? launch<kPackedW, 64, true>(a, kk, stream)
+                      : (int)cudaErrorInvalidValue;
+  if (loop != 0) return (int)cudaErrorInvalidValue;
   switch (rows) {
-    case 16: return launch<kPackedW, 16>(a, kk, stream);
-    case 32: return launch<kPackedW, 32>(a, kk, stream);
-    case 64: return launch<kPackedW, 64>(a, kk, stream);
+    case 16: return launch<kPackedW, 16, false>(a, kk, stream);
+    case 32: return launch<kPackedW, 32, false>(a, kk, stream);
+    case 64: return launch<kPackedW, 64, false>(a, kk, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int run(LayerArgs& a, int kk, int rows, int device, void* stream) {
+int run(LayerArgs& a, int kk, int rows, int loop, int device, void* stream) {
   if (a.B <= 0 || a.O <= 0 || a.F <= 0) return 0;
   if (a.f_log < 0 || a.f_log > a.F || a.o_log < 0 || a.o_log > a.O ||
       a.splits < 1 || a.fps < 1 || (a.splits > 1 && a.ws == nullptr) ||
@@ -442,9 +591,11 @@ int run(LayerArgs& a, int kk, int rows, int device, void* stream) {
   a.kf = kf < 1 ? 1 : (kf > kMaxF ? kMaxF : kf);
   a.vec = a.wc != nullptr && a.O % 4 == 0 &&
           (uintptr_t)a.wc % 16 == 0 && (uintptr_t)a.wb % 16 == 0;
+  a.vec_codes = a.kf % 4 == 0 && a.F % 4 == 0 &&
+                (uintptr_t)a.codes % 16 == 0 && (uintptr_t)a.xraw % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
-  return a.wcp != nullptr ? launch_rows<true>(a, kk, rows, s)
-                           : launch_rows<false>(a, kk, rows, s);
+  return a.wcp != nullptr ? launch_rows<true>(a, kk, rows, loop, s)
+                           : launch_rows<false>(a, kk, rows, loop, s);
 }
 
 }  // namespace
@@ -455,24 +606,25 @@ extern "C" {
 // off: xraw (residual from codes), lut or lutp, wc or wcp+wscale, noise,
 // codes_out (last layer: no requantizer).  The band runs over f < f_log and
 // o < o_log; `splits` feature splits of `fps` features each (ws: (splits,
-// B, O) f32 when splits > 1, else null); `row_tile` batch rows per block
-// (16, 32 or 64).  Returns a cudaError_t value, checked after both
-// launches.
+// B, O) f32 when splits > 1, else null); `loop` the band loop (0 the
+// gather, 1 the register loop: G = 8 only) and `row_tile` its batch rows
+// per block (16, 32 or 64; 64).  Returns a cudaError_t value, checked after
+// both launches.
 int kan_pipeline_layer(const int32_t* codes, const float* xraw,
                        const float* lut, const int8_t* lutp, const float* wc,
                        const int8_t* wcp, const float* wscale, const float* wb,
                        const float* noise, float* y, int32_t* codes_out,
                        float* ws, int B, int F, int O, int f_log, int o_log,
                        int nb, int kk, int ld, int splits, int fps,
-                       int row_tile, float lo,
+                       int row_tile, int loop, float lo,
                        float code_step, float lut_scale, float nx_half_span,
                        float nx_mid, float nx_lo, float nx_scale,
                        int nx_num_codes, int device, void* stream) {
   LayerArgs a{codes, xraw, lut, lutp, wc, wcp, wscale, wb, noise, y,
               codes_out, ws, B, F, O, f_log, o_log, nb, ld, splits, fps, 0, 0,
-              lo, code_step, lut_scale, nx_half_span, nx_mid, nx_lo, nx_scale,
+              0, lo, code_step, lut_scale, nx_half_span, nx_mid, nx_lo, nx_scale,
               nx_num_codes};
-  return run(a, kk, row_tile, device, stream);
+  return run(a, kk, row_tile, loop, device, stream);
 }
 
 // B3: the single-layer kan_spline (unpacked weights, deq(codes) residual,
@@ -483,8 +635,8 @@ int kan_spline_fwd(const int32_t* codes, const float* lut, const float* wc,
                    float code_step, int device, void* stream) {
   LayerArgs a{codes, nullptr, lut, nullptr, wc, nullptr, nullptr, wb,
               nullptr, y, nullptr, ws, B, F, O, F, O, nb, ld, splits, fps, 0,
-              0, lo, code_step, 0.f, 0.f, 0.f, 0.f, 0.f, 0};
-  return run(a, kk, kRowsDefault, device, stream);
+              0, 0, lo, code_step, 0.f, 0.f, 0.f, 0.f, 0.f, 0};
+  return run(a, kk, kRowsDefault, 0, device, stream);
 }
 
 const char* kan_error_string(int err) {

@@ -12,7 +12,8 @@ every module without ``nvcc``.
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
 launches its kernel, and nowhere else.  ``kan_pipeline_layer.noise``
 counts the B1 launches among ``kan_pipeline_layer``'s that carried the
-partial-sum noise operand (the acim backend).
+partial-sum noise operand (the acim backend), ``kan_pipeline_layer.regs``
+those that ran B1's register loop (``pipeline.b1_loop``).
 """
 
 from __future__ import annotations
@@ -68,9 +69,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # codes xraw lut lutp wc wcp wscale wb noise y codes_out ws
-    # B F O f_log o_log nb kk ld splits fps row_tile | lo code_step
+    # B F O f_log o_log nb kk ld splits fps row_tile loop | lo code_step
     # lut_scale hs mid nx_lo nx_scale | nx_num_codes device stream
-    "kan_pipeline_layer": [_P] * 12 + [_I] * 11 + [_F] * 7 + [_I, _I, _P],
+    "kan_pipeline_layer": [_P] * 12 + [_I] * 12 + [_F] * 7 + [_I, _I, _P],
     # codes lut wc wb y ws | B F O nb kk ld splits fps | lo code_step |
     # device stream
     "kan_spline_fwd": [_P] * 6 + [_I] * 8 + [_F] * 2 + [_I, _P],

@@ -23,7 +23,10 @@ y = noise exactly and the requantized code of it).  A fourth holds what the
 row tile promises: :func:`check_b1_row_tiles` (the same bits at 16, 32 and
 64 rows per block).  A fifth holds what a model shard promises:
 :func:`check_b1_column_slabs` (each column slab of a layer, run at the
-whole layer's feature split, gives those columns' bits).
+whole layer's feature split, gives those columns' bits).  A sixth holds
+what B1's two band loops promise: :func:`check_b1_loops` (the register
+loop gives the gather's bits, each forced through the launch code's
+test-only entry ``pipeline._run_layer``).
 """
 
 from __future__ import annotations
@@ -44,9 +47,9 @@ __all__ = ["ATOL", "RTOL", "ORDERS", "B1_GEOMETRIES", "B1_FLAGS",
            "B1_FFN_PIXTRAL", "B1_FFN_DRAFT",
            "B1_FFN_PACKED", "FFN_FULL_TIE_EPS", "B3_SHAPES",
            "B1_ROW_TILE_CASES", "ROW_TILE_ROWS", "B1_COLUMN_SLAB_CASES",
-           "b1_case", "check_b1", "check_b1_rows_independent",
+           "B1_LOOP_CASES", "b1_case", "check_b1", "check_b1_rows_independent",
            "check_b1_padded_columns", "check_b1_row_tiles",
-           "check_b1_column_slabs", "check_b3"]
+           "check_b1_column_slabs", "check_b1_loops", "check_b3"]
 
 ATOL = RTOL = 1e-5
 # every spline order the kernel library has an instance for (K+1 = 2..6)
@@ -138,6 +141,28 @@ B1_COLUMN_SLAB_CASES = tuple(
     (8, f, o, (True, False, False, False, emit), rows, model)
     for f, o, emit in ((4608, 3456, True), (3456, 4608, False))
     for rows in (8, 1024) for model in (2, 4))
+# B1's register loop against its gather (G = 8): (name, f, o, flags, rows,
+# order).  Both full-width qwen2.5-14b halves with their serving flags at a
+# reason decode bucket, a ragged last tile and rag's prefill buckets; every
+# spline order of the kernel library (K+1 = 2..6) at a ragged 1000 rows;
+# int4-packed weights and SH-LUT with noise and the requantizer, and the
+# unpacked noisy half; one gemma2 half; both whisper halves, whose 256 ->
+# 512 half runs one feature split (every other case splits)
+B1_LOOP_CASES = (
+    tuple((f"ffn_{f}x{o}", f, o, (True, False, False, False, emit), rows, 3)
+          for f, o, emit in ((5120, 1280, True), (1280, 5120, False))
+          for rows in (256, 1000, 1024, 2048, 4096))
+    + tuple((f"order{k}", 5120, 1280, (True, False, False, False, True),
+             1000, k) for k in ORDERS)
+    + (("packed_noise", 5120, 1280, (True, True, True, True, True), 1000, 3),
+       ("packed_w", 1280, 5120, (True, True, False, False, False), 512, 3),
+       ("noise", 1280, 5120, (False, False, False, True, True), 333, 2),
+       ("gemma2_4608x3456", 4608, 3456, (True, False, False, False, True),
+        1024, 3),
+       ("whisper_512x256", 512, 256, (True, False, False, False, True),
+        8192, 3),
+       ("whisper_256x512", 256, 512, (True, False, False, False, False),
+        8192, 3)))
 # (b, f, o, grid): ragged shapes, then KAN1's two layers at full batch
 B3_SHAPES = ((33, 17, 14, 5), (1, 1, 1, 64), (130, 300, 200, 16),
              (7, 5, 3, 8), (65536, 17, 1, 5), (65536, 1, 14, 68))
@@ -254,15 +279,19 @@ def check_b1_padded_columns(dev, gen, grid: int = 5, bp: int = 512) -> dict:
 
 def check_b1_row_tiles(dev, gen, grid, f, o, flags, rows) -> dict:
     """B1 at row tiles 16 and 32 gives the bits of the default 64: y and
-    codes, on one set of operands (``flags`` as in :func:`b1_case`).
-    Returns ``{"rows", "tiles", "equal"}``; raises if any bit differs."""
+    codes, on one set of operands (``flags`` as in :func:`b1_case`), in the
+    gather loop, whose knob the row tile is (forced, also where the launch
+    code would take the register loop).  Returns ``{"rows", "tiles",
+    "equal"}``; raises if any bit differs."""
     lp, lw, _, codes, xraw, nz = b1_case(dev, gen, grid, f, o, flags, rows)
-    want_y, want_c = pl.run_pipeline_layer(codes, xraw, lw, lp, rows,
-                                           psum_noise=nz,
-                                           row_tile=pl.ROW_TILES[-1])
+
+    def gather(tile):
+        return pl._run_layer(codes, xraw, lw, lp, rows, nz, tile, None,
+                             "gather")
+
+    want_y, want_c = gather(pl.ROW_TILES[-1])
     for tile in pl.ROW_TILES[:-1]:
-        y, c = pl.run_pipeline_layer(codes, xraw, lw, lp, rows, psum_noise=nz,
-                                     row_tile=tile)
+        y, c = gather(tile)
         torch.cuda.synchronize()
         if not (torch.equal(y, want_y)
                 and (c is None or torch.equal(c, want_c))):
@@ -309,6 +338,36 @@ def check_b1_column_slabs(dev, gen, grid, f, o, flags, rows,
     return {"model": model, "splits": splits,
             "local_plan_splits": pl.feature_split_plan(local.f, local.o)[0],
             "equal": True}
+
+
+def check_b1_loops(dev, gen, f, o, flags, rows, order=3) -> dict:
+    """B1's register loop gives the bits of its gather loop at a G = 8
+    layer: y and codes, on one set of operands (``flags`` as in
+    :func:`b1_case`), each loop forced through the launch code's test-only
+    entry, and each launch counted once (the register loop's also under
+    ``kan_pipeline_layer.regs``).  Returns ``{"rows", "feature_splits",
+    "rule", "equal"}``, ``rule`` the loop :func:`pipeline.b1_loop` takes at
+    this shape; raises if any bit differs."""
+    lp, lw, _, codes, xraw, nz = b1_case(dev, gen, pl.REGS_GRID, f, o, flags,
+                                         rows, order)
+    splits = pl.feature_split_plan(lp.f, lp.o)[0]
+    case = (f, o, order, flags, rows)
+    before = cuda.launch_counts()
+    want_y, want_c = pl._run_layer(codes, xraw, lw, lp, rows, nz,
+                                   pl.ROW_TILES[-1], splits, "gather")
+    y, c = pl._run_layer(codes, xraw, lw, lp, rows, nz, pl.REGS_ROW_TILE,
+                         splits, "regs")
+    torch.cuda.synchronize()
+    after = cuda.launch_counts()
+    for key, n in (("kan_pipeline_layer", 2), ("kan_pipeline_layer.regs", 1)):
+        if after.get(key, 0) != before.get(key, 0) + n:
+            raise AssertionError(f"B1 loops {case}: {key} not counted {n}x")
+    if not (torch.equal(y, want_y) and (c is None or torch.equal(c, want_c))):
+        diff = (y - want_y).abs().max().item()
+        raise AssertionError(f"B1 loops {case}: the register loop differs "
+                             f"from the gather (max |dy| {diff:.3e})")
+    return {"rows": rows, "feature_splits": splits,
+            "rule": pl.b1_loop(rows, lp.o, lp.spec)[0], "equal": True}
 
 
 def check_b3(dev, gen, b, f, o, grid, order=3) -> float:

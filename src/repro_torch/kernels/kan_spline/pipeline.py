@@ -18,7 +18,9 @@ tile changes the schedule and no bit; the plain version ignores it.
 Kernel B1 (``csrc/kan_spline.cu::kan_pipeline_layer``) replaces
 ``repro/kernels/kan_spline/pipeline.py::_pipeline_layer_kernel``.
 :func:`run_pipeline_layer` launches it for CUDA tensors and takes the plain
-PyTorch version :func:`run_pipeline_layer_plain` only for CPU tensors.
+PyTorch version :func:`run_pipeline_layer_plain` only for CPU tensors.  The
+launch picks one of B1's two band loops by the call's shape
+(:func:`b1_loop`); both give the same bits.
 Both split the feature axis as :func:`feature_split_plan` says, a function
 of the layer's widths alone: each split sums its features, and the splits
 are added in order before the noise operand.
@@ -62,6 +64,9 @@ __all__ = [
     "FEATURES_PER_SPLIT",
     "feature_split_plan",
     "feature_split_bounds",
+    "B1_LOOPS",
+    "REGS_ROW_TILE",
+    "b1_loop",
     "run_pipeline_layer",
     "run_pipeline_layer_plain",
     "kan_pipeline_impl",
@@ -476,6 +481,33 @@ def feature_split_bounds(f: int, fp: int, splits: int) -> list:
     return bounds
 
 
+# Kernel B1's two band loops, the same bits either way (``csrc/
+# kan_spline.cu``, "Design").  "gather": every (row, feature) reads its K+1
+# band rows from shared memory.  "regs": a warp reads a feature's band rows
+# into registers once and runs its rows against them, at a 64-row tile, for
+# grids of REGS_GRID intervals only.  :func:`b1_loop` takes the register
+# loop from REGS_MIN_ROWS rows over REGS_MIN_COLS live columns, the
+# crossover of the card's times of both loops (``chip_smoke.py``'s B1 loop
+# rows, H100: the gather is faster at 32 rows, the register loop at 64).
+B1_LOOPS = ("gather", "regs")
+REGS_ROW_TILE = 64
+REGS_GRID = 8
+REGS_MIN_ROWS = 64
+REGS_MIN_COLS = 64
+
+
+def b1_loop(rows: int, o: int, spec: ASPQuantSpec) -> tuple:
+    """B1's band loop and row tile for a call of ``rows`` (padded) rows
+    over ``o`` logical output columns of grid ``spec``: ``("regs",
+    REGS_ROW_TILE)`` where the register loop is the faster, else
+    ``("gather", None)`` (the plan's row tile).  A function of the call's
+    shape alone; the live columns of a 128-column tile are ``min(o, 128)``."""
+    if (spec.grid_size == REGS_GRID and rows >= REGS_MIN_ROWS
+            and min(o, _BLOCK_COLS) >= REGS_MIN_COLS):
+        return "regs", REGS_ROW_TILE
+    return "gather", None
+
+
 def _requant_consts(lp: LayerPlan) -> tuple:
     """(half_span, mid, lo, 1/code_step, num_codes) of the next layer's
     input grid, each rounded to f32 as the reference's weak typing does."""
@@ -551,9 +583,12 @@ def run_pipeline_layer_plain(codes, xraw, lw: dict, lp: LayerPlan, bp: int,
 
 
 def _run_pipeline_layer_cuda(codes, xraw, lw, lp, bp, psum_noise, row_tile,
-                             splits):
+                             splits, loop=None):
     spec = lp.spec
     cuda.check_spec(spec)
+    if loop is None:
+        loop, tile = b1_loop(bp, lp.o, spec)
+        row_tile = tile or row_tile
     lib = cuda.library()
     dev = codes.device
     y = torch.empty((bp, lp.op), dtype=torch.float32, device=dev)
@@ -575,13 +610,16 @@ def _run_pipeline_layer_cuda(codes, xraw, lw, lp, bp, psum_noise, row_tile,
         cuda.ptr(lw["wb"]), cuda.ptr(psum_noise), cuda.ptr(y),
         cuda.ptr(codes_out), cuda.ptr(ws),
         bp, lp.fp, lp.op, lp.f, lp.o, spec.num_basis, spec.order + 1,
-        spec.ld, splits, fps, row_tile, f32(spec.lo), f32(spec.code_step), f32(lut_scale(spec)),
-        *nx, *cuda.stream_args(dev),
+        spec.ld, splits, fps, row_tile, B1_LOOPS.index(loop), f32(spec.lo),
+        f32(spec.code_step), f32(lut_scale(spec)), *nx,
+        *cuda.stream_args(dev),
     )
     cuda.check(status)
     cuda.LAUNCHES["kan_pipeline_layer"] += 1
     if psum_noise is not None:
         cuda.LAUNCHES["kan_pipeline_layer.noise"] += 1
+    if loop == "regs":
+        cuda.LAUNCHES["kan_pipeline_layer.regs"] += 1
     return y, codes_out
 
 
@@ -600,9 +638,25 @@ def run_pipeline_layer(codes, xraw, lw: dict, lp: LayerPlan, bp: int, *,
     its columns sums in the unsharded order.  Returns (y (bp, op) f32, next
     codes (bp, op) int32 or None on the last layer).
     """
+    return _run_layer(codes, xraw, lw, lp, bp, psum_noise, row_tile,
+                      feature_splits, None)
+
+
+def _run_layer(codes, xraw, lw, lp, bp, psum_noise, row_tile, feature_splits,
+               loop):
+    """:func:`run_pipeline_layer` with B1's band loop given (``loop`` one
+    of :data:`B1_LOOPS` at ``row_tile``) or, for None, chosen by
+    :func:`b1_loop`.  The card checks force each loop through here."""
     if feature_splits is None:
         feature_splits = feature_split_plan(lp.f, lp.o)[0]
-    if row_tile not in ROW_TILES:
+    if loop == "regs":
+        if row_tile != REGS_ROW_TILE or lp.spec.grid_size != REGS_GRID:
+            raise ValueError(f"B1's register loop runs G={REGS_GRID} at row "
+                             f"tile {REGS_ROW_TILE}, not G="
+                             f"{lp.spec.grid_size} at {row_tile}")
+    elif loop not in (None, "gather"):
+        raise ValueError(f"B1 loop {loop!r} not in {B1_LOOPS}")
+    elif row_tile not in ROW_TILES:
         raise ValueError(f"row tile {row_tile} not in {ROW_TILES}")
     tensors = [codes, xraw, psum_noise, *lw.values()]
     devices = {t.device for t in tensors if t is not None}
@@ -615,7 +669,7 @@ def run_pipeline_layer(codes, xraw, lw: dict, lp: LayerPlan, bp: int, *,
             xraw.contiguous() if lp.residual_raw else None,
             {k: v.contiguous() for k, v in lw.items()}, lp, bp,
             None if psum_noise is None else psum_noise.contiguous(),
-            row_tile, feature_splits,
+            row_tile, feature_splits, loop,
         )
     return run_pipeline_layer_plain(
         codes, xraw, lw, lp, bp, psum_noise=psum_noise,
