@@ -13,7 +13,8 @@ Phases (any failure exits non-zero):
      and, where the toolkit has ``cuobjdump``, count the tensor-core
      instructions (HMMA/HGMMA) of each kernel in the library's SASS (B2's
      bf16 instance must have some); ptxas must report no spill for B2's
-     D = 256 tensor-core instance (``flash_kernel_mma<256>``);
+     D = 256 tensor-core instance (``flash_kernel_mma<256>``) and for its
+     latent decode instance (``flash_kernel_mla<576, 512>``);
   3. each kernel against its plain PyTorch version on the card
      (``repro_torch.kernels.kan_spline.cardcheck``): B1 in every flag
      combination at the KAN1 / KAN2 / FFN layer geometries (packed and
@@ -253,7 +254,25 @@ Phases (any failure exits non-zero):
      host with no card visible, beside the card's work, each exiting 0,
      and ``scripts.top_ops`` over the decode cell's ops; no B1-B4 launch
      in the phase;
- 17. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
+ 17. Moonlight-16B-A3B's ``kan_variant()`` at full width (latent attention,
+     64 routed KAN experts top-6, 2 shared, one dense layer), 5 layers:
+     B1's grouped launch over 64 experts at its 2048 x 128 / 128 x 2048
+     halves (~24 and ~190 rows an expert, every fifth expert empty) bit
+     for bit against one launch per expert and, per segment, against the
+     plain version under phase 3's B1 gate; B2's latent decode instance
+     (``flash_kernel_mla``) against the plain recurrence at 256 slots,
+     a small batch, a verify step and a short cache, and timed (CUDA
+     events, L2-cold) over 256 caches of 1024..5500 rows beside its byte
+     bound and the "ref" backend's batched products over the whole
+     cache; then ``ServeEngine(kan_deploy=True)`` + ``Scheduler`` serve 4
+     requests (prompts of 5..2100 tokens, 16 new) with every launch count
+     zeroed just before the run: B2 once a layer a prefill (the expanded
+     MLA at D = 256), the latent instance once a layer a decode step, one
+     grouped B1 launch per half per MoE layer per step, B1 twice per
+     dense layer and shared experts per step; the served tokens
+     teacher-forced under the "ref" attention backend, their widest gap
+     within the benchmark check's 2.5;
+ 18. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
 
 A longer report goes to ``reports/chip_smoke_report.json`` (gitignored).
 """
@@ -5171,6 +5190,142 @@ def dryrun_cells(procs: dict, out_dir: Path) -> dict:
     return cells
 
 
+MOON_LAYERS = 5            # the dense layer and 4 MoE layers
+MOON_LENS = (5, 300, 1000, 2100)
+MOON_MAX_LEN = 4096
+MOON_GAP = 2.5             # bench/checks/moonlight-kanmoe-reason.json
+
+
+def mla_time_row(dev, gen) -> dict:
+    """B2's latent instance at the Moonlight cell's decode geometry: 256
+    slots of a 8192-row cache, lengths uniform in 1024..5500, L2-cold,
+    beside its byte bound (each admitted row once, q in, out f32) and the
+    "ref" backend's batched products (every cache row)."""
+    import torch
+
+    from repro_torch.kernels.attention import MLA_DIMS, mla_attention
+    from repro_torch.models import layers as L
+
+    b, t, h = 256, 8192, 16
+    dqk, dv = MLA_DIMS
+    q = torch.randn(b, 1, h, dqk, generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    ckv = torch.randn(b, t, dqk, generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    pos = torch.randint(1023, 5500, (b, 1), generator=gen, device=dev)
+    scale = (dqk - 64) ** -0.5
+
+    def ref():
+        sc = L._bmm_f32(q.reshape(b, h, dqk), ckv.transpose(1, 2)) * scale
+        mask = (torch.arange(t, device=dev)[None, None] <= pos[:, :, None])
+        pr = L._masked_softmax(sc, mask)
+        return L._bmm_f32(pr.to(ckv.dtype), ckv[..., :dv])
+
+    keys = int((pos + 1).sum())
+    nbytes = keys * dqk * 2 + b * h * (dqk * 2 + dv * 4)
+    ms = cold_ms(lambda: mla_attention(q, ckv, pos, dv=dv, scale=scale))
+    row = {"shape": "mla_decode_256", "B": b, "T": t, "keys": keys,
+           "cold_ms": ms, "ref_cold_ms": cold_ms(ref),
+           "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+    row["roofline_pct"] = 100.0 * row["bound_ms"] / ms
+    return row
+
+
+def phase_moonlight(dev, report) -> dict:
+    """Phase 17 (see the module docstring).  Returns the serving run's
+    launch counts by path."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import runtime
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import cardcheck as ac
+    from repro_torch.kernels.kan_spline import cardcheck as cc
+    from repro_torch.models.model import init_params
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    grouped = []
+    for name, f, o, emit, rows in cc.B1_GROUPED_CASES:
+        st = cc.check_b1_grouped(dev, gen, f, o, emit, rows)
+        require(st["equal"] and st["empty"] >= 12, f"grouped B1 {name}: {st}")
+        grouped.append({"case": name, **st})
+        print(f"  grouped B1 {name}: {st['rows']} rows, {st['empty']} empty "
+              f"experts, loop {st['rule']}; bits = a launch per expert; "
+              f"plain per segment max |dy| {st['max_abs_err']:.3e}, "
+              f"{st['excused']} excused codes")
+    mla = []
+    for case in ac.B2_MLA:
+        st = ac.check_mla(dev, gen, *case)
+        mla.append({"case": case[0], **st})
+        print(f"  B2 latent {case[0]}: max err {st['max_abs_err']:.3e} "
+              f"({st['max_err_over_tol']:.3f} of tol), {st['kv_splits']} "
+              f"KV splits")
+    timing = mla_time_row(dev, gen)
+    print(f"  B2 latent at 256 slots ({timing['keys']} cache rows): "
+          f"{timing['cold_ms']:.4f} ms cold, bound {timing['bound_ms']:.4f} "
+          f"ms ({timing['roofline_pct']:.1f}%), \"ref\" products over every "
+          f"row {timing['ref_cold_ms']:.4f} ms")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config("moonlight-16b-a3b").kan_variant(),
+                              num_layers=MOON_LAYERS)
+    n_moe = MOON_LAYERS - cfg.first_dense_layers
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(3, cfg.vocab_size, n).tolist() for n in MOON_LENS]
+    run = serve_once(params, cfg, prompts, dev, "contiguous",
+                     engine_kw={"max_len": MOON_MAX_LEN})
+    del params
+    pre, dec = run["prefill_calls"], run["decode_calls"]
+    calls = pre + dec
+    want = {"flash_attention": pre * MOON_LAYERS,
+            "flash_attention.mla": dec * MOON_LAYERS,
+            "kan_pipeline_layer": 2 * calls * MOON_LAYERS,
+            "kan_pipeline_layer.grouped": 2 * calls * n_moe}
+    require(by_kernel(run["launches"]) == want,
+            f"moonlight: launches {run['launches']} != {want} ({pre} prefill "
+            f"+ {dec} decode calls)")
+    require(all(v == "done" for v in run["status"].values())
+            and len(run["status"]) == len(MOON_LENS),
+            f"moonlight: requests not all served: {run['status']}")
+    eng = run.pop("engine")
+    gaps = []
+    with torch.no_grad(), runtime.use_attn_backend("ref"):
+        for rid, out in run["streams"].items():
+            seq = torch.tensor([prompts[rid] + out[:-1]], device=dev)
+            ref = forward_rows(eng.params, cfg, seq, len(prompts[rid]) - 1)
+            tok = torch.tensor(out, device=dev)
+            gaps.append(ref.max(dim=-1).values
+                        - ref.gather(1, tok[:, None])[:, 0])
+    gap = torch.cat(gaps)
+    st = {"prefill_calls": pre, "decode_calls": dec,
+          "launches": run["launches"], "steps": int(gap.numel()),
+          "worst_gap": gap.max().item(), "mean_gap": gap.mean().item(),
+          "ref_argmax_share": float((gap == 0).float().mean()),
+          "wall_s": run["wall_s"], "decode_ms": run["decode_ms"],
+          "peak_gib": run["peak_bytes"] / 2 ** 30}
+    require(bool(torch.isfinite(gap).all()) and st["worst_gap"] <= MOON_GAP,
+            f"moonlight: teacher-forced gaps {st}")
+    print(f"  moonlight {MOON_LAYERS} layers: {pre} prefill + {dec} decode "
+          f"calls, launches {by_kernel(run['launches'])}; {st['steps']} "
+          f"tokens, widest gap under \"ref\" attention {st['worst_gap']:.4f}, "
+          f"mean {st['mean_gap']:.3e}, {100 * st['ref_argmax_share']:.1f}% "
+          f"its argmax; decode ms median "
+          f"{float(np.median(run['decode_ms'])):.2f}, peak "
+          f"{st['peak_gib']:.2f} GiB")
+    report["moonlight"] = {"grouped": grouped, "mla": mla, "mla_time": timing,
+                           "serve": st}
+    del eng, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"moonlight_contiguous": st["launches"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -5205,6 +5360,10 @@ def main() -> int:
     # B2's D = 256 tensor-core instance: 128 f32 output registers a thread
     print("B2 flash_kernel_mma<256> (ptxas): "
           + require_no_spill(summary, "flash_kernel_mma<Li256E>"))
+    # the latent instance: 64 f32 output registers a thread and the score
+    # and probability fragments
+    print("B2 flash_kernel_mla<576, 512> (ptxas): "
+          + require_no_spill(summary, "flash_kernel_mla<Li576ELi512E>"))
     mma = sass_mma_counts(info["path"])
     if mma is None:
         print("SASS: no cuobjdump in this toolkit; tensor-core count not read")
@@ -5250,7 +5409,8 @@ def main() -> int:
     mesh_train = timed("14", phase_meshtrain, dev, report)
     by_path["examples"] = timed("15", phase_examples, dev, report)
     timed("16", phase_dryrun, dev, report)
-    print(f"[phases 3-16: {time.perf_counter() - t_all:.1f} s]")
+    by_path.update(timed("17", phase_moonlight, dev, report))
+    print(f"[phases 3-17: {time.perf_counter() - t_all:.1f} s]")
     # phase 10's, 11's and 12's B2 and B1 shapes join the kernel line's rows
     # (its B2 ms stays the sum over phase 7's three path shapes)
     for extra in (a7a, a7b, a7c):

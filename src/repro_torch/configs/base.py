@@ -53,6 +53,25 @@ class ModelConfig:
     num_experts_per_tok: int = 0
     moe_capacity_factor: float = 1.25
     moe_dispatch: str = "cumsum"       # cumsum|sort (see §Perf: E-regime dependent)
+    # DeepSeek-V3-style MoE (the port's own; the reference has none of it):
+    # expert width apart from d_ff, shared experts (one MLP of
+    # n * moe_d_ff), leading dense layers, and a sigmoid router whose
+    # selection bias steers which experts are picked but not their gates.
+    # Such a layer (``routed_moe``) drops no token (no capacity), and its
+    # kan_variant() replaces the experts too.
+    moe_d_ff: int = 0                  # 0 -> d_ff
+    num_shared_experts: int = 0
+    first_dense_layers: int = 0
+    router_bias: bool = False          # noaux_tc's e_score_correction_bias
+    router_norm_topk: bool = False     # gates = selected scores / their sum
+    routed_scaling: float = 1.0
+    # --- latent attention (MLA, DeepSeek-V2 §2.1; no q-LoRA): the cache
+    # holds kv_lora_rank latent values and one shared rotary key of
+    # qk_rope_head_dim per token; 0 -> GQA
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
     # --- ssm (mamba2)
     ssm_state: int = 0
     ssm_conv: int = 4
@@ -69,6 +88,8 @@ class ModelConfig:
                                        # one width per KANLinear half (mixed
                                        # precision; () -> uniform kan_n_bits)
     kan_d_hidden: int = 0              # 0 -> d_ff // (kan_grid + kan_order)
+    kan_expert_hidden: int = 0         # a routed expert's KAN hidden width
+    kan_shared_hidden: int = 0         # the shared experts' KAN hidden width
     # --- encoder-decoder (whisper)
     encoder_layers: int = 0
     enc_seq: int = 1500                # stub frame-embedding length (30 s)
@@ -100,12 +121,36 @@ class ModelConfig:
         EXPERIMENTS.md §Perf cell 3)."""
         g = grid if grid is not None else self.kan_grid
         nb = g + self.kan_order
-        hidden = max(128, -(-(self.d_ff // max(nb, 1)) // 128) * 128) \
-            if self.d_ff else 0
+
+        def hidden(width: int) -> int:
+            return max(128, -(-(width // max(nb, 1)) // 128) * 128) \
+                if width else 0
+
+        extra = {}
+        if self.routed_moe:
+            # each routed expert, and the shared experts as one MLP of
+            # num_shared_experts * moe_d_ff (as the published code has it)
+            extra = dict(
+                kan_expert_hidden=hidden(self.moe_d_ff),
+                kan_shared_hidden=hidden(self.num_shared_experts
+                                         * self.moe_d_ff))
         return dataclasses.replace(
             self, name=self.name + "-kanffn", ffn_kind="kan",
-            kan_grid=g, kan_d_hidden=hidden,
+            kan_grid=g, kan_d_hidden=hidden(self.d_ff), **extra,
         )
+
+    @property
+    def routed_moe(self) -> bool:
+        """A MoE routed as DeepSeek-V3's: sigmoid scores, dropless, with
+        shared experts or a selection bias (the reference package's MoE is
+        softmax top-k with a capacity)."""
+        return self.num_experts > 0 and (self.num_shared_experts > 0
+                                         or self.router_bias)
+
+    @property
+    def mla(self) -> bool:
+        """Latent attention (MLA) in place of GQA."""
+        return self.kv_lora_rank > 0
 
     @property
     def phys_heads(self) -> int:

@@ -106,6 +106,28 @@ OLMOE_1B_7B = ModelConfig(  # [arXiv:2409.02060]
     microbatch=16,  # peak 27.8 -> 11.9 GiB/dev (§Perf, with cumsum dispatch)
 )
 
+# --- served by the port only (the reference package has no MLA and no
+# DeepSeek-V3-style MoE, so these stay out of ARCHS, which mirrors its
+# registry) -------------------------------------------------------------------
+
+MOONLIGHT_16B_A3B = ModelConfig(  # [hf:moonshotai/Moonlight-16B-A3B]
+    # DeepseekV3ForCausalLM: MLA without q-LoRA (arXiv:2405.04434 §2.1),
+    # 64 routed experts top-6 under a sigmoid router with a selection bias
+    # (noaux_tc, n_group 1; arXiv:2412.19437 §2.1.2), 2 shared experts,
+    # one leading dense layer
+    name="moonlight-16b-a3b", family="moe",
+    num_layers=27, d_model=2048, num_heads=16, num_kv_heads=16,
+    head_dim=192, d_ff=11264, vocab_size=163840,
+    attn_pattern=("global",), rope_theta=50000.0, norm_eps=1e-5,
+    num_experts=64, num_experts_per_tok=6, moe_d_ff=1408,
+    num_shared_experts=2, first_dense_layers=1,
+    router_bias=True, router_norm_topk=True, routed_scaling=2.446,
+    kv_lora_rank=512, qk_nope_head_dim=128,
+    qk_rope_head_dim=64, v_head_dim=128,
+)
+
+PORT_ARCHS = {c.name: c for c in [MOONLIGHT_16B_A3B]}
+
 # --- vlm ---------------------------------------------------------------------
 
 PIXTRAL_12B = ModelConfig(  # [hf:mistralai/Pixtral-12B-2409]
@@ -134,9 +156,11 @@ ARCHS = {
 
 
 def get_config(name: str) -> ModelConfig:
+    """An assigned architecture, or one the port alone serves
+    (``PORT_ARCHS``); a ``-kanffn`` suffix gives its ``kan_variant()``."""
     if name.endswith("-kanffn"):
-        return ARCHS[name[: -len("-kanffn")]].kan_variant()
-    return ARCHS[name]
+        return get_config(name[: -len("-kanffn")]).kan_variant()
+    return ARCHS[name] if name in ARCHS else PORT_ARCHS[name]
 
 
 # ----------------------------------------------------------------------------
@@ -173,6 +197,15 @@ def smoke_config(name: str) -> ModelConfig:
         dtype="float32",
         remat=False,
     )
+    if cfg.mla:
+        upd.update(kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+                   v_head_dim=16, head_dim=24, num_kv_heads=4)
+    if cfg.num_shared_experts or cfg.first_dense_layers:
+        # one dense layer and two MoE layers; top-3 of 8 experts
+        upd.update(num_layers=cfg.first_dense_layers + 2, num_experts=8,
+                   num_experts_per_tok=3, moe_d_ff=32)
+        if cfg.ffn_kind == "kan" and cfg.routed_moe:
+            upd.update(kan_expert_hidden=8, kan_shared_hidden=16)
     return dataclasses.replace(cfg, **upd)
 
 

@@ -676,11 +676,251 @@ __global__ void __launch_bounds__(kTcWarps * 32)
   }
 }
 
+// The latent (MLA) decode instance: rows = (query, head) pairs of one
+// batch, all reading ONE latent KV head of DQK bf16 values a position (the
+// normed latent c, then the shared rotary key), whose first DV values are
+// also the value.  A block owns 16 rows (one m16 fragment, every head of
+// one decode query) and all 4 warps share them: per 32-key tile each warp
+// scores 8 keys over DQK, the row maxima and sums meet in shared memory,
+// the tile's probabilities go through shared memory (f32) to P.V, and each
+// warp accumulates DV / 4 of the output dims (P = hi + lo, as
+// flash_kernel_mma).  Every staged row is read once a block, and tiles
+// past the block's last query position are never loaded, so a slot's cache
+// is read up to its real length.  Keys are the cache's slot indices;
+// key t is admitted for a row at position qp when t <= qp and t < T.  The
+// output is f32.
+template <int DQK>
+struct MlaShape {
+  static constexpr int kRows = 16;
+  static constexpr int kKeys = 32;
+  static constexpr int kLd = DQK + 8;    // bf16 per staged row
+  static constexpr int kPLd = kKeys + 8;  // f32 per probability row
+  static constexpr size_t kBytes =
+      sizeof(bf16) * (size_t)(kRows * kLd + 2 * kKeys * kLd) +
+      sizeof(float) * (size_t)(kRows * kPLd + 2 * kTcWarps * kRows) +
+      sizeof(int) * kRows;
+};
+
+template <int DQK, int DV>
+__global__ void __launch_bounds__(kTcWarps * 32)
+    flash_kernel_mla(Args a) {
+  using Sh = MlaShape<DQK>;
+  constexpr int kRows = Sh::kRows, kKeys = Sh::kKeys, kLd = Sh::kLd;
+  constexpr int kPLd = Sh::kPLd;
+  constexpr int kChunks = DQK / 8;   // 16-byte chunks of one staged row
+  constexpr int kDW = DV / kTcWarps;  // output dims of one warp
+  constexpr int kDT = kDW / 8;        // its 8-dim output tiles
+  static_assert(DQK % 32 == 0 && kDW % 16 == 0 && kKeys == 8 * kTcWarps,
+                "a warp scores 8 keys and owns whole 16-dim slices");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // (kRows, kLd)
+  bf16* kv_s = q_s + kRows * kLd;                   // 2 x (kKeys, kLd)
+  float* p_s = reinterpret_cast<float*>(kv_s + 2 * kKeys * kLd);  // probs
+  float* mx_s = p_s + kRows * kPLd;                 // (warps, kRows) maxima
+  float* sm_s = mx_s + kTcWarps * kRows;            // (warps, kRows) sums
+  int* qp_s = reinterpret_cast<int*>(sm_s + kTcWarps * kRows);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int split = blockIdx.z % a.splits, b = blockIdx.z / a.splits;
+  const int row0 = blockIdx.x * kRows;
+  const int n_rows = a.S * a.G;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* kv = static_cast<const bf16*>(a.k);
+
+  for (int i = tid; i < kRows * kChunks; i += blockDim.x) {
+    const int r = i / kChunks, c = i % kChunks, row = row0 + r;
+    const bf16* src =
+        row < n_rows ? q + ((long long)b * n_rows + row) * DQK + c * 8 : q;
+    cp_async16(q_s + r * kLd + c * 8, src, row < n_rows);
+  }
+  if (tid < kRows) {
+    const int row = row0 + tid;
+    qp_s[tid] = row < n_rows ? a.qpos[(long long)b * a.S + row / a.G] : -1;
+  }
+  __syncthreads();
+  int qmax = -1;
+  for (int r = 0; r < kRows; ++r) qmax = max(qmax, qp_s[r]);
+
+  // the live tiles (keys 0 .. min(T, qmax + 1) - 1), cut into whole-tile
+  // runs, one a split
+  const int live_keys = min(a.T, qmax + 1);
+  const int n_tiles = live_keys > 0 ? (live_keys + kKeys - 1) / kKeys : 0;
+  const int per = (n_tiles + a.splits - 1) / a.splits;
+  const int t_begin = min(n_tiles, split * per);
+  const int t_end = min(n_tiles, t_begin + per);
+
+  auto load_tile = [&](int tile, int st) {
+    bf16* dst = kv_s + st * kKeys * kLd;
+    for (int i = tid; i < kKeys * kChunks; i += blockDim.x) {
+      const int j = i / kChunks, c = i % kChunks, t = tile * kKeys + j;
+      const long long off = t < a.T ? ((long long)b * a.T + t) * DQK + c * 8
+                                    : 0;
+      cp_async16(dst + j * kLd + c * 8, kv + off, t < a.T);
+    }
+  };
+
+  // this thread's fragment rows lr and lr + 8, its keys 2 * (lane & 3) +
+  // {0, 1} of its warp's 8
+  const int lr = lane >> 2, kq = 2 * (lane & 3);
+  const int qp[2] = {qp_s[lr], qp_s[lr + 8]};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[kDT][4];
+#pragma unroll
+  for (int dt = 0; dt < kDT; ++dt)
+    o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+
+  int cur = t_begin;
+  if (cur < t_end) load_tile(cur, 0);
+  cp_commit();  // Q and the first tile
+  int st = 0;
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float scale2 = a.scale * kLog2e;
+  while (cur < t_end) {
+    if (cur + 1 < t_end) load_tile(cur + 1, st ^ 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const bf16* ks = kv_s + st * kKeys * kLd;
+
+    // S = Q K^T: 16 rows x this warp's 8 keys, two k-steps a round
+    float s4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 6
+    for (int kk = 0; kk < DQK / 16; kk += 2) {
+      uint32_t a0[4], a1[4], bf[4];
+      const bf16* qa =
+          q_s + ((lane & 7) + ((lane >> 3) & 1) * 8) * kLd + kk * 16 +
+          (lane >> 4) * 8;
+      ldsm_x4(a0, qa);
+      ldsm_x4(a1, qa + 16);
+      ldsm_x4(bf, ks + (warp * 8 + (lane & 7)) * kLd + kk * 16 +
+                      ((lane >> 3) & 1) * 8 + (lane >> 4) * 16);
+      mma_bf16(s4, a0, bf[0], bf[1]);
+      mma_bf16(s4, a1, bf[2], bf[3]);
+    }
+
+    // scale and mask (element e: row half e >> 1, key kq + (e & 1)), the
+    // warp's row maxima to shared memory
+    const int t0 = cur * kKeys + warp * 8 + kq;
+    bool ok[4];
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = t0 + (e & 1);
+      ok[e] = t < a.T && t <= qp[e >> 1];
+      s4[e] = ok[e] ? s4[e] * scale2 : kNegInf;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s4[e]);
+    }
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+    if ((lane & 3) == 0) {
+      mx_s[warp * kRows + lr] = mx[0];
+      mx_s[warp * kRows + lr + 8] = mx[1];
+    }
+    __syncthreads();
+
+    // the tile's maxima over every warp (the same in each), the
+    // probabilities to shared memory, the warp's row sums
+    float alpha[2], sum[2];
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      float tm = kNegInf;
+#pragma unroll
+      for (int w = 0; w < kTcWarps; ++w)
+        tm = fmaxf(tm, mx_s[w * kRows + lr + 8 * rh]);
+      const float m_new = fmaxf(m[rh], tm);
+      alpha[rh] = exp2f(m[rh] - m_new);
+      m[rh] = m_new;
+      // masked lanes exactly 0, never exp(-1e30 - m)
+      const float p0 = ok[2 * rh] ? exp2f(s4[2 * rh] - m_new) : 0.f;
+      const float p1 = ok[2 * rh + 1] ? exp2f(s4[2 * rh + 1] - m_new) : 0.f;
+      *reinterpret_cast<float2*>(p_s + (lr + 8 * rh) * kPLd + warp * 8 + kq) =
+          make_float2(p0, p1);
+      sum[rh] = quad_sum(p0 + p1);
+    }
+    if ((lane & 3) == 0) {
+      sm_s[warp * kRows + lr] = sum[0];
+      sm_s[warp * kRows + lr + 8] = sum[1];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      float ts = 0.f;
+#pragma unroll
+      for (int w = 0; w < kTcWarps; ++w) ts += sm_s[w * kRows + lr + 8 * rh];
+      l[rh] = l[rh] * alpha[rh] + ts;
+    }
+#pragma unroll
+    for (int dt = 0; dt < kDT; ++dt) {
+      o[dt][0] *= alpha[0];
+      o[dt][1] *= alpha[0];
+      o[dt][2] *= alpha[1];
+      o[dt][3] *= alpha[1];
+    }
+
+    // O += P V over this warp's kDW dims, P = hi + lo
+#pragma unroll
+    for (int j2 = 0; j2 < kKeys / 16; ++j2) {
+      const float* pr = p_s + lr * kPLd + j2 * 16 + kq;
+      const float2 x0 = *reinterpret_cast<const float2*>(pr);
+      const float2 x1 = *reinterpret_cast<const float2*>(pr + 8 * kPLd);
+      const float2 x2 = *reinterpret_cast<const float2*>(pr + 8);
+      const float2 x3 = *reinterpret_cast<const float2*>(pr + 8 * kPLd + 8);
+      uint32_t hi[4], lo[4];
+      split_hi_lo(x0.x, x0.y, hi[0], lo[0]);
+      split_hi_lo(x1.x, x1.y, hi[1], lo[1]);
+      split_hi_lo(x2.x, x2.y, hi[2], lo[2]);
+      split_hi_lo(x3.x, x3.y, hi[3], lo[3]);
+#pragma unroll
+      for (int dp = 0; dp < kDW / 16; ++dp) {
+        uint32_t bf[4];
+        ldsm_x4_t(bf, ks + (j2 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                               kLd + warp * kDW + dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], hi, bf[0], bf[1]);
+        mma_bf16(o[2 * dp], lo, bf[0], bf[1]);
+        mma_bf16(o[2 * dp + 1], hi, bf[2], bf[3]);
+        mma_bf16(o[2 * dp + 1], lo, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // this stage, the maxima, sums and probabilities are
+                      // read before the next tile writes them
+    st ^= 1;
+    ++cur;
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int row = row0 + lr + 8 * rh;
+    if (row >= n_rows) continue;
+    if (a.splits == 1) {
+      float* out = static_cast<float*>(a.out) +
+                   ((long long)b * n_rows + row) * DV + warp * kDW;
+#pragma unroll
+      for (int dt = 0; dt < kDT; ++dt) {
+        const float x0 = l[rh] > 0.f ? o[dt][2 * rh] / l[rh] : 0.f;
+        const float x1 = l[rh] > 0.f ? o[dt][2 * rh + 1] / l[rh] : 0.f;
+        *reinterpret_cast<float2*>(out + dt * 8 + kq) = make_float2(x0, x1);
+      }
+    } else {
+      const long long at = ((long long)split * a.B + b) * n_rows + row;
+#pragma unroll
+      for (int dt = 0; dt < kDT; ++dt)
+        *reinterpret_cast<float2*>(a.ws_o + at * DV + warp * kDW + dt * 8 +
+                                   kq) =
+            make_float2(o[dt][2 * rh], o[dt][2 * rh + 1]);
+      if (warp == 0 && (lane & 3) == 0) {
+        a.ws_ml[at * 2] = m[rh];
+        a.ws_ml[at * 2 + 1] = l[rh];
+      }
+    }
+  }
+}
+
 // Merge the KV splits of each (b, h, row) in split order; one thread per
 // output dim.  m is in the log2 domain, as flash_kernel_mma keeps it.  A
 // split with l = 0 (every key masked) gets weight 0 even when its m equals
 // the maximum (both -1e30).
-template <int D>
+template <int D, typename TO = bf16>
 __global__ void __launch_bounds__(D) flash_kernel_combine(Args a) {
   const int row = blockIdx.x, h = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
   const int n_rows = a.S * a.G;
@@ -698,9 +938,9 @@ __global__ void __launch_bounds__(D) flash_kernel_combine(Args a) {
     acc = __fadd_rn(acc, __fmul_rn(a.ws_o[i * D + d], w));
   }
   const int s_ = row / a.G, g_ = row % a.G;
-  bf16* out = static_cast<bf16*>(a.out) +
-              (((long long)b * a.S + s_) * a.Hkv * a.G + h * a.G + g_) * D;
-  out[d] = __float2bfloat16(lsum > 0.f ? acc / fmaxf(lsum, 1e-30f) : 0.f);
+  TO* out = static_cast<TO*>(a.out) +
+            (((long long)b * a.S + s_) * a.Hkv * a.G + h * a.G + g_) * D;
+  store(out + d, lsum > 0.f ? acc / fmaxf(lsum, 1e-30f) : 0.f);
 }
 
 template <int D>
@@ -719,6 +959,28 @@ int launch_mma(const Args& a, cudaStream_t stream) {
   flash_kernel_mma<D><<<grid, kTcWarps * 32, smem, stream>>>(a);
   if (a.splits > 1) {
     flash_kernel_combine<D><<<dim3(n_rows, a.Hkv, a.B), D, 0, stream>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int DQK, int DV>
+int launch_mla(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = MlaShape<DQK>::kBytes;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_kernel_mla<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const int n_rows = a.S * a.G;
+  constexpr int kRows = MlaShape<DQK>::kRows;
+  const dim3 grid((n_rows + kRows - 1) / kRows, 1, a.B * a.splits);
+  flash_kernel_mla<DQK, DV><<<grid, kTcWarps * 32, smem, stream>>>(a);
+  if (a.splits > 1) {
+    flash_kernel_combine<DV, float><<<dim3(n_rows, 1, a.B), DV, 0, stream>>>(
+        a);
   }
   return (int)cudaGetLastError();
 }
@@ -790,6 +1052,28 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
     return dispatch<__nv_bfloat16>(a, D, s);
   }
   return dispatch<float>(a, D, s);
+}
+
+// B2's latent (MLA) decode instance: q (B, S, H, dqk) bf16, one latent KV
+// head ckv (B, T, dqk) bf16 whose first dv values are the value, qpos (B,
+// S) int32; key t admitted where t <= qpos and t < T; out (B, S, H, dv)
+// f32.  Only dqk = 576, dv = 512 (kv_lora_rank 512 + qk_rope_head_dim
+// 64).  splits as flash_attention_fwd (ws_o (splits, B, S*H, dv), ws_ml
+// (splits, B, S*H, 2)).  Returns a cudaError_t value.
+int flash_attention_mla_fwd(const void* q, const void* ckv,
+                            const int32_t* qpos, float* out, float* ws_o,
+                            float* ws_ml, int B, int S, int T, int H, int dqk,
+                            int dv, int splits, float scale, int device,
+                            void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0) return 0;
+  if (dqk != 576 || dv != 512 || splits < 1 ||
+      (splits > 1 && (ws_o == nullptr || ws_ml == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Args a{q, ckv, nullptr, qpos, nullptr, out, ws_o, ws_ml, B, S, T, 1, H,
+         kCausal, 0, splits, 0.f, scale};
+  return launch_mla<576, 512>(a, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -120,6 +120,20 @@
 // tensor cores at prefill (exact integer MMAs would outrun the f32 FMA
 // bound the benchmark counts B1's work against).
 //
+// Grouped launch.  A MoE layer's KAN experts are E networks of one
+// geometry, each with its own weights and SH-LUT, stacked on a leading axis
+// (w_stride, wb_stride, lut_stride floats apart).  Their rows come sorted by
+// expert, expert e's rows at seg[e] .. seg[e+1] (seg on the device, E + 1
+// ints; a segment may be empty).  One launch covers them all: the grid's
+// row axis holds an upper bound on the segments' row tiles, (B + E*(R-1))
+// / R, and a block finds its segment and tile by walking seg (E <= a few
+// hundred reads, from L1); blocks past the last tile exit at once.  A tile
+// never spans two segments, so it stages one expert's weights.  A row's
+// band, splits and requantizer are those of its expert's own launch, so
+// its bits are too.  The split merge runs over all B rows as before.  Only
+// unpacked weights (8-bit) at K = 3 take this path; its instances are their
+// own, so the single-network instances are compiled as before.
+//
 // Numerics.  The requantizer and lo + code*step are written with explicit
 // __fmul_rn/__fadd_rn so nvcc does not contract them into FMAs: the
 // reference rounds each product and sum.  The split merge adds with
@@ -158,6 +172,9 @@ struct LayerArgs {
   float lo, code_step, lut_scale;
   float nx_half_span, nx_mid, nx_lo, nx_scale;
   int nx_num_codes;
+  const int32_t* seg;     // (n_seg + 1) row offsets: a grouped launch only
+  int n_seg;
+  long long w_stride, wb_stride, lut_stride;  // floats between experts
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -229,8 +246,9 @@ __device__ __forceinline__ void win_mac(int wi, const float4 (&w)[N],
   }
 }
 
-// kRegs false: the gather loop; true: the register loop (G = 8)
-template <bool kPackedW, int KK, int kRowsB, bool kRegs>
+// kRegs false: the gather loop; true: the register loop (G = 8); kGrouped:
+// the rows come in segments, one network each (see "Grouped launch")
+template <bool kPackedW, int KK, int kRowsB, bool kRegs, bool kGrouped>
 __global__ void __launch_bounds__(kThreads, 2) kan_layer_kernel(LayerArgs a) {
   constexpr int kRpw = kRowsB / kWarps;  // rows per warp
   constexpr int kStep = kRegsG / kRegsWin;  // band starts of a window
@@ -245,10 +263,28 @@ __global__ void __launch_bounds__(kThreads, 2) kan_layer_kernel(LayerArgs a) {
   __shared__ __align__(16) float s_rec[kRowsB][kMaxF][kRecT];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b0 = blockIdx.x * kRowsB, col0 = blockIdx.y * kCols;
+  int b0 = blockIdx.x * kRowsB, b_end = a.B;
+  const float* wc = a.wc;
+  const float* wb = a.wb;
+  const float* lut = a.lut;
+  if constexpr (kGrouped) {
+    int t = blockIdx.x, e = 0;
+    for (; e < a.n_seg; ++e) {
+      const int nt = (a.seg[e + 1] - a.seg[e] + kRowsB - 1) / kRowsB;
+      if (t < nt) break;
+      t -= nt;
+    }
+    if (e == a.n_seg) return;  // past the last tile: the whole block
+    b0 = a.seg[e] + t * kRowsB;
+    b_end = a.seg[e + 1];
+    wc += e * a.w_stride;
+    wb += e * a.wb_stride;
+    lut += e * a.lut_stride;
+  }
+  const int col0 = blockIdx.y * kCols;
   const int split = blockIdx.z;
   const int n_local = 1 << a.ld, nb = a.nb, kf = a.kf;
-  const int rows = min(kRowsB, a.B - b0);
+  const int rows = min(kRowsB, b_end - b0);
   const int ncols = min(kCols, a.o_log - col0);  // <= 0: padded tile
   const int ncols4 = round4(ncols);
   const int f_begin = split * a.fps;
@@ -266,7 +302,7 @@ __global__ void __launch_bounds__(kThreads, 2) kan_layer_kernel(LayerArgs a) {
       const int nib = (d & 1) ? ((p >> 4) & 0xF) : (p & 0xF);
       v = __fmul_rn((float)nib, a.lut_scale);
     } else {
-      v = a.lut[i];
+      v = lut[i];
     }
     s_lut[i] = v;
   }
@@ -297,7 +333,7 @@ __global__ void __launch_bounds__(kThreads, 2) kan_layer_kernel(LayerArgs a) {
       for (int i = tid; i < nf * ncols4; i += kThreads) {
         const int ff = i / ncols4, cc = i % ncols4;
         swb[ff * kCols + cc] =
-            cc < ncols ? a.wb[(long long)(f0 + ff) * a.O + col0 + cc] : 0.f;
+            cc < ncols ? wb[(long long)(f0 + ff) * a.O + col0 + cc] : 0.f;
       }
     } else if (a.vec) {  // 16-byte copies: O % 4 == 0, rows 16-byte aligned
       // a warp per weight row, a lane per 4 columns
@@ -305,16 +341,16 @@ __global__ void __launch_bounds__(kThreads, 2) kan_layer_kernel(LayerArgs a) {
       if (cc < ncols4) {
         for (int rr = warp; rr < nrow; rr += kWarps)
           cp_async16(sw + rr * kCols + cc,
-                     a.wc + (wrow0 + rr) * a.O + col0 + cc);
+                     wc + (wrow0 + rr) * a.O + col0 + cc);
         for (int ff = warp; ff < nf; ff += kWarps)
           cp_async16(swb + ff * kCols + cc,
-                     a.wb + (long long)(f0 + ff) * a.O + col0 + cc);
+                     wb + (long long)(f0 + ff) * a.O + col0 + cc);
       }
     } else {
       for (int i = tid; i < nrow * ncols4; i += kThreads) {
         const int rr = i / ncols4, cc = i % ncols4;
         if (cc < ncols)
-          cp_async4(sw + rr * kCols + cc, a.wc + (wrow0 + rr) * a.O + col0 + cc);
+          cp_async4(sw + rr * kCols + cc, wc + (wrow0 + rr) * a.O + col0 + cc);
         else
           sw[rr * kCols + cc] = 0.f;
       }
@@ -322,7 +358,7 @@ __global__ void __launch_bounds__(kThreads, 2) kan_layer_kernel(LayerArgs a) {
         const int ff = i / ncols4, cc = i % ncols4;
         if (cc < ncols)
           cp_async4(swb + ff * kCols + cc,
-                    a.wb + (long long)(f0 + ff) * a.O + col0 + cc);
+                    wb + (long long)(f0 + ff) * a.O + col0 + cc);
         else
           swb[ff * kCols + cc] = 0.f;
       }
@@ -522,7 +558,7 @@ __global__ void __launch_bounds__(kThreads) kan_layer_combine(LayerArgs a) {
   finish(a, i, yv);
 }
 
-template <bool kPackedW, int KK, int kRowsB, bool kRegs>
+template <bool kPackedW, int KK, int kRowsB, bool kRegs, bool kGrouped>
 int launch_kk(const LayerArgs& a, cudaStream_t stream) {
   if (kRegs && a.nb != kRegsG + KK - 1) return (int)cudaErrorInvalidValue;
   const size_t smem =
@@ -531,14 +567,17 @@ int launch_kk(const LayerArgs& a, cudaStream_t stream) {
   static size_t attr = 0;  // per instance: the largest size set so far
   if (smem > attr) {       // static + dynamic over 48 KB needs the opt-in
     cudaError_t err = cudaFuncSetAttribute(
-        kan_layer_kernel<kPackedW, KK, kRowsB, kRegs>,
+        kan_layer_kernel<kPackedW, KK, kRowsB, kRegs, kGrouped>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     attr = smem;
   }
-  const dim3 grid((a.B + kRowsB - 1) / kRowsB, (a.O + kCols - 1) / kCols,
-                  a.splits);
-  kan_layer_kernel<kPackedW, KK, kRowsB, kRegs>
+  // a grouped launch: an upper bound on the segments' row tiles
+  const long long tiles =
+      kGrouped ? ((long long)a.B + (long long)a.n_seg * (kRowsB - 1)) / kRowsB
+               : (a.B + kRowsB - 1) / kRowsB;
+  const dim3 grid((unsigned)tiles, (a.O + kCols - 1) / kCols, a.splits);
+  kan_layer_kernel<kPackedW, KK, kRowsB, kRegs, kGrouped>
       <<<grid, kThreads, smem, stream>>>(a);
   if (a.splits > 1) {
     const long long n = (long long)a.B * a.O;
@@ -548,31 +587,36 @@ int launch_kk(const LayerArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool kPackedW, int kRowsB, bool kRegs>
+template <bool kPackedW, int kRowsB, bool kRegs, bool kGrouped>
 int launch(const LayerArgs& a, int kk, cudaStream_t stream) {
-  switch (kk) {
-    case 2: return launch_kk<kPackedW, 2, kRowsB, kRegs>(a, stream);
-    case 3: return launch_kk<kPackedW, 3, kRowsB, kRegs>(a, stream);
-    case 4: return launch_kk<kPackedW, 4, kRowsB, kRegs>(a, stream);
-    case 5: return launch_kk<kPackedW, 5, kRowsB, kRegs>(a, stream);
-    case 6: return launch_kk<kPackedW, 6, kRowsB, kRegs>(a, stream);
-    default: return (int)cudaErrorInvalidValue;
+  if constexpr (kGrouped) {  // the KAN-FFNs' cubic splines only
+    return kk == 4 ? launch_kk<kPackedW, 4, kRowsB, kRegs, true>(a, stream)
+                   : (int)cudaErrorInvalidValue;
+  } else {
+    switch (kk) {
+      case 2: return launch_kk<kPackedW, 2, kRowsB, kRegs, false>(a, stream);
+      case 3: return launch_kk<kPackedW, 3, kRowsB, kRegs, false>(a, stream);
+      case 4: return launch_kk<kPackedW, 4, kRowsB, kRegs, false>(a, stream);
+      case 5: return launch_kk<kPackedW, 5, kRowsB, kRegs, false>(a, stream);
+      case 6: return launch_kk<kPackedW, 6, kRowsB, kRegs, false>(a, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
 }
 
 // loop 0: the gather at row tiles 16, 32, 64; loop 1: the register loop
 // at row tile 64
-template <bool kPackedW>
+template <bool kPackedW, bool kGrouped = false>
 int launch_rows(const LayerArgs& a, int kk, int rows, int loop,
                 cudaStream_t stream) {
   if (loop == 1)
-    return rows == 64 ? launch<kPackedW, 64, true>(a, kk, stream)
+    return rows == 64 ? launch<kPackedW, 64, true, kGrouped>(a, kk, stream)
                       : (int)cudaErrorInvalidValue;
   if (loop != 0) return (int)cudaErrorInvalidValue;
   switch (rows) {
-    case 16: return launch<kPackedW, 16, false>(a, kk, stream);
-    case 32: return launch<kPackedW, 32, false>(a, kk, stream);
-    case 64: return launch<kPackedW, 64, false>(a, kk, stream);
+    case 16: return launch<kPackedW, 16, false, kGrouped>(a, kk, stream);
+    case 32: return launch<kPackedW, 32, false, kGrouped>(a, kk, stream);
+    case 64: return launch<kPackedW, 64, false, kGrouped>(a, kk, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -594,6 +638,10 @@ int run(LayerArgs& a, int kk, int rows, int loop, int device, void* stream) {
   a.vec_codes = a.kf % 4 == 0 && a.F % 4 == 0 &&
                 (uintptr_t)a.codes % 16 == 0 && (uintptr_t)a.xraw % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
+  if (a.seg != nullptr)  // grouped: unpacked weights only
+    return a.wcp == nullptr && a.n_seg > 0
+               ? launch_rows<false, true>(a, kk, rows, loop, s)
+               : (int)cudaErrorInvalidValue;
   return a.wcp != nullptr ? launch_rows<true>(a, kk, rows, loop, s)
                            : launch_rows<false>(a, kk, rows, loop, s);
 }
@@ -624,6 +672,31 @@ int kan_pipeline_layer(const int32_t* codes, const float* xraw,
               codes_out, ws, B, F, O, f_log, o_log, nb, ld, splits, fps, 0, 0,
               0, lo, code_step, lut_scale, nx_half_span, nx_mid, nx_lo, nx_scale,
               nx_num_codes};
+  return run(a, kk, row_tile, loop, device, stream);
+}
+
+// B1 over E networks of one geometry (a MoE layer's KAN experts): rows
+// sorted by network, network e's at seg[e] .. seg[e+1] (seg: n_seg + 1
+// int32 on the device); lut (n_seg, 2^LD, KK), wc (n_seg, F*NB, O) and wb
+// (n_seg, F, O) stacked; unpacked weights, K = 3 (KK = 4), no noise
+// operand.  The other arguments as kan_pipeline_layer's.
+int kan_pipeline_layer_grouped(const int32_t* codes, const float* xraw,
+                               const float* lut, const float* wc,
+                               const float* wb, float* y, int32_t* codes_out,
+                               float* ws, const int32_t* seg, int B, int F,
+                               int O, int f_log, int o_log, int nb, int kk,
+                               int ld, int splits, int fps, int row_tile,
+                               int loop, int n_seg, float lo, float code_step,
+                               float nx_half_span, float nx_mid, float nx_lo,
+                               float nx_scale, int nx_num_codes, int device,
+                               void* stream) {
+  LayerArgs a{codes, xraw, lut, nullptr, wc, nullptr, nullptr, wb, nullptr,
+              y, codes_out, ws, B, F, O, f_log, o_log, nb, ld, splits, fps,
+              0, 0, 0, lo, code_step, 0.f, nx_half_span, nx_mid, nx_lo,
+              nx_scale, nx_num_codes, seg, n_seg,
+              (long long)F * nb * O, (long long)F * O,
+              (long long)(1 << ld) * kk};
+  if (seg == nullptr) return (int)cudaErrorInvalidValue;
   return run(a, kk, row_tile, loop, device, stream);
 }
 

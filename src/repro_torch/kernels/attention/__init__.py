@@ -8,15 +8,19 @@ against it on the card.
 
 from .ops import (
     KINDS,
+    MLA_DIMS,
     MMA_HEAD_DIMS,
     NEG_INF,
     SUPPORTED_HEAD_DIMS,
     b2_instance,
     call_kv_splits,
     flash_attention,
+    mla_attention,
+    mla_split_count,
 )
 from .ref import flash_attention_plain, kv_split_count, mma_block_k
 
-__all__ = ["KINDS", "MMA_HEAD_DIMS", "NEG_INF", "SUPPORTED_HEAD_DIMS",
-           "b2_instance", "call_kv_splits", "flash_attention",
-           "flash_attention_plain", "kv_split_count", "mma_block_k"]
+__all__ = ["KINDS", "MLA_DIMS", "MMA_HEAD_DIMS", "NEG_INF",
+           "SUPPORTED_HEAD_DIMS", "b2_instance", "call_kv_splits",
+           "flash_attention", "flash_attention_plain", "kv_split_count",
+           "mla_attention", "mla_split_count", "mma_block_k"]

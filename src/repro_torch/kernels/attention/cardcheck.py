@@ -36,6 +36,17 @@ keys, softcap 50, rings whose slot positions are not monotone);
 the ring decode with its KV axis split); ``B2_A7C`` at
 whisper-base's encoder and cross attention and pixtral-12b's prefill over
 its patch prefix, with a "full" case of more queries than keys.
+
+``B2_MLA`` and :func:`check_mla` hold the latent (MLA) decode instance
+(:func:`.ops.mla_attention`, 16 heads over one 576-value latent head whose
+first 512 values are the value) against the same plain recurrence with
+that one head as K and V: within ``F32_TOL + F32_TOL * |plain|`` plus
+2^-15 of max |value| (the kernel keeps each probability as hi + lo bf16,
+about 2^-17 of it, and returns f32), at Moonlight's decode geometry (256
+slots, random lengths up to a cache of 4096, the KV axis split two ways),
+a small batch whose KV axis splits many ways, a verify step (S = 3) and a
+cache shorter than one tile, each counted once in
+``cuda.LAUNCHES["flash_attention.mla"]``.
 """
 
 from __future__ import annotations
@@ -45,7 +56,8 @@ import itertools
 import torch
 
 from .. import cuda
-from .ops import b2_instance, call_kv_splits, flash_attention
+from .ops import (MLA_DIMS, b2_instance, call_kv_splits, flash_attention,
+                  mla_attention, mla_split_count)
 from .ref import flash_attention_plain
 
 __all__ = ["F32_TOL", "DTYPES", "KINDS", "GQA", "HEAD_DIMS", "B2_CASES",
@@ -53,7 +65,8 @@ __all__ = ["F32_TOL", "DTYPES", "KINDS", "GQA", "HEAD_DIMS", "B2_CASES",
            "B2_RING_A7B", "B2_A7C", "RING_POS",
            "PATH_SHAPES", "bf16_ulp", "b2_inputs", "path_inputs",
            "ring_inputs", "window_excluded_pairs", "check_b2",
-           "check_b2_case", "check_b2_path", "check_b2_ring"]
+           "check_b2_case", "check_b2_path", "check_b2_ring", "B2_MLA",
+           "check_mla"]
 
 F32_TOL = 2e-5
 DTYPES = (torch.float32, torch.bfloat16)
@@ -165,6 +178,9 @@ B2_A7C = (
     ("full_s_gt_t", dict(dtype=torch.bfloat16, kind="full", hq=8, hkv=8,
                          d=64, b=2, s=100, t=60)),
 )
+# the latent instance's cases: (name, B, S, T); positions drawn per slot
+B2_MLA = (("mla_decode_256", 256, 1, 4096), ("mla_decode_3", 3, 1, 1000),
+          ("mla_verify", 2, 3, 1000), ("mla_short", 2, 1, 20))
 # the slots' positions: wrapped (non-monotone kpos) at 4215, 4300 and
 # 8191, and one slot short of the window (its upper slots never written)
 RING_POS = (4215, 4300, 8191, 100)
@@ -334,3 +350,45 @@ def check_b2_path(dev, name: str, b: int, s: int, t: int, kind: str):
     ops = path_inputs(dev, name, b, s, t)
     return _compare((name, b, s, t), *ops, None, kind=kind, window=0,
                     softcap=0.0), ops
+
+
+def check_mla(dev, gen, name: str, b: int, s: int, t: int) -> dict:
+    """One latent-instance case (see the module docstring): q (B, S, 16,
+    576) and a cache (B, T, 576) in bf16 from ``gen``, each slot's last
+    query at a random position below T (slot 0 at 0: one admitted key),
+    kernel against plain; returns ``{"max_abs_err", "max_err_over_tol",
+    "kv_splits", "keys"}`` (``keys``: the admitted cache rows, each slot's
+    length)."""
+    dqk, dv = MLA_DIMS
+    h = 16
+    q = torch.randn(b, s, h, dqk, generator=gen, device=dev).to(torch.bfloat16)
+    ckv = torch.randn(b, t, dqk, generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    last = torch.randint(s - 1, t, (b,), generator=gen, device=dev)
+    last[0] = s - 1
+    qpos = (last[:, None] - (s - 1) + torch.arange(s, device=dev)) \
+        .to(torch.int32)
+    scale = (dqk - 64) ** -0.5
+    before = cuda.launch_counts().get("flash_attention.mla", 0)
+    out = mla_attention(q, ckv, qpos, dv=dv, scale=scale)
+    if cuda.launch_counts()["flash_attention.mla"] != before + 1:
+        raise AssertionError(f"B2 {name}: launch not counted once")
+    kv = ckv[:, :, None]
+    kpos = torch.arange(t, dtype=torch.int32, device=dev).expand(b, t)
+    plain = flash_attention_plain(q, kv, kv, qpos, kpos, kind="causal",
+                                  window=0, softcap=0.0, scale=scale,
+                                  out_dtype=torch.float32)[..., :dv]
+    torch.cuda.synchronize()
+    if out.dtype != torch.float32 or out.shape != (b, s, h, dv):
+        raise AssertionError(f"B2 {name}: out {out.dtype} "
+                             f"{tuple(out.shape)}")
+    err = (out - plain).abs()
+    tol = (F32_TOL + F32_TOL * plain.abs()
+           + 2.0 ** -15 * ckv[..., :dv].float().abs().max())
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"B2 {name}: max err {err.max().item():.3e}, "
+                             f"worst err/tol {(err / tol).max().item():.3f}")
+    return {"max_abs_err": err.max().item(),
+            "max_err_over_tol": (err / tol).max().item(),
+            "kv_splits": mla_split_count(b, s, h, t),
+            "keys": int((last + 1).sum().item())}

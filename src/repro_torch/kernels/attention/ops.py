@@ -20,6 +20,14 @@ blocks when the call's shapes leave the card under-filled
 and the one C call launches the split kernel and the merge.  The plain
 version on CPU tensors takes the same split count, so both sides run one
 recurrence.
+
+:func:`mla_attention` is B2's latent instance (``flash_kernel_mla``), the
+absorbed decode of latent attention (MLA): every query head attends over
+ONE latent KV head of the cache (the normed latent, then the shared
+rotary key), whose first ``dv`` values are also the value.  It reads each
+cached row once a block, up to the block's last query position, and
+returns f32.  Its plain version is :func:`.ref.flash_attention_plain`
+with that one head as K and V.
 """
 
 from __future__ import annotations
@@ -29,10 +37,11 @@ import math
 import torch
 
 from .. import cuda
-from .ref import NEG_INF, flash_attention_plain, kv_split_count
+from .ref import NEG_INF, _cdiv, flash_attention_plain, kv_split_count
 
-__all__ = ["KINDS", "MMA_HEAD_DIMS", "NEG_INF", "SUPPORTED_HEAD_DIMS",
-           "b2_instance", "call_kv_splits", "flash_attention"]
+__all__ = ["KINDS", "MLA_DIMS", "MMA_HEAD_DIMS", "NEG_INF",
+           "SUPPORTED_HEAD_DIMS", "b2_instance", "call_kv_splits",
+           "flash_attention", "mla_attention", "mla_split_count"]
 
 KINDS = ("causal", "local", "full")
 _KIND_CODE = {"causal": 0, "local": 1, "full": 2}
@@ -42,6 +51,11 @@ SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
 # CUDA-core instance, which never splits the KV axis)
 MMA_HEAD_DIMS = (64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
+# (q . k dims, value dims) of the latent instance: kv_lora_rank 512 plus
+# qk_rope_head_dim 64, and the latent as the value
+MLA_DIMS = (576, 512)
+MLA_ROWS = 16  # (query, head) rows of one block of the latent instance
+MLA_KEYS = 32  # keys of one staged tile of the latent instance
 
 
 def b2_instance(d: int, dtype) -> str:
@@ -161,4 +175,61 @@ def _flash_attention_cuda(q, k, v, qpos, kpos, kind, window, softcap, scale):
     )
     cuda.check(status)
     cuda.LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def mla_split_count(b: int, s: int, h: int, t: int) -> int:
+    """KV splits of a latent-instance call: 1 when its ``B * ceil(S*H/16)``
+    blocks fill the card, else enough to (at most one per 32-key tile of
+    the cache).  A function of the call's shapes alone; each block cuts
+    its own live tiles (those up to its last query position) into that
+    many runs."""
+    blocks = b * _cdiv(s * h, MLA_ROWS)
+    tiles = _cdiv(t, MLA_KEYS)
+    if blocks <= 0 or blocks >= cuda.FILL_BLOCKS or tiles <= 1:
+        return 1
+    return min(_cdiv(cuda.FILL_BLOCKS, blocks), tiles)
+
+
+def mla_attention(q, ckv, qpos, *, dv: int, scale: float) -> torch.Tensor:
+    """Attention of q (B, S, H, Dqk) over one latent KV head ``ckv`` (B, T,
+    Dqk), whose first ``dv`` values are the value: cache slot t is admitted
+    for a query at position qpos (B, S) when t <= qpos.  Returns (B, S, H,
+    dv) f32.  CUDA tensors (bf16, (Dqk, dv) = :data:`MLA_DIMS`) launch
+    ``flash_kernel_mla``; CPU tensors take the plain version."""
+    b, s, h, dqk = q.shape
+    t = ckv.shape[1]
+    if tuple(ckv.shape) != (b, t, dqk) or not 0 < dv <= dqk:
+        raise ValueError(f"ckv {tuple(ckv.shape)} / dv {dv} do not fit q "
+                         f"{tuple(q.shape)}")
+    qpos = _positions(qpos, b, s, t - s, q.device)
+    if not q.is_cuda:
+        kv = ckv[:, :, None]
+        kpos = torch.arange(t, dtype=torch.int32, device=q.device)[None]
+        out = flash_attention_plain(
+            q, kv, kv, qpos, kpos.expand(b, t), kind="causal", window=0,
+            softcap=0.0, scale=float(scale), out_dtype=torch.float32)
+        return out[..., :dv]
+    if (dqk, dv) != MLA_DIMS or q.dtype != torch.bfloat16 \
+            or ckv.dtype != torch.bfloat16 or ckv.device != q.device:
+        raise ValueError(f"the latent instance takes bf16 q and ckv at "
+                         f"{MLA_DIMS}, got {q.dtype} / {ckv.dtype} at "
+                         f"({dqk}, {dv})")
+    q, ckv, qpos = _aligned(q), _aligned(ckv), qpos.contiguous()
+    out = torch.empty((b, s, h, dv), dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return out
+    splits = mla_split_count(b, s, h, t)
+    ws_o = ws_ml = None
+    if splits > 1:
+        ws_o = torch.empty((splits, b, s * h, dv), dtype=torch.float32,
+                           device=q.device)
+        ws_ml = torch.empty((splits, b, s * h, 2), dtype=torch.float32,
+                            device=q.device)
+    status = cuda.library().flash_attention_mla_fwd(
+        cuda.ptr(q), cuda.ptr(ckv), cuda.ptr(qpos), cuda.ptr(out),
+        cuda.ptr(ws_o), cuda.ptr(ws_ml), b, s, t, h, dqk, dv, splits,
+        float(scale), *cuda.stream_args(q.device))
+    cuda.check(status)
+    cuda.LAUNCHES["flash_attention.mla"] += 1
     return out

@@ -14,6 +14,8 @@ launches its kernel, and nowhere else.  ``kan_pipeline_layer.noise``
 counts the B1 launches among ``kan_pipeline_layer``'s that carried the
 partial-sum noise operand (the acim backend), ``kan_pipeline_layer.regs``
 those that ran B1's register loop (``pipeline.b1_loop``).
+``kan_pipeline_layer.grouped`` counts B1's grouped launches (one layer of a
+MoE layer's KAN experts).
 """
 
 from __future__ import annotations
@@ -72,12 +74,20 @@ _SIGNATURES = {
     # B F O f_log o_log nb kk ld splits fps row_tile loop | lo code_step
     # lut_scale hs mid nx_lo nx_scale | nx_num_codes device stream
     "kan_pipeline_layer": [_P] * 12 + [_I] * 12 + [_F] * 7 + [_I, _I, _P],
+    # codes xraw lut wc wb y codes_out ws seg | B F O f_log o_log nb kk ld
+    # splits fps row_tile loop n_seg | lo code_step hs mid nx_lo nx_scale |
+    # nx_num_codes device stream
+    "kan_pipeline_layer_grouped": [_P] * 9 + [_I] * 13 + [_F] * 6
+    + [_I, _I, _P],
     # codes lut wc wb y ws | B F O nb kk ld splits fps | lo code_step |
     # device stream
     "kan_spline_fwd": [_P] * 6 + [_I] * 8 + [_F] * 2 + [_I, _P],
     # q k v qpos kpos out ws_o ws_ml | B S T Hkv G D bf16 kind window
     # splits | softcap scale | device stream
     "flash_attention_fwd": [_P] * 8 + [_I] * 10 + [_F] * 2 + [_I, _P],
+    # q ckv qpos out ws_o ws_ml | B S T H dqk dv splits | scale | device
+    # stream
+    "flash_attention_mla_fwd": [_P] * 6 + [_I] * 7 + [_F] + [_I, _P],
     # x w load fs out ws | B Rt R C tile_rows chunks | ir_scale comp_scale
     # | adc_bits | device stream
     "cim_mac_fwd": [_P] * 6 + [_I] * 6 + [_F] * 2 + [_I, _I, _P],

@@ -370,6 +370,92 @@ def check_b1_loops(dev, gen, f, o, flags, rows, order=3) -> dict:
             "rule": pl.b1_loop(rows, lp.o, lp.spec)[0], "equal": True}
 
 
+# B1's grouped launch at a MoE layer's KAN experts (moonlight-16b-a3b's
+# kan_variant(): 2048 -> 128 -> 2048 at G = 8): (name, f, o, emit, mean
+# rows an expert): decode's ~24 rows (256 tokens x 6 / 64 experts) and a
+# prefill's ~190 (2048 x 6 / 64)
+B1_GROUPED_CASES = tuple(
+    (f"{f}x{o}_{r}", f, o, emit, r)
+    for f, o, emit in ((2048, 128, True), (128, 2048, False))
+    for r in (24, 190))
+
+
+def check_b1_grouped(dev, gen, f, o, emit, mean_rows, experts=64) -> dict:
+    """B1's grouped launch over ``experts`` networks of one geometry gives
+    the bits, y and codes, of one B1 launch per network on its own rows
+    (whose loop follows its own row count), with empty segments (every
+    fifth expert) and segment sizes drawn around ``mean_rows``; and each
+    segment agrees with the plain version under :func:`check_b1`'s gate,
+    whose excuse window for the codes is the y tolerance times the
+    requantizer's steepest slope (at 2048 features a code 1e-4 from a tie
+    moves with a few f32 ulps of y).
+    Returns ``{"rows", "rule", "empty", "equal", "max_abs_err",
+    "excused"}`` (the last two: against the plain version); raises where a
+    bit differs or the gate fails."""
+    spec = ASPQuantSpec(grid_size=8, order=3)
+    dims = (f, o, 3) if emit else (f, o)
+    lp = pl.make_pipeline_plan(8, dims, (spec,) * (len(dims) - 1),
+                               residual_raw=True).layers[0]
+    sizes = torch.randint(1, 2 * mean_rows, (experts,), generator=gen,
+                          device=dev)
+    sizes[::5] = 0
+    seg = torch.zeros(experts + 1, dtype=torch.int32, device=dev)
+    seg[1:] = torch.cumsum(sizes, 0)
+    n = int(seg[-1])
+    layers = []
+    for _ in range(experts):
+        _, lw, _, _, _, _ = b1_case(dev, gen, 8, f, o,
+                                    (True, False, False, False, emit), 8)
+        layers.append(lw)
+    stacked = {k: torch.stack([lw[k] for lw in layers])
+               for k in ("lut", "wc", "wb")}
+    codes = torch.randint(0, spec.num_codes, (n, lp.fp), generator=gen,
+                          device=dev, dtype=torch.int32)
+    xraw = torch.randn(n, lp.fp, generator=gen, device=dev)
+    before = cuda.launch_counts().get("kan_pipeline_layer.grouped", 0)
+    y, c = pl.run_pipeline_layer_grouped(codes, xraw, stacked, lp, seg)
+    if (dev.type == "cuda" and cuda.launch_counts()[
+            "kan_pipeline_layer.grouped"] != before + 1):
+        raise AssertionError("grouped B1: launch not counted once")
+    bounds = seg.tolist()
+    splits = pl.feature_split_plan(lp.f, lp.o)[0]
+    err, excused = 0.0, 0
+    for e in range(experts):
+        lo, hi = bounds[e], bounds[e + 1]
+        if hi == lo:
+            continue
+        ye, ce = pl.run_pipeline_layer(codes[lo:hi], xraw[lo:hi], layers[e],
+                                       lp, hi - lo)
+        if not (torch.equal(ye, y[lo:hi])
+                and (ce is None or torch.equal(ce, c[lo:hi]))):
+            diff = (ye - y[lo:hi]).abs().max().item()
+            raise AssertionError(f"grouped B1 {f}x{o}: expert {e} differs "
+                                 f"from its own launch (max |dy| {diff:.3e})")
+        py, pc = pl.run_pipeline_layer_plain(codes[lo:hi], xraw[lo:hi],
+                                             layers[e], lp, hi - lo,
+                                             feature_splits=splits)
+        if c is None:
+            d = (y[lo:hi] - py).abs()
+            if not bool((d <= ATOL + RTOL * py.abs()).all()):
+                raise AssertionError(f"grouped B1 {f}x{o}: expert {e}: max "
+                                     f"err {d.max().item()} against plain")
+            err = max(err, d.max().item())
+        else:
+            # a code may round the other way wherever the y gate's own
+            # slack, times the requantizer's steepest slope, reaches a tie
+            nxt = lp.next_spec
+            eps = (ATOL + RTOL * py.abs().max().item()) \
+                * 0.5 * (nxt.hi - nxt.lo) / nxt.code_step
+            st = parity.compare_runs(
+                [c[lo:hi]], [pc], [parity.requant_preround(py, nxt)],
+                y[lo:hi], py, atol=ATOL, rtol=RTOL, eps=max(eps, 1e-4))
+            err = max(err, st["max_abs_err"])
+            excused += st["excused"]
+    return {"rows": n, "empty": int((sizes == 0).sum()),
+            "rule": pl.grouped_b1_loop(n, experts, lp.o, spec)[0],
+            "equal": True, "max_abs_err": err, "excused": excused}
+
+
 def check_b3(dev, gen, b, f, o, grid, order=3) -> float:
     """One B3 case, kernel against plain; returns the max abs error."""
     spec = ASPQuantSpec(grid_size=grid, order=order)

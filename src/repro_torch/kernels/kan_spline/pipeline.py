@@ -24,6 +24,12 @@ launch picks one of B1's two band loops by the call's shape
 Both split the feature axis as :func:`feature_split_plan` says, a function
 of the layer's widths alone: each split sums its features, and the splits
 are added in order before the noise operand.
+
+:func:`run_pipeline_layer_grouped` runs one layer of E networks of one
+geometry (a MoE layer's KAN experts) over rows sorted by network in one B1
+launch: each row tile lies in one segment and reads its own network's
+weights, and the segment offsets stay on the device.  A row's bits are
+those of the same row in its network's own launch.
 """
 
 from __future__ import annotations
@@ -69,6 +75,8 @@ __all__ = [
     "b1_loop",
     "run_pipeline_layer",
     "run_pipeline_layer_plain",
+    "grouped_b1_loop",
+    "run_pipeline_layer_grouped",
     "kan_pipeline_impl",
 ]
 
@@ -674,6 +682,108 @@ def _run_layer(codes, xraw, lw, lp, bp, psum_noise, row_tile, feature_splits,
     return run_pipeline_layer_plain(
         codes, xraw, lw, lp, bp, psum_noise=psum_noise,
         feature_splits=feature_splits)
+
+
+def grouped_b1_loop(rows: int, segments: int, o: int,
+                    spec: ASPQuantSpec) -> tuple:
+    """B1's band loop and row tile of a grouped launch of ``rows`` rows over
+    ``segments`` networks, by the mean rows a segment (the rule is applied
+    per launch): :func:`b1_loop`'s choice at that mean, and for the gather
+    the smallest of :data:`ROW_TILES` that holds the mean (fewer idle rows
+    in each segment's last tile)."""
+    mean = -(-rows // max(segments, 1))
+    loop, tile = b1_loop(_round_up(mean, 8), o, spec)
+    if loop == "regs":
+        return loop, tile
+    return loop, min([t for t in ROW_TILES if t >= mean] or [ROW_TILES[-1]])
+
+
+def _check_grouped(codes, xraw, lw, lp, seg) -> int:
+    e = seg.shape[0] - 1
+    n = codes.shape[0]
+    nb = lp.spec.num_basis
+    if "wcp" in lw or "lutp" in lw or lp.spec.order != 3:
+        raise ValueError("grouped B1 takes unpacked weights (bits > 4) of "
+                         "cubic splines (K = 3)")
+    want = {"codes": (codes, (n, lp.fp), torch.int32),
+            "lut": (lw["lut"], (e, lp.spec.codes_per_interval,
+                                lp.spec.order + 1), torch.float32),
+            "wc": (lw["wc"], (e, lp.fp * nb, lp.op), torch.float32),
+            "wb": (lw["wb"], (e, lp.fp, lp.op), torch.float32),
+            "seg": (seg, (e + 1,), torch.int32)}
+    if lp.residual_raw:
+        want["xraw"] = (xraw, (n, lp.fp), torch.float32)
+    for name, (t, shape, dtype) in want.items():
+        if (tuple(t.shape) != shape or t.dtype != dtype
+                or t.device != codes.device):
+            raise ValueError(f"{name}: got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}, want {shape} {dtype} on "
+                             f"{codes.device}")
+    return e
+
+
+def run_pipeline_layer_grouped(codes, xraw, lw: dict, lp: LayerPlan, seg):
+    """One fused layer of E networks over rows sorted by network.
+
+    codes (N, fp) int32 and xraw (N, fp) f32 (``residual_raw``): network
+    e's rows are ``seg[e]:seg[e+1]`` (``seg`` (E+1,) int32 on the device,
+    ``seg[E] == N``; a segment may be empty); ``lw``: the layer's deployed
+    weights of every network stacked on a leading axis, {"lut" (E, 2**LD,
+    K+1), "wc" (E, fp*NB, op), "wb" (E, fp, op)}.  On the card one B1
+    launch (and its split merge) covers every segment, with no host read
+    of ``seg``; the plain version runs each segment on its own.  Returns
+    (y (N, op) f32, next codes (N, op) int32 or None)."""
+    e = _check_grouped(codes, xraw, lw, lp, seg)
+    splits = feature_split_plan(lp.f, lp.o)[0]
+    n = codes.shape[0]
+    if codes.is_cuda:
+        return _run_grouped_cuda(codes.contiguous(),
+                                 xraw.contiguous() if lp.residual_raw
+                                 else None, lw, lp, seg.contiguous(), e,
+                                 splits)
+    y = torch.zeros((n, lp.op), dtype=torch.float32)
+    nxt = torch.zeros((n, lp.op), dtype=torch.int32) if lp.emit_codes \
+        else None
+    bounds = seg.tolist()
+    for i in range(e):
+        lo, hi = bounds[i], bounds[i + 1]
+        if hi == lo:
+            continue
+        one = {k: lw[k][i] for k in ("lut", "wc", "wb")}
+        yi, ci = run_pipeline_layer_plain(
+            codes[lo:hi], None if xraw is None else xraw[lo:hi], one, lp,
+            hi - lo, feature_splits=splits)
+        y[lo:hi] = yi
+        if nxt is not None:
+            nxt[lo:hi] = ci
+    return y, nxt
+
+
+def _run_grouped_cuda(codes, xraw, lw, lp, seg, e, splits):
+    spec = lp.spec
+    cuda.check_spec(spec)
+    n = codes.shape[0]
+    loop, row_tile = grouped_b1_loop(n, e, lp.o, spec)
+    lib = cuda.library()
+    dev = codes.device
+    y = torch.empty((n, lp.op), dtype=torch.float32, device=dev)
+    codes_out = (torch.empty((n, lp.op), dtype=torch.int32, device=dev)
+                 if lp.emit_codes else None)
+    nx = _requant_consts(lp) if lp.emit_codes else (0.0, 0.0, 0.0, 0.0, 0)
+    ws = (torch.empty((splits, n, lp.op), dtype=torch.float32, device=dev)
+          if splits > 1 else None)
+    lut, wc, wb = (lw[k].contiguous() for k in ("lut", "wc", "wb"))
+    status = lib.kan_pipeline_layer_grouped(
+        cuda.ptr(codes), cuda.ptr(xraw), cuda.ptr(lut), cuda.ptr(wc),
+        cuda.ptr(wb), cuda.ptr(y), cuda.ptr(codes_out), cuda.ptr(ws),
+        cuda.ptr(seg), n, lp.fp, lp.op, lp.f, lp.o, spec.num_basis,
+        spec.order + 1, spec.ld, splits, -(-lp.f // splits), row_tile,
+        B1_LOOPS.index(loop), e, f32(spec.lo), f32(spec.code_step), *nx,
+        *cuda.stream_args(dev),
+    )
+    cuda.check(status)
+    cuda.LAUNCHES["kan_pipeline_layer.grouped"] += 1
+    return y, codes_out
 
 
 # ----------------------------------------------------------------------------

@@ -1,8 +1,15 @@
 """Layers of the transformer stacks: norms, RoPE and sinusoidal positions,
 GQA attention (causal, sliding-window, bidirectional and cross) with
-contiguous, rolling-window and paged KV caches, the SwiGLU / GeLU / KAN
-FFNs, the top-k MoE FFN, and the recurrent blocks: RG-LRU (RecurrentGemma)
-and Mamba-2's SSD.
+contiguous, rolling-window and paged KV caches, latent attention (MLA)
+over a latent cache, the SwiGLU / GeLU / KAN FFNs, the top-k MoE FFN and
+the dropless routed MoE (sigmoid router, shared experts, SwiGLU or KAN
+experts), and the recurrent blocks: RG-LRU (RecurrentGemma) and Mamba-2's
+SSD.
+
+MLA and the routed MoE are the port's own (the reference package has
+neither): DeepSeek-V2's latent attention (arXiv:2405.04434 §2.1) without
+q-LoRA, and DeepSeek-V3's bias-steered sigmoid router (arXiv:2412.19437
+§2.1.2), as ``modeling_deepseek.py`` computes them.
 
 Port of ``repro.models.layers``.  Params are
 plain nested dicts of tensors; init functions take an explicit
@@ -44,6 +51,7 @@ from ..core.asp_quant import ASPQuantSpec, resolve_layer_bits
 from ..core.bspline import _cardinal_bump_coeffs, bspline_basis_fast
 from ..dist import comm
 from ..kernels.attention.ref import NEG_INF
+from ..obs.trace import profile_scope
 
 __all__ = [
     "ATTN_CHUNK",
@@ -74,6 +82,14 @@ __all__ = [
     "moe_experts",
     "moe_gather",
     "moe",
+    "routed_moe",
+    "route_sigmoid",
+    "init_routed_moe",
+    "rope_pairs",
+    "init_mla",
+    "mla_attention",
+    "mla_attention_decode",
+    "mla_absorbed",
     "init_rglru",
     "rglru",
     "rglru_prefill",
@@ -158,7 +174,10 @@ def init_attention(gen, cfg: ModelConfig, *, cross: bool = False,
                    device=None) -> dict:
     """Physical head counts may be PADDED (cfg.phys_heads); padded wo rows
     start at zero, so the logical function is the published one.  A
-    ``cross`` attention has no QKV bias."""
+    ``cross`` attention has no QKV bias.  An MLA config draws
+    :func:`init_mla`'s params instead."""
+    if cfg.mla and not cross:
+        return init_mla(gen, cfg, device=device)
     d, hd = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.phys_heads, cfg.phys_kv_heads
     dt = torch_dtype(cfg)
@@ -332,7 +351,7 @@ def _sdpa_ref(q, k, v, cfg: ModelConfig, kind: str, qpos=None, kpos=None):
     PADDED to a full chunk (padded rows carry qpos = -1, are fully masked
     and give zeros)."""
     b, s, hq, d = q.shape
-    t, hkv = k.shape[1], k.shape[2]
+    t, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
     dev = q.device
     if qpos is None:
@@ -345,7 +364,7 @@ def _sdpa_ref(q, k, v, cfg: ModelConfig, kind: str, qpos=None, kpos=None):
     if s <= ATTN_CHUNK:
         out = _sdpa_chunk(q.reshape(b, s, hkv, g, d), qpos, k, v, kpos,
                           cfg, kind)
-        return out.reshape(b, s, hq, d)
+        return out.reshape(b, s, hq, dv)
 
     pad = (-s) % ATTN_CHUNK
     if pad:
@@ -356,7 +375,7 @@ def _sdpa_ref(q, k, v, cfg: ModelConfig, kind: str, qpos=None, kpos=None):
         qc = q[:, c0:c0 + ATTN_CHUNK].reshape(b, ATTN_CHUNK, hkv, g, d)
         outs.append(_sdpa_chunk(qc, qpos[c0:c0 + ATTN_CHUNK], k, v, kpos,
                                 cfg, kind))
-    out = torch.cat(outs, dim=1).reshape(b, s + pad, hq, d)
+    out = torch.cat(outs, dim=1).reshape(b, s + pad, hq, dv)
     return out[:, :s]
 
 
@@ -380,6 +399,10 @@ def attention(p, x, cfg: ModelConfig, kind: str, positions=None,
     takes q from ``x`` and k / v from ``enc_out`` (B, T, D), without RoPE,
     and "bidir" has no RoPE either."""
     b, s, _ = x.shape
+    if cfg.mla and kind != "cross":
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        return mla_attention(p, x, cfg, positions)[0]
     if kind == "cross":
         q = _q_of(p, x)
         k, v = _kv_of(p, enc_out, cfg)
@@ -454,6 +477,18 @@ def _put_rows(dst, idx: tuple, keep, src) -> None:
     dst.index_put_(idx, src[keep].to(dst.dtype))
 
 
+def _put_row_each(dst, pos, src) -> None:
+    """``dst[b, pos[b]] = src[b]`` IN PLACE for every b with ``pos[b] <
+    dst.shape[1]``, the others dropped, without reading ``pos`` on the
+    host (so a decode step can be captured in a CUDA graph): a dropped row
+    writes back what its clamped position holds."""
+    t = dst.shape[1]
+    at = pos.clamp(max=t - 1)
+    b = torch.arange(dst.shape[0], device=dst.device)
+    keep = (pos < t)[:, None]
+    dst[b, at] = torch.where(keep, src.to(dst.dtype), dst[b, at])
+
+
 def attention_decode(p, x, cache, pos, cfg: ModelConfig, kind: str,
                      block_table=None):
     """Decode-step attention.  x: (B, S, D), S=1 for one token, S=k+1 for
@@ -482,6 +517,10 @@ def attention_decode(p, x, cache, pos, cfg: ModelConfig, kind: str,
         out = _sdpa_decode(q, cache["k"], cache["v"], cfg, "cross", None,
                            None)
         return _out_proj(out, p["wo"]), cache
+    if cfg.mla:
+        if block_table is not None:
+            raise ValueError("MLA's latent cache is contiguous only")
+        return mla_attention_decode(p, x, cache, pos, cfg)
     b, s = x.shape[:2]
     dev = x.device
     positions = pos.to(torch.int64)[:, None] + torch.arange(s, device=dev)
@@ -536,8 +575,13 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, kind: str,
     """One layer's contiguous KV cache, (B, T, Hkv, D): T = max_len, or the
     rolling window min(max_len, window) for "local" layers."""
     t = min(max_len, cfg.window_size) if kind == "local" else max_len
-    shape = (batch, t, local_kv_heads(cfg), cfg.head_dim)
     dt = torch_dtype(cfg)
+    if cfg.mla and kind != "cross":
+        # the latent cache: c and the rotated shared key, (B, T, r + dr)
+        return {"ckv": torch.zeros(
+            (batch, t, cfg.kv_lora_rank + cfg.qk_rope_head_dim), dtype=dt,
+            device=device)}
+    shape = (batch, t, local_kv_heads(cfg), cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -575,6 +619,161 @@ def paged_prefill_update(kv, k, v, block_table, start, real_end):
 
 
 # ----------------------------------------------------------------------------
+# Latent attention (MLA): expanded at prefill, absorbed at decode
+# ----------------------------------------------------------------------------
+
+
+def init_mla(gen, cfg: ModelConfig, *, device=None) -> dict:
+    """MLA without q-LoRA, published layout: ``wq`` (D, H, dn + dr) (each
+    head's no-rope part, then its rotary part), ``wkva`` (D, r + dr) (the
+    latent c, then the rotary key shared by all heads), ``kv_norm`` the
+    latent's RMSNorm, ``wkvb`` (r, H, dn + dv) (each head's key part, then
+    its value) and ``wo`` (H, dv, D)."""
+    d, h = cfg.d_model, cfg.num_heads
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    dv, r = cfg.v_head_dim, cfg.kv_lora_rank
+    dt = torch_dtype(cfg)
+    sc = 1.0 / math.sqrt(d)
+    return {
+        "wq": _normal(gen, (d, h, dn + dr), sc, dt, device),
+        "wkva": _normal(gen, (d, r + dr), sc, dt, device),
+        "kv_norm": init_rmsnorm(r, device=device),
+        "wkvb": _normal(gen, (r, h, dn + dv), 1.0 / math.sqrt(r), dt, device),
+        "wo": _normal(gen, (h, dv, d), 1.0 / math.sqrt(h * dv), dt, device),
+    }
+
+
+def rope_pairs(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotary embedding on the pairs (x[2i], x[2i+1]) at frequency i, as
+    the published DeepSeek code applies it (it de-interleaves, then rotates
+    the halves); the result is in that de-interleaved order.  x: (B, S, H,
+    D)."""
+    return rope(torch.cat([x[..., 0::2], x[..., 1::2]], dim=-1), positions,
+                theta)
+
+
+def _mla_latent(p, x, cfg: ModelConfig, positions):
+    """(q_nope (B, S, H, dn), rotated q_pe (B, S, H, dr), the cache rows
+    (B, S, r + dr): the normed latent c, then the rotated shared key)."""
+    r, dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    q = _proj(x, p["wq"])
+    q_pe = rope_pairs(q[..., dn:], positions, cfg.rope_theta)
+    kva = x @ p["wkva"]
+    c = rmsnorm(p["kv_norm"], kva[..., :r], cfg.norm_eps)
+    k_pe = rope_pairs(kva[..., None, r:], positions, cfg.rope_theta)[:, :, 0]
+    return q[..., :dn], q_pe, torch.cat([c, k_pe], dim=-1)
+
+
+def _mla_expand(p, ckv, cfg: ModelConfig):
+    """The expanded K (B, T, H, dn + dr) and V (B, T, H, dv) of latent
+    cache rows ``ckv`` (B, T, r + dr)."""
+    r, dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    kv = _proj(ckv[..., :r], p["wkvb"])
+    b, t, h, _ = kv.shape
+    k_pe = ckv[:, :, None, r:].expand(b, t, h, cfg.qk_rope_head_dim)
+    return torch.cat([kv[..., :dn], k_pe], dim=-1), kv[..., dn:]
+
+
+def mla_attention(p, x, cfg: ModelConfig, positions):
+    """Causal MLA over the whole sequence in the expanded form: q . k over
+    dn + dr dims at scale 1/sqrt(dn + dr), v of dv.  Returns (out (B, S,
+    D), the latent cache rows (B, S, r + dr)).  Backend "flash" runs kernel
+    B2 at the smallest of its head dims that holds dn + dr (256 for
+    Moonlight's 192): q and k zero-padded past dn + dr (their products
+    unchanged), v past dv (its extra outputs dropped); "ref" the chunked
+    composition."""
+    from ..runtime.attention import ATTN_DISPATCH_COUNTS, resolve_attn_backend
+
+    q_nope, q_pe, ckv = _mla_latent(p, x, cfg, positions)
+    k, v = _mla_expand(p, ckv, cfg)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    name = resolve_attn_backend()
+    ATTN_DISPATCH_COUNTS[name] += 1
+    qpos = positions[0]
+    if name == "flash":
+        from ..kernels.attention import SUPPORTED_HEAD_DIMS, flash_attention
+
+        dqk, dv = q.shape[-1], v.shape[-1]
+        d = min(n for n in SUPPORTED_HEAD_DIMS if n >= dqk)
+        out = flash_attention(
+            F.pad(q, (0, d - dqk)), F.pad(k, (0, d - dqk)),
+            F.pad(v, (0, d - dv)), kind="causal", qpos=qpos, kpos=qpos,
+            scale=1.0 / math.sqrt(dqk))[..., :dv]
+    else:
+        out = _sdpa_ref(q, k, v, cfg, "global", qpos=qpos, kpos=qpos)
+    return _out_proj(out.to(x.dtype), p["wo"]), ckv
+
+
+def _bmm_f32(a, b):
+    """``a @ b`` batched with a float32 result: the card's bfloat16 GEMM
+    accumulates in float32 and keeps it (``out_dtype``); elsewhere the
+    operands are taken to float32 first."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def mla_absorbed(p, q_nope, q_pe, ckv, positions, cfg: ModelConfig):
+    """Attention of the queries at ``positions`` (B, S) over the latent
+    cache ``ckv`` (B, T, r + dr) in the absorbed form, without expanding K
+    or V: q_nope . W_UK into the latent (f32), scores against c plus q_pe .
+    k_pe, a causal softmax in f32, the probabilities' weighted sum of c,
+    then W_UV.  Backend "flash" attends with B2's latent instance
+    (``kernels.attention.mla_attention``: every head over the one latent
+    head, each cached row read once, up to the query's position); "ref"
+    with batched products over every cache row (float32 out).  Returns (B,
+    S, H, dv) f32."""
+    from ..runtime.attention import resolve_attn_backend
+
+    r, dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    dr = cfg.qk_rope_head_dim
+    b, s, h, _ = q_nope.shape
+    t = ckv.shape[1]
+    w = p["wkvb"].to(torch.float32)
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope.to(torch.float32),
+                         w[..., :dn])
+    qc = torch.cat([q_lat, q_pe.to(torch.float32)], dim=-1).to(ckv.dtype)
+    scale = 1.0 / math.sqrt(dn + dr)
+    if resolve_attn_backend() == "flash":
+        from ..kernels.attention import mla_attention
+
+        o_lat = mla_attention(qc, ckv, positions, dv=r, scale=scale)
+    else:
+        scores = _bmm_f32(qc.reshape(b, s * h, r + dr),
+                          ckv.transpose(1, 2)) * scale
+        kpos = torch.arange(t, device=ckv.device)
+        mask = (kpos[None, None, :] <= positions[:, :, None])[:, :, None, :]
+        probs = _masked_softmax(scores.reshape(b, s, h, t), mask)
+        o_lat = _bmm_f32(probs.reshape(b, s * h, t).to(ckv.dtype),
+                         ckv[..., :r]).reshape(b, s, h, r)
+    return torch.einsum("bshr,rhd->bshd", o_lat, w[..., dn:])
+
+
+def mla_attention_decode(p, x, cache, pos, cfg: ModelConfig):
+    """A decode (S = 1) or verify (S = k + 1) step of MLA over the
+    contiguous latent cache {"ckv": (B, T, r + dr)}: the new rows are
+    written IN PLACE at pos..pos+S-1 (positions past T dropped), and the
+    queries attend in the absorbed form (:func:`mla_absorbed`, under the
+    ``model.mla.attend`` range).  Returns (out (B, S, D), cache)."""
+    b, s = x.shape[:2]
+    dev = x.device
+    positions = pos.to(torch.int64)[:, None] + torch.arange(s, device=dev)
+    q_nope, q_pe, new = _mla_latent(p, x, cfg, positions)
+    ckv = cache["ckv"]
+    if s == 1:
+        _put_row_each(ckv, positions[:, 0], new[:, 0])
+    else:
+        bidx = torch.arange(b, device=dev)[:, None].expand(b, s)
+        _put_rows(ckv, (bidx, positions), positions < ckv.shape[1], new)
+    with profile_scope("model.mla.attend"):
+        out = mla_absorbed(p, q_nope, q_pe, ckv, positions, cfg)
+    return _out_proj(out.to(x.dtype), p["wo"]), cache
+
+
+# ----------------------------------------------------------------------------
 # FFN: SwiGLU / GeLU / KAN
 # ----------------------------------------------------------------------------
 
@@ -584,22 +783,13 @@ def init_ffn(gen, cfg: ModelConfig, *, device=None) -> dict:
     dt = torch_dtype(cfg)
     sc_in, sc_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f) if f else 0.0
     if cfg.ffn_kind == "swiglu":
-        return {"wi": _normal(gen, (d, f), sc_in, dt, device),
-                "wg": _normal(gen, (d, f), sc_in, dt, device),
-                "wo": _normal(gen, (f, d), sc_out, dt, device)}
+        return _init_swiglu(gen, d, f, dt, device)
     if cfg.ffn_kind == "gelu":
         return {"wi": _normal(gen, (d, f), sc_in, dt, device),
                 "wo": _normal(gen, (f, d), sc_out, dt, device)}
     if cfg.ffn_kind == "kan":
-        nb = cfg.kan_grid + cfg.kan_order
-        h = kan_ffn_hidden(cfg)
-        # KANLinear pair d -> h -> d; c: (in, nb, out), w_b: (in, out)
-        return {
-            "c1": _normal(gen, (d, nb, h), 0.1 / math.sqrt(d), dt, device),
-            "wb1": _normal(gen, (d, h), sc_in, dt, device),
-            "c2": _normal(gen, (h, nb, d), 0.1 / math.sqrt(h), dt, device),
-            "wb2": _normal(gen, (h, d), 1.0 / math.sqrt(h), dt, device),
-        }
+        return _init_kan_pair(gen, d, kan_ffn_hidden(cfg),
+                              cfg.kan_grid + cfg.kan_order, dt, device)
     if cfg.ffn_kind == "none":
         return {}
     raise ValueError(cfg.ffn_kind)
@@ -749,16 +939,14 @@ def ffn(p, x, cfg: ModelConfig):
 
 def init_moe(gen, cfg: ModelConfig, *, device=None) -> dict:
     """Router (D, E) in f32 and SwiGLU experts wi / wg (E, D, F), wo
-    (E, F, D) in the config's dtype."""
+    (E, F, D) in the config's dtype; a routed config's layer is
+    :func:`init_routed_moe`'s."""
+    if cfg.routed_moe:
+        return init_routed_moe(gen, cfg, device=device)
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
-    dt = torch_dtype(cfg)
-    sc_in, sc_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
-    return {
-        "router": _normal(gen, (d, e), sc_in, torch.float32, device),
-        "wi": _normal(gen, (e, d, f), sc_in, dt, device),
-        "wg": _normal(gen, (e, d, f), sc_in, dt, device),
-        "wo": _normal(gen, (e, f, d), sc_out, dt, device),
-    }
+    return {"router": _normal(gen, (d, e), 1.0 / math.sqrt(d), torch.float32,
+                              device),
+            **_init_swiglu(gen, d, f, torch_dtype(cfg), device, (e,))}
 
 
 def moe_capacity(t: int, cfg: ModelConfig) -> int:
@@ -878,7 +1066,11 @@ def moe(p, x, cfg: ModelConfig):
     """Top-k MoE over (B, S, D): :func:`moe_dispatch`, :func:`moe_experts`
     and :func:`moe_gather`.  Where the layout cut the experts' hidden dim,
     each rank's partial expert outputs are summed over the group before
-    the gates multiply them and a token's k rows are combined in order."""
+    the gates multiply them and a token's k rows are combined in order.
+    A routed config's layer (``cfg.routed_moe``) runs
+    :func:`routed_moe` instead."""
+    if cfg.routed_moe:
+        return routed_moe(p, x, cfg)
     xe, dest, flat_g = moe_dispatch(p, x, cfg)
     ye = moe_experts(p, xe)
     tp = comm.tp_layout()
@@ -886,6 +1078,138 @@ def moe(p, x, cfg: ModelConfig):
         ye = comm.tp_reduce(ye, tp.group)
     return moe_gather(ye, dest, flat_g, x.shape, x.dtype)
 
+
+
+# ----------------------------------------------------------------------------
+# Routed MoE (DeepSeek-V3): sigmoid router with a selection bias, dropless,
+# shared experts; SwiGLU or KAN experts
+# ----------------------------------------------------------------------------
+
+
+def _init_kan_pair(gen, d: int, h: int, nb: int, dt, device,
+                   lead: tuple = ()) -> dict:
+    """A KANLinear pair d -> h -> d, c: (in, nb, out), w_b: (in, out),
+    with leading dims ``lead`` (the experts)."""
+    return {
+        "c1": _normal(gen, lead + (d, nb, h), 0.1 / math.sqrt(d), dt, device),
+        "wb1": _normal(gen, lead + (d, h), 1.0 / math.sqrt(d), dt, device),
+        "c2": _normal(gen, lead + (h, nb, d), 0.1 / math.sqrt(h), dt, device),
+        "wb2": _normal(gen, lead + (h, d), 1.0 / math.sqrt(h), dt, device),
+    }
+
+
+def _init_swiglu(gen, d: int, f: int, dt, device, lead: tuple = ()) -> dict:
+    """SwiGLU wi / wg (d, f), wo (f, d), with leading dims ``lead``."""
+    sc_in, sc_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    return {"wi": _normal(gen, lead + (d, f), sc_in, dt, device),
+            "wg": _normal(gen, lead + (d, f), sc_in, dt, device),
+            "wo": _normal(gen, lead + (f, d), sc_out, dt, device)}
+
+
+def init_routed_moe(gen, cfg: ModelConfig, *, device=None) -> dict:
+    """Router (D, E) and, with ``router_bias``, the selection bias (E,) in
+    f32 (it starts at zero), the E routed experts stacked on a leading axis
+    and the shared experts as one MLP of ``num_shared_experts * moe_d_ff`` (``"shared"``):
+    KAN-FFN pairs of ``kan_expert_hidden`` / ``kan_shared_hidden`` in a
+    ``kan_variant()``, else SwiGLU."""
+    d, e = cfg.d_model, cfg.num_experts
+    dt = torch_dtype(cfg)
+    f = cfg.moe_d_ff or cfg.d_ff
+    p = {"router": _normal(gen, (d, e), 1.0 / math.sqrt(d), torch.float32,
+                           device)}
+    if cfg.router_bias:
+        p["bias"] = torch.zeros((e,), dtype=torch.float32, device=device)
+    if cfg.ffn_kind == "kan":
+        nb = cfg.kan_grid + cfg.kan_order
+        p.update(_init_kan_pair(gen, d, cfg.kan_expert_hidden, nb, dt,
+                                device, (e,)))
+        if cfg.num_shared_experts:
+            p["shared"] = _init_kan_pair(gen, d, cfg.kan_shared_hidden, nb,
+                                         dt, device)
+    else:
+        p.update(_init_swiglu(gen, d, f, dt, device, (e,)))
+        if cfg.num_shared_experts:
+            p["shared"] = _init_swiglu(gen, d, cfg.num_shared_experts * f,
+                                       dt, device)
+    return p
+
+
+def route_sigmoid(p, xt, cfg: ModelConfig):
+    """Route (T, D) tokens as DeepSeek-V3 with one expert group: scores s =
+    sigmoid(x W_r) in f32; the top-k of s + bias select (the bias steers
+    selection only; lower expert first on ties); gates are the selected s,
+    over their sum where ``router_norm_topk``, times ``routed_scaling``.
+    Nothing is dropped.  Returns ``(gates (T, k) f32, flat_e (T*k,),
+    order (T*k,), seg (E+1,) int32)``: ``order`` sorts the assignments by
+    expert (stable, so token order within an expert), and expert e's
+    rows of that order are ``seg[e]:seg[e+1]``.  Every index stays on the
+    device."""
+    t = xt.shape[0]
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    s = torch.sigmoid(xt.to(torch.float32) @ p["router"])
+    sel = s + p["bias"] if "bias" in p else s
+    # a stable descending sort keeps the lower index first among equals
+    topi = torch.sort(sel, dim=-1, descending=True, stable=True)[1][:, :k]
+    g = s.gather(1, topi)
+    if cfg.router_norm_topk:
+        g = g / (g.sum(-1, keepdim=True) + 1e-20)
+    g = g * cfg.routed_scaling
+    flat_e = topi.reshape(t * k)
+    order = torch.argsort(flat_e, stable=True)
+    seg = torch.searchsorted(flat_e[order],
+                             torch.arange(e + 1, device=xt.device))
+    return g, flat_e, order, seg.to(torch.int32)
+
+
+def routed_combine(y_sorted, order, gates):
+    """Each token's k expert outputs (rows of ``y_sorted`` in ``order``'s
+    expert-sorted order) times their gates, summed in f32 in the token's
+    order of k: (T, D) f32."""
+    t, k = gates.shape
+    y = torch.empty_like(y_sorted).index_copy_(0, order, y_sorted)
+    return (y.reshape(t, k, -1).to(torch.float32) * gates[..., None]).sum(1)
+
+
+def _float_expert(pe, x, cfg: ModelConfig, kan: bool):
+    if kan:
+        h = _kan_linear(pe["c1"], pe["wb1"], x, cfg)
+        return _kan_linear(pe["c2"], pe["wb2"], h, cfg)
+    return (F.silu(x @ pe["wg"]) * (x @ pe["wi"])) @ pe["wo"]
+
+
+def routed_moe(p, x, cfg: ModelConfig):
+    """The routed layer over (B, S, D).  A deployed KAN layer (key
+    ``"deployed"``) runs ``core.kan_ffn_deploy.kan_moe_apply_quantized``
+    (one grouped B1 launch per half); float experts run one by one over
+    their rows (the counts are read on the host).  The shared experts'
+    output is added ungated."""
+    if "deployed" in p:
+        from ..core.kan_ffn_deploy import kan_moe_apply_quantized
+
+        return kan_moe_apply_quantized(p, x, cfg)
+    b, s, d = x.shape
+    kan = "c1" in p
+    xt = x.reshape(b * s, d)
+    with profile_scope("model.moe.route"):
+        gates, flat_e, order, seg = route_sigmoid(p, xt, cfg)
+    k = cfg.num_experts_per_tok
+    with profile_scope("model.moe.experts"):
+        tok = order // k
+        bounds = seg.tolist()
+        y = torch.zeros((b * s * k, d), dtype=x.dtype, device=x.device)
+        for e in range(cfg.num_experts):
+            lo, hi = bounds[e], bounds[e + 1]
+            if hi > lo:
+                pe = {n: w[e] for n, w in p.items()
+                      if n not in ("router", "bias", "shared")}
+                y[lo:hi] = _float_expert(pe, xt[tok[lo:hi]][None], cfg,
+                                         kan)[0].to(x.dtype)
+    out = routed_combine(y, order, gates)
+    if "shared" in p:
+        with profile_scope("model.moe.shared"):
+            out = out + _float_expert(p["shared"], xt[None], cfg,
+                                      kan)[0].to(torch.float32)
+    return out.to(x.dtype).reshape(b, s, d)
 
 # ----------------------------------------------------------------------------
 # RG-LRU recurrent block (RecurrentGemma / Griffin)

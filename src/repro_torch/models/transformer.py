@@ -9,8 +9,10 @@ and cache are views into the stacked tensors, and the caches are written
 in place through those views.
 
 "global", "local" (sliding-window) and "bidir" (the encoder's) attention
-layers with a dense or MoE FFN, "rglru" (RG-LRU) layers with an FFN, and
-"ssm" (Mamba-2) layers without one.  A recurrent layer's decode state
+layers (GQA, or MLA over a latent cache where ``cfg.mla``) with a dense or
+MoE FFN (a MoE model's ``first_dense_layers`` form a group of their own),
+"rglru" (RG-LRU) layers with an FFN, and "ssm" (Mamba-2) layers without
+one.  A recurrent layer's decode state
 (``l{i}_rnn`` / ``l{i}_ssm``) is written in place like a KV cache.  A
 decoder stack built with ``cross`` has a cross-attention sublayer after
 each layer's mixer (``l{i}_xattn`` / ``l{i}_lnx``): q from the residual
@@ -36,6 +38,7 @@ from ..runtime.attention import resolve_attn_backend, use_attn_backend
 from . import layers as L
 
 __all__ = [
+    "dense_groups",
     "layer_groups",
     "init_stack",
     "stack_forward",
@@ -49,11 +52,25 @@ __all__ = [
 ]
 
 
+def dense_groups(cfg: ModelConfig) -> int:
+    """How many leading groups of :func:`layer_groups` hold the leading
+    dense-FFN layers of a MoE model (``first_dense_layers``): 0 or 1."""
+    return 1 if cfg.first_dense_layers and cfg.num_experts > 0 else 0
+
+
 def layer_groups(cfg: ModelConfig):
-    """[(kinds_tuple, repeats)]: one stacked group + optional remainder."""
+    """[(kinds_tuple, repeats)]: one stacked group + optional remainder;
+    a MoE model's leading dense layers come first as a group of their own
+    (their FFN is dense, the rest's MoE)."""
     period = len(cfg.attn_pattern)
-    full, rem = divmod(cfg.num_layers, period)
     groups = []
+    n = cfg.num_layers
+    if dense_groups(cfg):
+        if period != 1:
+            raise ValueError("leading dense layers need a one-kind pattern")
+        groups.append((tuple(cfg.attn_pattern), cfg.first_dense_layers))
+        n -= cfg.first_dense_layers
+    full, rem = divmod(n, period)
     if full:
         groups.append((tuple(cfg.attn_pattern), full))
     if rem:
@@ -86,8 +103,10 @@ def stack_trees(trees: list):
     return torch.stack(trees)
 
 
-def _init_block(gen, cfg: ModelConfig, kinds, cross: bool, device) -> dict:
-    """One block = len(kinds) layers; params keyed l{i}_*."""
+def _init_block(gen, cfg: ModelConfig, kinds, cross: bool, device,
+                dense: bool = False) -> dict:
+    """One block = len(kinds) layers; params keyed l{i}_*; ``dense``: a
+    MoE model's leading dense layer (a dense FFN)."""
     p = {}
     for i, kind in enumerate(kinds):
         if kind == "rglru":
@@ -105,7 +124,7 @@ def _init_block(gen, cfg: ModelConfig, kinds, cross: bool, device) -> dict:
         ffn = kind != "ssm" and cfg.ffn_kind != "none"
         if ffn:
             # MoE takes precedence over ffn_kind, as in the reference
-            if cfg.num_experts > 0:
+            if cfg.num_experts > 0 and not dense:
                 p[f"l{i}_moe"] = L.init_moe(gen, cfg, device=device)
             else:
                 p[f"l{i}_ffn"] = L.init_ffn(gen, cfg, device=device)
@@ -128,7 +147,8 @@ def init_stack(gen, cfg: ModelConfig, *, cross: bool = False,
         _check_kinds(kinds)
         blocks = []
         for _ in range(repeats):
-            bp = _init_block(gen, cfg, kinds, cross, device)
+            bp = _init_block(gen, cfg, kinds, cross, device,
+                             dense=gi < dense_groups(cfg))
             blocks.append(bp if place is None else map_with_path(
                 place, bp, f"{path}/{gi}" if path else str(gi)))
         groups.append(stack_trees(blocks))
@@ -283,6 +303,8 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def init_stack_cache_paged(cfg: ModelConfig, num_blocks: int,
                            block_size: int, *, device=None) -> list:
     """Paged-pool caches: each l{i}_kv leaf is (repeats, NB, bs, Hkv, D)."""
+    if cfg.mla:
+        raise ValueError("MLA's latent cache is contiguous only")
     caches = []
     for kinds, repeats in layer_groups(cfg):
         for kind in kinds:
@@ -359,6 +381,16 @@ def stack_prefill(groups, caches, x, cfg: ModelConfig, positions=None,
                 h = _recurrent(bp, h, cfg, i, kind, cache)
                 x = _post_attn(bp, x, h, cfg, i)
                 x = _prefill_cross(bp, x, cfg, i, cache, enc_out)
+                with profile_scope("model.ffn"):
+                    x = _ffn_sublayer(bp, x, cfg, i)
+                continue
+            if cfg.mla:
+                with profile_scope("model.attention"):
+                    h, ckv = L.mla_attention(bp[f"l{i}_attn"], h, cfg,
+                                             positions)
+                    lat = cache[f"l{i}_kv"]["ckv"]
+                    lat[:, :s] = ckv.to(lat.dtype)
+                x = _post_attn(bp, x, h, cfg, i)
                 with profile_scope("model.ffn"):
                     x = _ffn_sublayer(bp, x, cfg, i)
                 continue

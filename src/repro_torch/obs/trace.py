@@ -239,6 +239,9 @@ _NULL_SCOPE = contextlib.nullcontext()
 # their change over the last annotated interval (profiled_counts)
 _COUNTS_AT_ENABLE: dict = {}
 _PROFILED_COUNTS: dict = {}
+# set while a CUDA graph is captured (``serve.decode_graph``): every scope
+# entered then is a cut between two graphs, and no profiler range
+_SCOPE_CUT = None
 
 
 def _numeric_series() -> dict:
@@ -287,7 +290,10 @@ def profile_scope(name: str):
     """``torch.profiler.record_function(name)`` when annotations are
     enabled; one shared null context otherwise, safe to wrap hot dispatch
     sites unconditionally.  A ``record_function`` range has a name only:
-    call sites pass a constant string."""
+    call sites pass a constant string.  While a decode graph is captured,
+    the scope is a cut between two of its graphs instead."""
+    if _SCOPE_CUT is not None:
+        return _SCOPE_CUT(name)
     if not _PROFILER_ANNOTATIONS:
         return _NULL_SCOPE
     import torch

@@ -69,6 +69,12 @@ request ``deadline_s`` or future ``arrival_s`` is decided on rank 0's
 clock, which the scheduler broadcasts (``scheduler.MeshClock``).  A 1x1
 mesh serves the same tokens as no mesh.
 
+``cuda_graphs=True`` (one CUDA device, the contiguous cache) runs the
+first decode step eagerly and captures it; every later step replays it
+(:class:`.decode_graph.DecodeGraph`), so a step no longer waits while
+Python issues its kernels.  The step's ranges and counters read as an
+eager step's.
+
 An audio or vlm model is refused: its prefill needs stub embeddings beside
 the tokens, which the engine does not carry (the reference's engine raises
 ``KeyError`` there).
@@ -93,6 +99,7 @@ from ..models import model as M
 from ..obs import REGISTRY as _OBS_REGISTRY
 from ..obs.trace import profile_scope
 from ..runtime.meshexec import mesh_axis_sizes, mesh_index
+from .decode_graph import DecodeGraph
 from .kvpool import KVBlockPool, merged_stats
 
 __all__ = ["Request", "ServeEngine", "SlotShards",
@@ -125,8 +132,9 @@ def prefill_bucketing_supported(cfg: ModelConfig) -> bool:
 
 def paged_kv_supported(cfg: ModelConfig) -> bool:
     """Paged KV needs every layer's decode state to be a block-structured
-    KV cache: the same pure global-attention predicate."""
-    return prefill_bucketing_supported(cfg)
+    KV cache: the same pure global-attention predicate, and GQA (MLA's
+    latent cache is contiguous only)."""
+    return prefill_bucketing_supported(cfg) and not cfg.mla
 
 
 @dataclasses.dataclass
@@ -268,7 +276,8 @@ class ServeEngine:
                  kv_block_size: int | None = None,
                  kv_blocks: int | None = None, prefix_cache: bool = True,
                  prefill_chunk: int | None = None,
-                 spec_decode: int = 0, draft_spec=None, device=None):
+                 spec_decode: int = 0, draft_spec=None, device=None,
+                 cuda_graphs: bool = False):
         refusal = M.tokens_only_refusal(cfg, "the serving engine")
         if refusal:
             raise ValueError(refusal)
@@ -382,6 +391,14 @@ class ServeEngine:
         elif draft_spec is not None:
             raise ValueError("draft_spec without spec_decode=k has no effect")
         del float_params
+
+        # -- decode steps replayed from CUDA graphs (cuda_graphs=True) -------
+        if cuda_graphs and (self.device.type != "cuda" or self.paged
+                            or mesh is not None):
+            raise ValueError("cuda_graphs takes a contiguous cache on one "
+                             "CUDA device")
+        self.cuda_graphs = cuda_graphs
+        self._decode_graph = None
 
     # -- backend scope ----------------------------------------------------
 
@@ -611,9 +628,20 @@ class ServeEngine:
         rows = self.shards.rows
         self.decode_calls += 1
         with self._scope(split_rows=True), profile_scope("serve.decode_step"):
+            token = self._tensor(rows(np.asarray(tokens)))
+            pos = self._tensor(rows(self.pos))
+            if self._decode_graph is not None:
+                return self._decode_graph(token, pos)
+            if self.cuda_graphs:
+                # this step runs eagerly, then is captured; later steps
+                # replay its kernels
+                self._decode_graph = DecodeGraph(
+                    lambda t, p: M.decode_step(self.params, self.cache, t, p,
+                                               self.cfg)[0], (token, pos))
+                return self._decode_graph.first
             logits, self.cache = M.decode_step(
-                self.params, self.cache, self._tensor(rows(np.asarray(tokens))),
-                self._tensor(rows(self.pos)), self.cfg, block_table=tables,
+                self.params, self.cache, token, pos, self.cfg,
+                block_table=tables,
             )
             return self.shards.gather(logits)
 

@@ -87,8 +87,10 @@ def _configs(name, **kw):
 
 def _weights(name, seed=0, **kw):
     jcfg, cfg = _configs(name, **kw)
+    # every field of the reference's config equal, and the port's own
+    # fields (MLA, the routed MoE) at their defaults
     assert cfg == type(cfg)(**{f: getattr(jcfg, f)
-                               for f in cfg.__dataclass_fields__})
+                               for f in jcfg.__dataclass_fields__})
     jp = JM.init_params(jax.random.PRNGKey(seed), jcfg)
     return jcfg, cfg, jp, convert.lm_params_from_numpy(_np(jp), device="cpu")
 

@@ -11,7 +11,12 @@ within 2e-5 + 2e-5 * |plain|, bf16 within one more bf16 ulp, fully masked
 rows exact zeros), small cases, the tensor-core instance with its KV axis
 split, and the serving path's own shapes; B1's rows bit-identical at 8
 and 1024 rows, packed == unpacked with feature splits, its register loop
-bit-identical to its gather loop, padded columns of a noisy layer; the launch counters once per call of two kernels; B4
+bit-identical to its gather loop, padded columns of a noisy layer, its
+grouped launch over 64 KAN experts bit-identical to one launch per expert
+(and each segment within the B1 gate of the plain version); B2's latent
+(MLA) decode instance against the plain recurrence, and one full-width
+MLA layer of Moonlight-16B-A3B on B2 (prefill at D = 256, decode on the
+latent instance) against the "ref" backend; the launch counters once per call of two kernels; B4
 through ``repro_torch.kernels.cim_mac.cardcheck`` (the reference's ADC
 contract: within one ADC LSB per array, >= 95% tight; the zero-IR 24-bit
 case the plain matmul within 1e-3 relative plus half an LSB per array);
@@ -387,6 +392,113 @@ def test_b1_register_loop_bit_identical_to_the_gather(dev, name, f, o, flags,
     gen = torch.Generator(device=dev).manual_seed(40 + rows + order)
     st = cc.check_b1_loops(dev, gen, f, o, flags, rows, order)
     assert st["equal"] and st["rule"] == "regs"
+
+
+@pytest.mark.parametrize("name,f,o,emit,rows", cc.B1_GROUPED_CASES)
+def test_b1_grouped_launch_bit_identical_to_one_launch_per_expert(
+        dev, name, f, o, emit, rows):
+    """B1's grouped launch over 64 experts' full-width 2048 x 128 (and
+    128 x 2048) KAN halves, rows sorted by expert with every fifth expert
+    empty, gives the bits of one B1 launch per expert, y and codes: at
+    decode's ~24 rows an expert (the gather) and a prefill's ~190 (the
+    register loop)."""
+    gen = torch.Generator(device=dev).manual_seed(77 + rows + f)
+    st = cc.check_b1_grouped(dev, gen, f, o, emit, rows)
+    assert st["equal"] and st["empty"] >= 12
+    assert st["rule"] == ("gather" if rows < 64 else "regs")
+
+
+@pytest.mark.parametrize("name,b,s,t", ac.B2_MLA)
+def test_b2_latent_instance_matches_plain(dev, name, b, s, t):
+    """B2's latent decode instance (16 heads over one 576-value latent head,
+    its first 512 values the value) against the plain recurrence, within
+    2e-5 + 2e-5 * |plain| + 2^-15 max |value|, at 256 slots (KV axis split
+    two ways), a small batch (split many ways), a verify step and a cache
+    shorter than one tile; launched once per call."""
+    gen = torch.Generator(device=dev).manual_seed(91 + b + s + t)
+    st = ac.check_mla(dev, gen, name, b, s, t)
+    assert st["max_err_over_tol"] <= 1.0 and st["keys"] >= b
+
+
+def test_moonlight_mla_layer_on_b2_matches_ref_attention(dev):
+    """One full-width MLA layer of Moonlight-16B-A3B (16 heads, latent 512
+    + 64, bf16): a 300-token prefill on B2 (q and k zero-padded to D = 256)
+    and three decode steps on the latent instance, against the "ref"
+    backend's expanded prefill and batched absorbed decode, within 2 bf16
+    ulps of the largest |output| (both compute in f32 and round once)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(get_config("moonlight-16b-a3b").kan_variant(),
+                              num_layers=1)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p = L.init_mla(gen, cfg, device=dev)
+    b, s, t = 2, 300, 512
+    x = torch.randn(b, s + 3, cfg.d_model, generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    outs = {}
+    before = cuda.launch_counts()
+    for backend in ("flash", "ref"):
+        with runtime.use_attn_backend(backend):
+            y, ckv = L.mla_attention(p, x[:, :s], cfg, pos)
+            cache = {"ckv": torch.zeros(b, t, ckv.shape[-1], device=dev,
+                                        dtype=ckv.dtype)}
+            cache["ckv"][:, :s] = ckv
+            ys = [y]
+            for i in range(3):
+                yi, cache = L.mla_attention_decode(
+                    p, x[:, s + i:s + i + 1], cache,
+                    torch.full((b,), s + i, device=dev), cfg)
+                ys.append(yi)
+        outs[backend] = torch.cat(ys, 1).float()
+    after = cuda.launch_counts()
+    assert after.get("flash_attention", 0) - before.get("flash_attention", 0) \
+        == 1
+    assert (after.get("flash_attention.mla", 0)
+            - before.get("flash_attention.mla", 0)) == 3
+    err = (outs["flash"] - outs["ref"]).abs().max().item()
+    assert err <= 2 * ac.bf16_ulp(outs["ref"].abs().max()).item(), err
+
+
+def test_decode_graph_replays_the_eager_decode_step(dev):
+    """Moonlight's KAN variant at smoke width, served through the engine
+    and its scheduler with and without ``cuda_graphs``: the same tokens,
+    the same launch and MoE row counts (a replay counts as an eager step),
+    and a graph cut at each range the step enters."""
+    import dataclasses
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.kan_ffn_deploy import MOE_COUNTS
+    from repro_torch.models import model as M
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = dataclasses.replace(smoke_config("moonlight-16b-a3b-kanffn"),
+                              dtype="float32")
+    p = M.init_params(torch.Generator().manual_seed(8), cfg, device="cpu")
+    runs = {}
+    for graphs in (False, True):
+        eng = ServeEngine(p, cfg, slots=4, max_len=64, kan_deploy=True,
+                          attn_backend="ref", device=dev,
+                          cuda_graphs=graphs)
+        reqs = [Request(rid=i, prompt=list(range(5, 12 + i)),
+                        max_new_tokens=9, eos_id=-1) for i in range(6)]
+        launches, rows = cuda.launch_counts(), dict(MOE_COUNTS)
+        done = eng.run(reqs)
+        after = cuda.launch_counts()
+        runs[graphs] = (
+            {r.rid: list(r.output) for r in done},
+            {k: after[k] - launches.get(k, 0) for k in after},
+            {k: v - rows.get(k, 0) for k, v in MOE_COUNTS.items()},
+            eng.decode_calls)
+        if graphs:
+            names = [x for kind, x in eng._decode_graph.steps
+                     if kind == "enter"]
+            assert {"model.attention", "model.mla.attend", "model.ffn",
+                    "model.moe.experts"} <= set(names)
+    assert runs[True] == runs[False]
 
 
 def test_b1_padded_columns_of_a_noisy_layer(dev):

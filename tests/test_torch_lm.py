@@ -70,8 +70,10 @@ def models():
         jcfg, cfg = j_smoke("qwen2.5-14b"), smoke_config("qwen2.5-14b")
         if name == "qwen_kan":
             jcfg, cfg = jcfg.kan_variant(), cfg.kan_variant()
+        # every field of the reference's config equal, and the port's
+        # own fields (MLA, the routed MoE) at their defaults
         assert cfg == type(cfg)(**{f: getattr(jcfg, f) for f in
-                                   cfg.__dataclass_fields__})
+                                   jcfg.__dataclass_fields__})
         jp = JM.init_params(jax.random.PRNGKey(0), jcfg)
         out[name] = (jcfg, cfg, jp,
                      convert.lm_params_from_numpy(_np(jp), device="cpu"))

@@ -51,12 +51,15 @@ torch.set_num_threads(1)
 LABEL_ALIASES = {"runtime.backend_dispatch{backend=pallas}":
                  "runtime.backend_dispatch{backend=fused}"}
 # series only the port exports (its collectors feed them from start): the
-# executor's rows and host bytes, the engine's prompt tokens, set-up seconds
+# executor's rows and host bytes, the engine's prompt tokens, set-up
+# seconds, the routed KAN MoE's rows and grouped launches
 PORT_ONLY_SERIES = {
     "runtime.rows{kind=real}", "runtime.rows{kind=pad}", "runtime.h2d_bytes",
     "serve.prompt_tokens{kind=real}", "serve.prompt_tokens{kind=pad}",
     "setup.seconds{phase=quantize}", "setup.seconds{phase=deploy}",
     "setup.seconds{phase=kernel_build}",
+    "moe.rows{kind=routed}", "moe.rows{kind=shared}", "moe.busiest_rows",
+    "moe.grouped_launches",
 }
 
 

@@ -298,6 +298,7 @@ def test_cli_spec_decode_trace_and_metrics_on_the_cpu(setup, tmp_path):
 
     trace, prom, js = (tmp_path / n for n in ("t.jsonl", "m.prom", "m.json"))
     buf = io.StringIO()
+    obs.REGISTRY.reset()  # count this run's requests alone
     try:
         with contextlib.redirect_stdout(buf):
             cli.main(["--arch", "qwen2.5-14b", "--kan-ffn", "--requests", "3",

@@ -144,15 +144,23 @@ def test_roofline_is_the_references_formula(terms, monkeypatch):
 def serve_artifacts(tmp_path_factory):
     """The files ``launch.serve --metrics-dump / --trace-out`` writes at
     smoke size on the CPU."""
+    from repro_torch import obs
     from repro_torch.launch import serve as cli
 
     d = tmp_path_factory.mktemp("obs")
     files = {"prom": d / "m.prom", "json": d / "m.json",
              "trace": d / "t.jsonl"}
-    _run(cli.main, ["--arch", "qwen2.5-14b", "--kan-ffn", "--requests", "3",
-                    "--slots", "2", "--max-new", "3", "--device", "cpu",
-                    "--metrics-dump", str(files["prom"]), "--metrics-dump",
-                    str(files["json"]), "--trace-out", str(files["trace"])])
+    try:
+        _run(cli.main, ["--arch", "qwen2.5-14b", "--kan-ffn", "--requests",
+                        "3", "--slots", "2", "--max-new", "3", "--device",
+                        "cpu", "--metrics-dump", str(files["prom"]),
+                        "--metrics-dump", str(files["json"]), "--trace-out",
+                        str(files["trace"])])
+    finally:
+        # --metrics-dump turned the process's registry on: later tests in
+        # this worker must not count into it
+        obs.disable()
+        obs.REGISTRY.reset()
     return files
 
 
